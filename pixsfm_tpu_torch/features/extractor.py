@@ -1,0 +1,170 @@
+"""Dense feature extraction (reference: pixsfm/features/extractor.py).
+
+Port of ``pixsfm_tpu/features/extractor.py``. Loads an image (a path, read
+with PIL, or an already decoded ``[H, W, 3]`` uint8 array / PIL image),
+resizes it to ``max_edge``, runs the feature model on the device and cuts a
+``[ps, ps, C]`` window around every keypoint. The windows are L2-normalized
+per pixel and cast to the storage dtype (``half`` -> bfloat16) on the
+device, and stay there as the :class:`FeatureMap`'s patches.
+
+Only sparse extraction (``sparse: true``, the default) without the H5 cache
+is ported; dense maps, the cache and batched forwards come with a later
+slice.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..config import merge
+from .featuremaps import FeatureMap, storage_dtype
+from .models import get_model
+
+__all__ = ["FeatureExtractor"]
+
+
+class FeatureExtractor:
+    default_conf = {
+        "device": "auto",
+        "dtype": "half",
+        "fast_image_load": False,
+        "l2_normalize": True,
+        "max_edge": 1600,
+        "model": {"name": "s2dnet"},
+        "patch_size": 16,
+        "pyr_scales": [1.0],
+        "resize": "LANCZOS",
+        "sparse": True,
+        # the port always keeps patches on the device; accepted for parity
+        "keep_on_device": False,
+        "prefetch_depth": 2,
+        "batch_size": 1,
+        "use_cache": False,
+        "overwrite_cache": False,
+        "load_cache_on_init": False,
+        "cache_format": "chunked",
+    }
+
+    dtype_map = {"half": "bfloat16", "float16": "float16",
+                 "bfloat16": "bfloat16", "float": "float32",
+                 "float32": "float32", "double": "float64"}
+
+    def __init__(self, conf=None, device=None):
+        self.conf = merge(self.default_conf, conf or {})
+        if not self.conf.sparse:
+            raise NotImplementedError(
+                "dense extraction (sparse: false) is not ported yet; it "
+                "comes with a later slice of pixsfm_tpu_torch")
+        if self.conf.use_cache:
+            raise NotImplementedError(
+                "the H5 feature cache is not ported yet; it comes with a "
+                "later slice of pixsfm_tpu_torch")
+        if int(self.conf.get("batch_size", 1)) > 1:
+            raise NotImplementedError(
+                "batched extraction (batch_size > 1) is not ported yet")
+        self.device = resolve_device(device if device is not None
+                                     else self.conf.get("device"))
+        model_conf = self.conf.model.to_dict() \
+            if hasattr(self.conf.model, "to_dict") else dict(self.conf.model)
+        name = model_conf.pop("name", "s2dnet")
+        self.model = get_model(name)(model_conf, device=self.device)
+        self.storage_dtype = self.dtype_map[str(self.conf.dtype)]
+
+    @property
+    def channels_per_level(self) -> List[int]:
+        return list(self.model.output_dims) * len(self.conf.pyr_scales)
+
+    # -- image loading ------------------------------------------------------
+    @staticmethod
+    def _size(image):
+        """(w, h) of a PIL image or an ``[H, W, ...]`` array."""
+        if isinstance(image, np.ndarray):
+            return image.shape[1], image.shape[0]
+        return image.size
+
+    def scaled_image_size(self, image, pyr_scale=1.0):
+        w, h = self._size(image)
+        s = min(float(self.conf.max_edge) / max(w, h), 1.0) * pyr_scale
+        return [int(round(s * w)), int(round(s * h))]
+
+    def resize_image(self, image, pyr_scale: float):
+        w_new, h_new = self.scaled_image_size(image, pyr_scale)
+        if (w_new, h_new) == tuple(self._size(image)):
+            return image
+        import PIL.Image
+        if isinstance(image, np.ndarray):
+            image = PIL.Image.fromarray(image)
+        return image.resize((w_new, h_new),
+                            getattr(PIL.Image, str(self.conf.resize)))
+
+    def load_image(self, image_path):
+        """Open + decode an image with PIL (draft decoding with
+        ``fast_image_load``); keeps the original size for keypoint scales."""
+        import PIL.Image
+        img = PIL.Image.open(image_path)
+        orig_size = img.size
+        if self.conf.fast_image_load:
+            img.draft("RGB", self.scaled_image_size(
+                img, self.conf.pyr_scales[0]))
+        img = img.convert("RGB")
+        img.original_size = orig_size
+        return img
+
+    # -- main entry ---------------------------------------------------------
+    @torch.no_grad()
+    def __call__(self, image, keypoints: Optional[np.ndarray] = None,
+                 keypoint_ids: Optional[Sequence[int]] = None) -> List:
+        """``image``: path, PIL image or decoded ``[H, W, 3]`` array.
+        Returns one :class:`FeatureMap` per level."""
+        if isinstance(image, (str, bytes)) or hasattr(image, "__fspath__"):
+            image = self.load_image(image)
+        img_size = getattr(image, "original_size", self._size(image))
+        fmaps = []
+        for pyr_scale in self.conf.pyr_scales:
+            img_pyr = self.resize_image(image, pyr_scale)
+            feats = self.model(self.model.preprocess(img_pyr))
+            for fm in feats:
+                fmaps.append(self._to_fmap(fm[0], img_size, keypoints,
+                                           keypoint_ids))
+        return fmaps
+
+    def _to_fmap(self, fmap: torch.Tensor, image_size, keypoints,
+                 keypoint_ids) -> FeatureMap:
+        """Cut, normalize and cast the keypoint windows of one ``[C, h, w]``
+        map on the device (``_compiled_extract_patches`` of the JAX
+        package; the per-pixel L2 commutes with the window cut, so only
+        the windows are normalized)."""
+        if keypoints is None:
+            raise RuntimeError("sparse extraction requires keypoints")
+        keypoints = np.asarray(keypoints, np.float64).reshape(-1, 2)
+        if keypoint_ids is None:
+            keypoint_ids = list(range(len(keypoints)))
+        elif len(keypoints) != len(keypoint_ids):
+            raise ValueError("keypoints / keypoint_ids length mismatch")
+        w, h = image_size
+        ps = int(self.conf.patch_size)
+        C, fh, fw = fmap.shape
+        scale = np.array([fw / w, fh / h])
+        if fmap.numel() <= len(keypoints) * ps * ps * C:
+            raise NotImplementedError(
+                "more keypoint windows than the dense map holds; the dense "
+                "fallback of the JAX extractor is not ported yet")
+        corners = (keypoints * scale - ps / 2.0).astype(np.int32)
+        corners = np.clip(corners, [0, 0],
+                          [max(fw - ps - 1, 0), max(fh - ps - 1, 0)])
+        dev = fmap.device
+        cr = torch.as_tensor(corners, device=dev, dtype=torch.int64)
+        off = torch.arange(ps, device=dev)
+        ys = (cr[:, 1, None] + off)[:, :, None]              # [N, ps, 1]
+        xs = (cr[:, 0, None] + off)[:, None, :]              # [N, 1, ps]
+        f = fmap.permute(1, 2, 0)[ys, xs].to(torch.float32)  # [N, ps, ps, C]
+        if self.conf.l2_normalize:
+            f = f / torch.clamp(torch.linalg.vector_norm(f, dim=-1,
+                                                         keepdim=True),
+                                min=1e-12)
+        patches = f.to(storage_dtype(self.storage_dtype)).contiguous()
+        return FeatureMap(patches, list(keypoint_ids), corners, scale)

@@ -1,0 +1,96 @@
+"""Build and load the hand-written CUDA kernels of the port.
+
+Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
+with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the hash is
+of the source and flags, so an edited source is rebuilt) and loaded with
+``ctypes``. Nothing is built when the package is imported. A failed build
+raises with nvcc's output; there is no fallback.
+
+``build_all()`` compiles every source at once, one ``nvcc`` process each.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+__all__ = ["SOURCES", "load", "build_all", "nvcc_path"]
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "_build"
+SOURCES = ("interpolate", "pcg")
+NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cands = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(str(Path(os.environ[env]) / "bin" / "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("pixsfm_tpu_torch: nvcc not found (set CUDA_HOME); "
+                       "the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=SOURCES) -> List[str]:
+    """Compile every missing library, one ``nvcc`` process per source, all
+    started together; returns the names built."""
+    with _lock:
+        todo = {n: _target(n) for n in names if not _target(n).exists()}
+        if not todo:
+            return []
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = {}
+        try:
+            for n, out in todo.items():
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                       str(CSRC / f"{n}.cu")]
+                procs[n] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True), tmp)
+            for n, (proc, tmp) in procs.items():
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed to build {n}.cu "
+                                       f"(exit {proc.returncode}):\n{log}")
+                os.replace(tmp, todo[n])
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return list(todo)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+    build_all([name])
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(_target(name)))
+        return _libs[name]

@@ -1,0 +1,6 @@
+"""Keypoint adjustment (port of ``pixsfm_tpu/keypoint_adjustment``)."""
+
+from .main import (  # noqa: F401
+    FeatureMetricKeypointAdjuster, KeypointAdjuster, KeypointAdjustmentSetup,
+    build_matching_graph, extract_patchdata_from_graph, find_problem_labels,
+)

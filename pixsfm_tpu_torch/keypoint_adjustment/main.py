@@ -1,0 +1,353 @@
+"""Keypoint adjustment orchestration (reference: pixsfm/keypoint_adjustment/main.py).
+
+Port of the ``featuremetric`` strategy of
+``pixsfm_tpu/keypoint_adjustment/main.py``: minimize featuremetric error
+along every intra-track match edge with the track roots fixed. Subproblems
+are first-fit-decreasing bins of tracks (``find_problem_labels``), solved
+as one batched LM per chunk on the device. The ``topological_reference``
+strategy and multi-device sharding come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from collections import Counter
+from copy import deepcopy
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .. import logger, resolve_device
+from ..base import interpolation_default_conf, solver_default_conf
+from ..base.graph import (Graph, compute_root_labels, compute_score_labels,
+                          compute_track_labels)
+from ..base.interpolation import InterpolationConfig
+from ..base.losses import make_loss
+from ..config import merge
+from ..features.featuremaps import FeatureView
+from ..ops.lm import LMOptions
+from .solver import build_ka_problems, solve_ka_problems
+
+__all__ = [
+    "KeypointAdjuster", "FeatureMetricKeypointAdjuster",
+    "KeypointAdjustmentSetup", "find_problem_labels", "build_matching_graph",
+    "extract_patchdata_from_graph",
+]
+
+
+class KeypointAdjustmentSetup:
+    """Constant keypoint/image sets (reference: keypoint_adjustment_options.h:24-45)."""
+
+    def __init__(self):
+        self.constant_images: set = set()
+        self.constant_keypoints: set = set()  # (image_name, p2D_idx)
+
+    def set_image_constant(self, image_name: str):
+        self.constant_images.add(image_name)
+
+    def set_keypoint_constant(self, image_name: str, p2D_idx: int):
+        self.constant_keypoints.add((image_name, int(p2D_idx)))
+
+    def is_constant(self, image_name: str, p2D_idx: int) -> bool:
+        return (image_name in self.constant_images
+                or (image_name, int(p2D_idx)) in self.constant_keypoints)
+
+    def constant_node_mask(self, graph: Graph) -> np.ndarray:
+        image_ids, feature_idxs = graph.nodes_array()
+        mask = np.zeros(graph.num_nodes, bool)
+        if not (self.constant_images or self.constant_keypoints):
+            return mask
+        for nid in range(graph.num_nodes):
+            name = graph.image_id_to_name[int(image_ids[nid])]
+            if self.is_constant(name, int(feature_idxs[nid])):
+                mask[nid] = True
+        return mask
+
+
+def find_problem_labels(track_labels: Sequence[int], max_per_problem: int,
+                        track_edge_counts: Optional[Sequence[int]] = None
+                        ) -> Tuple[List[int], List[int]]:
+    """First-fit-decreasing bin packing of tracks into problems
+    (reference: ka/main.py:13-57). Returns per-node problem labels and bin sizes."""
+    track_labels = list(track_labels)
+    if len(track_labels) == 0 and not track_edge_counts:
+        return [], []
+    if track_edge_counts is None:
+        track_count = Counter(track_labels)
+    else:
+        track_count = Counter({i: v for i, v in enumerate(track_edge_counts)})
+    if max_per_problem == -1:
+        max_per_problem = max(track_count.values())
+
+    bins: List[int] = []
+    track_to_problem = [-1] * (max(track_count) + 1)
+
+    start = 0
+    last_v = sys.maxsize
+    for k, v in track_count.most_common():
+        if v < last_v:
+            start = 0
+            last_v = v
+        found = False
+        if v < max_per_problem:
+            for i in range(start, len(bins)):
+                if bins[i] + v <= max_per_problem:
+                    bins[i] += v
+                    track_to_problem[k] = i
+                    found = True
+                    start = i
+                    break
+        if not found:
+            track_to_problem[k] = len(bins)
+            start = len(bins)
+            bins.append(v)
+    problem_labels = [track_to_problem[t] for t in track_labels]
+    n_oversized = int(np.sum(np.array(bins) > max_per_problem))
+    if n_oversized > 0 and max_per_problem > -1:
+        logger.warning(
+            "%d / %d problems have more than %d keypoints (max %d).",
+            n_oversized, len(bins), max_per_problem, int(np.max(bins)))
+    if -1 in problem_labels:
+        raise ValueError("unassigned track in problem labeling")
+    return problem_labels, bins
+
+
+class KeypointAdjuster:
+    """Strategy factory + multilevel loop (reference: ka/main.py:60-137)."""
+
+    default_conf = {
+        "strategy": "featuremetric",
+        "apply": True,
+        "interpolation": interpolation_default_conf,
+        "level_indices": None,
+        "max_kps_per_problem": 50,
+        "optimizer": {
+            "loss": {"name": "cauchy", "params": [0.25]},
+            "solver": {**solver_default_conf, "parameter_tolerance": 1.0e-5,
+                       "num_threads": 1},
+            "print_summary": False,
+            "bound": 4.0,
+            "num_threads": -1,
+        },
+        "split_in_subproblems": True,
+        # device batching: problems solved lock-stepped per chunk
+        "problem_chunk_size": 128,
+        # accepted for config parity; only the defaults (0 / disabled) are
+        # ported, anything else raises
+        "compaction_segment": 0,
+        "parallel": {"enabled": False, "n_devices": None},
+    }
+
+    def __init__(self, conf=None, device=None):
+        self.conf = merge(self.default_conf, conf or {})
+        if (self.conf.get("parallel") or {}).get("enabled"):
+            raise NotImplementedError(
+                "multi-device KA (parallel.enabled) is not ported yet; it "
+                "comes with the sharding slice of pixsfm_tpu_torch")
+        self.device = resolve_device(device)
+
+    @classmethod
+    def create(cls, conf=None, device=None):
+        strategy = cls.default_conf["strategy"]
+        if conf is not None and "strategy" in conf:
+            strategy = conf["strategy"]
+        if strategy == "topological_reference":
+            raise NotImplementedError(
+                "topological_reference KA is not ported yet; it comes with "
+                "a later slice of pixsfm_tpu_torch")
+        strategy_to_solver = {"featuremetric": FeatureMetricKeypointAdjuster}
+        return strategy_to_solver[strategy](conf, device=device)
+
+    # -- API ----------------------------------------------------------------
+    def refine(self, keypoints_dict: Dict[str, np.ndarray], feature_set,
+               graph: Graph, track_labels, root_labels,
+               problem_setup: Optional[KeypointAdjustmentSetup] = None) -> dict:
+        raise NotImplementedError
+
+    def refine_multilevel(self, keypoints_dict, feature_manager, graph: Graph,
+                          track_labels=None, root_labels=None,
+                          problem_setup=None) -> dict:
+        if track_labels is None:
+            track_labels = compute_track_labels(graph)
+        if root_labels is None:
+            score_labels = compute_score_labels(graph, track_labels)
+            root_labels = compute_root_labels(graph, track_labels, score_labels)
+
+        level_indices = self.conf.get("level_indices")
+        levels = (level_indices if level_indices not in (None, "all")
+                  else list(reversed(range(feature_manager.num_levels))))
+
+        outputs: Dict[str, list] = {}
+        for level_index in levels:
+            out = self.refine(keypoints_dict,
+                              feature_manager.fset(level_index), graph,
+                              track_labels, root_labels,
+                              problem_setup=problem_setup)
+            for k, v in out.items():
+                outputs.setdefault(k, []).append(v)
+        return outputs
+
+    # -- shared machinery ---------------------------------------------------
+    def _run(self, keypoints_dict, feature_set, graph, track_labels,
+             root_labels, problem_labels, edges, weight_by_sim,
+             root_edges_only, problem_setup) -> dict:
+        t0 = time.time()
+        labels = np.asarray(problem_labels)
+        if graph.num_nodes == 0 or not (labels >= 0).any():
+            # empty match graph (e.g. a detector that found no keypoints):
+            # nothing to adjust — succeed as a no-op like the reference's
+            # ParallelOptimizer over zero subsets
+            logger.info("KA: empty problem (no adjustable keypoints); "
+                        "skipping.")
+            return dict(initial_cost=0.0, final_cost=0.0, num_problems=0,
+                        time=time.time() - t0)
+        view = FeatureView.from_graph(feature_set, graph,
+                                      np.nonzero(labels >= 0)[0],
+                                      keypoints=keypoints_dict)
+        packed = view.packed
+
+        const = None
+        if problem_setup is not None:
+            const = problem_setup.constant_node_mask(graph)
+
+        opt = self.conf.optimizer
+        problems = build_ka_problems(
+            keypoints_dict, graph, labels, np.asarray(root_labels), packed,
+            bound=float(opt.get("bound", 4.0)), edges=edges,
+            constant_nodes=const, weight_by_sim=weight_by_sim,
+            root_edges_only=root_edges_only)
+
+        interp = InterpolationConfig.from_conf(self.conf.get("interpolation"))
+        loss = make_loss(opt.get("loss"))
+        lm_opts = LMOptions.from_solver_conf(opt.get("solver"))
+        kp_refined, summary = solve_ka_problems(
+            problems, packed.patches, interp, loss, lm_opts,
+            chunk=int(self.conf.get("problem_chunk_size", 128)),
+            compaction_segment=int(self.conf.get("compaction_segment", 0)),
+            device=self.device)
+
+        # write back refined keypoints (vectorized per image)
+        image_ids, feature_idxs = graph.nodes_array()
+        ids = np.asarray(problems.node_ids)
+        if len(ids):
+            p_arr = problems.node_problem[ids]
+            k_arr = problems.node_slot[ids]
+            img_arr = np.asarray(image_ids)[ids]
+            fid_arr = np.asarray(feature_idxs)[ids]
+            for iid in np.unique(img_arr):
+                m = img_arr == iid
+                name = graph.image_id_to_name[int(iid)]
+                keypoints_dict[name][fid_arr[m]] = kp_refined[p_arr[m],
+                                                              k_arr[m]]
+
+        dt = time.time() - t0
+        summary["time"] = dt
+        cost0, cost1 = summary["initial_cost"], summary["final_cost"]
+        logger.info(
+            "KA Time: %.3fs, cost change: %.4f --> %.4f (%d problems)",
+            dt, cost0, cost1, summary["num_problems"])
+        if opt.get("print_summary"):
+            # merged-solver report (reference: merged Ceres summaries,
+            # util/src/statistics.h + print_summary option)
+            logger.info(
+                "KA summary:\n  problems: %d\n  keypoints: %d\n"
+                "  initial cost: %.6g\n  final cost: %.6g\n"
+                "  cost change: %.3f%%\n  max iterations used: %d\n"
+                "  wall time: %.3fs",
+                summary["num_problems"], len(problems.node_ids), cost0, cost1,
+                100.0 * (cost0 - cost1) / max(cost0, 1e-12),
+                summary.get("iterations", 0), dt)
+        return summary
+
+
+class FeatureMetricKeypointAdjuster(KeypointAdjuster):
+    """Default KA strategy (reference: ka/main.py:140-218).
+
+    Extra optimizer params (reference parity): ``root_regularize_weight`` (add
+    missing edges toward the root with this weight; -1 disables), ``weight_by_sim``,
+    ``root_edges_only``.
+    """
+
+    default_conf = deepcopy(KeypointAdjuster.default_conf)
+    default_conf["optimizer"].update({
+        "root_regularize_weight": -1,
+        "weight_by_sim": True,
+        "root_edges_only": False,
+    })
+
+    def refine(self, keypoints_dict, feature_set, graph, track_labels,
+               root_labels, problem_setup=None) -> dict:
+        track_labels = np.asarray(track_labels)
+        if self.conf.get("split_in_subproblems", True):
+            problem_labels, bins = find_problem_labels(
+                track_labels, int(self.conf.get("max_kps_per_problem", 50)))
+            if bins and max(bins) > 512:
+                logger.warning(
+                    "KA: largest subproblem has %d keypoints; the dense "
+                    "per-problem solve scales as O(K^3) — consider a smaller "
+                    "max_kps_per_problem.", max(bins))
+        else:
+            problem_labels = np.zeros(graph.num_nodes, np.int64)
+            if graph.num_nodes > 512:
+                logger.warning(
+                    "KA: split_in_subproblems=False with %d keypoints builds "
+                    "one dense problem; this is O(K^3) — enable splitting for "
+                    "large scenes.", graph.num_nodes)
+
+        opt = self.conf.optimizer
+        edges = None
+        rrw = float(opt.get("root_regularize_weight", -1))
+        if rrw > 0:
+            edges = _augment_root_edges(graph, track_labels,
+                                        np.asarray(root_labels), rrw)
+        return self._run(keypoints_dict, feature_set, graph, track_labels,
+                         root_labels, np.asarray(problem_labels), edges,
+                         bool(opt.get("weight_by_sim", True)),
+                         bool(opt.get("root_edges_only", False)),
+                         problem_setup)
+
+
+def _augment_root_edges(graph: Graph, track_labels: np.ndarray,
+                        root_labels: np.ndarray, weight: float):
+    """Add missing node->root edges (TopologicalKeypointOptimizer root
+    regularization, topological_keypoint_optimizer.h:103-175)."""
+    src, dst, sim = graph.edges_array()
+    n_tracks = int(track_labels.max()) + 1 if graph.num_nodes else 0
+    root_of_track = np.full(n_tracks, -1, np.int64)
+    root_idx = np.nonzero(root_labels)[0]
+    root_of_track[track_labels[root_idx]] = root_idx
+
+    has_root_edge = np.zeros(graph.num_nodes, bool)
+    same = track_labels[src] == track_labels[dst]
+    r_edge = same & (root_labels[src] | root_labels[dst])
+    has_root_edge[src[r_edge & root_labels[dst]]] = True
+    has_root_edge[dst[r_edge & root_labels[src]]] = True
+
+    need = (~has_root_edge) & (~root_labels) & (root_of_track[track_labels] >= 0)
+    add_src = np.nonzero(need)[0]
+    add_dst = root_of_track[track_labels[add_src]]
+    add_sim = np.full(len(add_src), weight)
+    return (np.concatenate([src, add_src]), np.concatenate([dst, add_dst]),
+            np.concatenate([sim, add_sim]))
+
+
+def build_matching_graph(matches: Dict[Tuple[str, str], np.ndarray],
+                         scores: Optional[Dict[Tuple[str, str], np.ndarray]]
+                         = None) -> Graph:
+    """Assemble a Graph from pairwise matches (reference: ka/main.py:262-271)."""
+    graph = Graph()
+    for (name1, name2), m in matches.items():
+        s = None if scores is None else scores.get((name1, name2))
+        graph.register_matches(name1, name2, np.asarray(m), s)
+    return graph
+
+
+def extract_patchdata_from_graph(graph: Graph) -> Dict[str, List[int]]:
+    """{image_name: sorted unique keypoint ids} (reference: ka/main.py:274-279)."""
+    image_ids, feature_idxs = graph.nodes_array()
+    out: Dict[str, set] = {}
+    for nid in range(graph.num_nodes):
+        name = graph.image_id_to_name[int(image_ids[nid])]
+        out.setdefault(name, set()).add(int(feature_idxs[nid]))
+    return {k: sorted(v) for k, v in out.items()}

@@ -1,0 +1,388 @@
+"""Featuremetric keypoint adjustment as one batched LM program.
+
+Port of ``pixsfm_tpu/keypoint_adjustment/solver.py`` (reference:
+pixsfm/keypoint_adjustment/src/featuremetric_keypoint_optimizer.h). All
+subproblems (FFD bins of tracks) are solved lock-stepped per chunk:
+
+- parameters: ``kp [P, K, 2]`` image-coordinate keypoints, padded per problem;
+- residuals: per intra-track match edge ``r_e = f_i(kp_i) - f_j(kp_j)`` with
+  ``f`` the L2-normalized bicubic interpolation of each keypoint's feature
+  patch — kernel K1 on CUDA (``ops/interpolate_cuda.py``), read straight
+  from the flat row view of the packed patch tensor;
+- robustification: IRLS weights ``sim_e * rho'(||r||^2)``;
+- normal equations in Gram form (``make_ka_system``), solved by the batched
+  LM of ``ops/lm.py`` (Jacobi CG, kernel K2 on CUDA);
+- bounds: patch extent intersected with ``kp0 +- bound/scale``.
+
+Root keypoints are frozen (SetMaskedNodesConstant). Only the bicubic window
+path of the JAX solver is ported; the fixed-target solver
+(``topological_reference``), convergence compaction and mesh sharding come
+with later slices of the port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import logger, resolve_device
+from ..base.interpolation import InterpolationConfig, check_window_config
+from ..base.losses import RobustLoss
+from ..ops.interpolate_cuda import interpolate_rows
+from ..ops.lm import LMOptions, lm_solve
+
+__all__ = ["KAProblems", "build_ka_problems", "make_ka_system",
+           "solve_ka_problems"]
+
+
+@dataclass
+class KAProblems:
+    """Padded, batched KA subproblems (host arrays; shipped to the device
+    per chunk)."""
+    kp0: np.ndarray          # [P, K, 2] image coords
+    patch_row: np.ndarray    # [P, K] row into packed patches
+    corner: np.ndarray       # [P, K, 2]
+    scale: np.ndarray        # [P, K, 2]
+    ups: np.ndarray          # [P, K]
+    kp_free: np.ndarray      # [P, K] bool
+    kp_valid: np.ndarray     # [P, K] bool
+    edge_i: np.ndarray       # [P, E] local kp index
+    edge_j: np.ndarray       # [P, E]
+    edge_w: np.ndarray       # [P, E] similarity weight (0 for padding)
+    lower: np.ndarray        # [P, K, 2]
+    upper: np.ndarray        # [P, K, 2]
+    # write-back bookkeeping: node -> (problem, slot)
+    node_problem: np.ndarray
+    node_slot: np.ndarray
+    node_ids: np.ndarray     # original graph node indices
+
+
+def build_ka_problems(keypoints: Dict[str, np.ndarray], graph,
+                      problem_labels: np.ndarray, root_labels: np.ndarray,
+                      packed, bound: float,
+                      edges: Optional[Tuple[np.ndarray, np.ndarray,
+                                            np.ndarray]] = None,
+                      constant_nodes: Optional[np.ndarray] = None,
+                      weight_by_sim: bool = True,
+                      root_edges_only: bool = False) -> KAProblems:
+    """Pack graph subproblems into padded arrays.
+
+    problem_labels: per-node problem id (-1 = skip). packed: PackedFeatures for the
+    participating (image, keypoint) pairs. ``edges`` overrides the graph's edge list
+    (used by the topological_reference strategy to pass star edges toward roots).
+    """
+    image_ids, feature_idxs = graph.nodes_array()
+    src, dst, sim = edges if edges is not None else graph.edges_array()
+    labels = np.asarray(problem_labels)
+
+    active = labels >= 0
+    node_ids = np.nonzero(active)[0]
+    n_problems = int(labels.max()) + 1 if len(node_ids) else 0
+
+    # local slot per node within its problem
+    order = np.argsort(labels[node_ids], kind="stable")
+    sorted_nodes = node_ids[order]
+    sorted_probs = labels[sorted_nodes]
+    slot = np.zeros(len(sorted_nodes), dtype=np.int64)
+    if len(sorted_nodes):
+        new_prob = np.r_[True, sorted_probs[1:] != sorted_probs[:-1]]
+        starts = np.nonzero(new_prob)[0]
+        slot = np.arange(len(sorted_nodes))
+        slot -= np.repeat(starts, np.diff(np.r_[starts, len(sorted_nodes)]))
+    node_problem = np.full(graph.num_nodes, -1, dtype=np.int64)
+    node_slot = np.full(graph.num_nodes, -1, dtype=np.int64)
+    node_problem[sorted_nodes] = sorted_probs
+    node_slot[sorted_nodes] = slot
+
+    K = int(slot.max()) + 1 if len(sorted_nodes) else 1
+
+    # intra-track edges with both ends in the same (active) problem
+    keep = (active[src] & active[dst] & (labels[src] == labels[dst])
+            & (src != dst))
+    if root_edges_only:
+        keep &= (root_labels[src] | root_labels[dst])
+    e_src, e_dst, e_sim = src[keep], dst[keep], sim[keep]
+    e_prob = labels[e_src]
+
+    # per-problem edge slots
+    eorder = np.argsort(e_prob, kind="stable")
+    e_src, e_dst, e_sim, e_prob = (e_src[eorder], e_dst[eorder],
+                                   e_sim[eorder], e_prob[eorder])
+    eslot = np.arange(len(e_prob))
+    if len(e_prob):
+        enew = np.r_[True, e_prob[1:] != e_prob[:-1]]
+        estarts = np.nonzero(enew)[0]
+        eslot -= np.repeat(estarts, np.diff(np.r_[estarts, len(e_prob)]))
+    E = int(eslot.max()) + 1 if len(e_prob) else 1
+
+    def pad8(x):
+        return max(int(np.ceil(x / 8)) * 8, 8)
+
+    K, E = pad8(K), pad8(E)
+
+    P = max(n_problems, 1)
+    kp0 = np.zeros((P, K, 2), np.float32)
+    patch_row = np.zeros((P, K), np.int32)
+    corner = np.zeros((P, K, 2), np.float32)
+    scale = np.ones((P, K, 2), np.float32)
+    ups = np.ones((P, K), np.float32)
+    kp_free = np.zeros((P, K), bool)
+    kp_valid = np.zeros((P, K), bool)
+    lower = np.full((P, K, 2), -np.inf, np.float32)
+    upper = np.full((P, K, 2), np.inf, np.float32)
+
+    const = (np.zeros(graph.num_nodes, bool) if constant_nodes is None
+             else np.asarray(constant_nodes, bool))
+
+    # patch extent per keypoint axis (x, y) -> (W, H): dense maps aren't square
+    ext = (np.array([packed.patches.shape[2], packed.patches.shape[1]],
+                    np.float64) if packed.num_patches else np.zeros(2))
+    if len(sorted_nodes):
+        # vectorized packing: per-image numpy gathers instead of a Python
+        # loop per node (the loop dominated host time at Aachen-scale scenes)
+        p_arr = node_problem[sorted_nodes]
+        k_arr = node_slot[sorted_nodes]
+        img_arr = image_ids[sorted_nodes]
+        fid_arr = np.asarray(feature_idxs)[sorted_nodes]
+        rows_all = np.empty(len(sorted_nodes), np.int64)
+        kp_all = np.empty((len(sorted_nodes), 2), np.float64)
+        for iid in np.unique(img_arr):
+            m = img_arr == iid
+            name = graph.image_id_to_name[int(iid)]
+            fi = fid_arr[m]
+            kp_all[m] = np.asarray(keypoints[name])[fi]
+            rows_all[m] = packed.rows_for_image(name, fi)
+        kp0[p_arr, k_arr] = kp_all
+        patch_row[p_arr, k_arr] = rows_all
+        corner[p_arr, k_arr] = packed.corners[rows_all]
+        scale[p_arr, k_arr] = packed.scales[rows_all]
+        ups[p_arr, k_arr] = packed.upsampling[rows_all]
+        kp_valid[p_arr, k_arr] = True
+        kp_free[p_arr, k_arr] = ~(
+            np.asarray(root_labels, bool)[sorted_nodes]
+            | const[sorted_nodes])
+        # bounds: patch extent (in image coords) intersect kp +- bound/scale
+        sc = packed.scales[rows_all]
+        lo = (packed.corners[rows_all] + 0.5) / sc
+        hi = lo + ext / sc
+        if bound > 0:
+            lo = np.maximum(lo, kp_all - bound / sc)
+            hi = np.minimum(hi, kp_all + bound / sc)
+        lower[p_arr, k_arr] = lo
+        upper[p_arr, k_arr] = hi
+
+    edge_i = np.zeros((P, E), np.int32)
+    edge_j = np.zeros((P, E), np.int32)
+    edge_w = np.zeros((P, E), np.float32)
+    edge_i[e_prob, eslot] = node_slot[e_src]
+    edge_j[e_prob, eslot] = node_slot[e_dst]
+    edge_w[e_prob, eslot] = e_sim if weight_by_sim else 1.0
+
+    return KAProblems(kp0, patch_row, corner, scale, ups, kp_free, kp_valid,
+                      edge_i, edge_j, edge_w, lower, upper,
+                      node_problem, node_slot, node_ids)
+
+
+
+# ---------------------------------------------------------------------------
+# device-side system assembly
+# ---------------------------------------------------------------------------
+
+def _eval_keypoints(rows_spec, kp, corner, scale, ups,
+                    interp: InterpolationConfig):
+    """Batched per-keypoint interpolation: returns f, dfdx, dfdy [P, K, C]
+    (derivatives w.r.t. image coordinates).
+
+    ``rows_spec = (rows, H, W, C, patch_row)``: the bicubic window eval reads
+    the flat ``[n * H, W, C]`` row view of the PACKED patch tensor; no
+    per-problem patch gather happens."""
+    rows, H, W, C, patch_row = rows_spec
+    uv = (kp * scale - 0.5 - corner) * ups[..., None]
+    r = uv[..., 1]
+    c = uv[..., 0]
+    P, K = r.shape
+    row_base = patch_row.reshape(-1).to(torch.int32) * H
+    f, dfdr, dfdc = interpolate_rows(rows, H, W, C, row_base, r.reshape(-1),
+                                     c.reshape(-1), interp.l2_normalize)
+    f = f.reshape(P, K, C)
+    su = scale * ups[..., None]
+    dfdx = dfdc.reshape(P, K, C) * su[..., 0:1]
+    dfdy = dfdr.reshape(P, K, C) * su[..., 1:2]
+    return f, dfdx, dfdy
+
+
+def make_ka_system(rows_spec, interp: InterpolationConfig, loss: RobustLoss,
+                   K: int, kp_free_mask=None):
+    """Return (system_fn, cost_fn) over the padded problem arrays.
+
+    ``rows_spec = (rows, H, W, C)`` is the flat row view of the packed patch
+    tensor. ``data = (patch_row, corner, scale, ups, edge_i, edge_j,
+    edge_w)``. ``kp_free_mask [P, K]`` zeroes the frozen keypoints'
+    Jacobians, so their H rows/cols and g entries vanish exactly.
+    """
+    rows, H, W, C = rows_spec
+
+    def _delta_edges(edge_i, edge_j):
+        """Signed edge incidence Delta = Si - Sj, [P, E, K]."""
+        iota = torch.arange(K, device=edge_i.device)
+        return ((edge_i[..., None] == iota).to(torch.float32)
+                - (edge_j[..., None] == iota).to(torch.float32))
+
+    def _common(x, data):
+        (patch_row, corner, scale, ups, edge_i, edge_j, edge_w) = data
+        P = x.shape[0]
+        kp = x.reshape(P, K, 2)
+        f, dfdx, dfdy = _eval_keypoints((rows, H, W, C, patch_row), kp,
+                                        corner, scale, ups, interp)
+        if kp_free_mask is not None:
+            mfree = kp_free_mask.to(f.dtype)[..., None]
+            dfdx = dfdx * mfree
+            dfdy = dfdy * mfree
+        Delta = _delta_edges(edge_i, edge_j)
+        r = torch.einsum("pek,pkc->pec", Delta, f)    # f_i - f_j, [P, E, C]
+        s = torch.sum(r * r, dim=-1)                  # [P, E]
+        return kp, f, dfdx, dfdy, Delta, r, s
+
+    def cost_fn(x, data):
+        edge_w = data[-1]
+        *_, s = _common(x, data)
+        return 0.5 * torch.sum(edge_w * loss(s), dim=1)
+
+    def system_fn(x, data):
+        """Gram-factorized normal equations: the edge Jacobian separates,
+        d r_e / d kp_m = Delta[e, k_m] * df[k_m], so
+
+            H = (Delta^T diag(w) Delta) (x)_{2x2} (DF DF^T)
+            g = rows(DF) . rows(Delta^T diag(w) r)
+        """
+        edge_w = data[-1]
+        kp, f, dfdx, dfdy, Delta, r, s = _common(x, data)
+        P = kp.shape[0]
+
+        cost = 0.5 * torch.sum(edge_w * loss(s), dim=1)
+        w = edge_w * loss.weight(s)                  # [P, E]
+
+        # DF [P, 2K, C]: row m = 2k+a holds df_a(kp_k), a in {x, y}
+        DF = torch.stack([dfdx, dfdy], dim=2).reshape(P, 2 * K, C)
+        G = torch.einsum("pek,pe,pel->pkl", Delta, w, Delta)   # [P, K, K]
+        D = torch.einsum("pmc,pnc->pmn", DF, DF)               # [P, 2K, 2K]
+        G2 = G[:, :, None, :, None].expand(P, K, 2, K, 2).reshape(
+            P, 2 * K, 2 * K)
+        Hs = G2 * D
+
+        Rt = torch.einsum("pek,pe,pec->pkc", Delta, w, r)      # [P, K, C]
+        gx = torch.sum(dfdx * Rt, dim=-1)                      # [P, K]
+        gy = torch.sum(dfdy * Rt, dim=-1)
+        g = torch.stack([gx, gy], dim=2).reshape(P, 2 * K)
+        return cost, Hs, g
+
+    return system_fn, cost_fn
+
+
+def _run_chunk(rows_spec, interp, loss, lm_opts: LMOptions, K: int, x0, data,
+               kp_free, lower, upper, pmask, lam0=None):
+    """One lock-stepped LM solve over a chunk of padded problems."""
+    system_fn, cost_fn = make_ka_system(rows_spec, interp, loss, K,
+                                        kp_free_mask=kp_free)
+    mask = kp_free.repeat_interleave(2, dim=1)
+    return lm_solve(lambda x: system_fn(x, data), lambda x: cost_fn(x, data),
+                    x0, param_mask=mask, problem_mask=pmask,
+                    lower=lower.reshape(x0.shape),
+                    upper=upper.reshape(x0.shape),
+                    opts=replace(lm_opts, assume_masked_system=True),
+                    lam0=lam0)
+
+
+def solve_ka_problems(problems: KAProblems, packed_patches,
+                      interp: InterpolationConfig, loss: RobustLoss,
+                      lm_opts: LMOptions, chunk: int = 128,
+                      compaction_segment: int = 0,
+                      device=None) -> Tuple[np.ndarray, Dict]:
+    """Run all padded problems through the batched LM, chunked to bound
+    memory. ``packed_patches [n, H, W, C]`` (tensor or array) is moved to
+    ``device`` (``cuda`` unless ``"cpu"`` is passed).
+
+    Returns refined kp [P, K, 2] and a merged summary dict (the reference
+    merges per-subset Ceres summaries — util/src/statistics.h:14-60).
+    """
+    check_window_config(interp)
+    if compaction_segment:
+        raise NotImplementedError(
+            "KA convergence compaction (compaction_segment > 0) is not "
+            "ported yet; it comes with a later slice of pixsfm_tpu_torch")
+    dev = resolve_device(device)
+    P, K, _ = problems.kp0.shape
+    patches = torch.as_tensor(packed_patches, device=dev)
+    n, H, W, C = patches.shape
+    rows_spec = (patches.reshape(n * H, W, C), H, W, C)
+
+    x_cur = problems.kp0.reshape(P, K * 2).astype(np.float32).copy()
+    init_cost = np.zeros(P, np.float32)
+    final_cost = np.zeros(P, np.float32)
+    iters_used = np.zeros(P, np.int32)
+    lower_np = np.nan_to_num(problems.lower, neginf=-1e30).astype(np.float32)
+    upper_np = np.nan_to_num(problems.upper, posinf=1e30).astype(np.float32)
+
+    from ..util.prefetch import prefetch_map
+
+    def pack_chunk(ci):
+        """Host packing of one chunk, pipelined one chunk ahead of the
+        running solve (chunks index disjoint problem rows)."""
+        idx = np.arange(ci * chunk, min((ci + 1) * chunk, P))
+        pad = chunk - len(idx)
+
+        def pad0(a, fill=0):
+            if pad == 0:
+                return a
+            return np.concatenate(
+                [a, np.full((pad,) + a.shape[1:], fill, a.dtype)], axis=0)
+
+        arrays = (pad0(x_cur[idx]),
+                  tuple(pad0(a[idx]) for a in (
+                      problems.patch_row, problems.corner, problems.scale,
+                      problems.ups, problems.edge_i, problems.edge_j,
+                      problems.edge_w)),
+                  pad0(problems.kp_free[idx]),
+                  pad0(lower_np[idx], -1e30), pad0(upper_np[idx], 1e30),
+                  np.arange(chunk) < len(idx))
+        return idx, arrays
+
+    def put(a):
+        a = np.asarray(a)
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    n_chunks = int(np.ceil(P / chunk)) if P else 0
+    interrupted = False
+    for ci, (idx, arrays) in enumerate(prefetch_map(pack_chunk,
+                                                    range(n_chunks),
+                                                    depth=1)):
+        x0, data, kp_free, lower, upper, pmask = arrays
+        try:
+            x, summary = _run_chunk(
+                rows_spec, interp, loss, lm_opts, K, put(x0),
+                tuple(put(a) for a in data), put(kp_free), put(lower),
+                put(upper), put(pmask))
+            m = len(idx)
+            x_cur[idx] = x.cpu().numpy()[:m]
+            init_cost[idx] = summary.initial_cost.cpu().numpy()[:m]
+            final_cost[idx] = summary.final_cost.cpu().numpy()[:m]
+            iters_used[idx] = summary.iterations.cpu().numpy()[:m]
+        except KeyboardInterrupt:
+            # keep every completed chunk's keypoints (reference
+            # PyInterruptCallback, base/src/callbacks.h:10-37)
+            interrupted = True
+            logger.warning("KA interrupted after %d/%d chunks: keeping all "
+                           "completed results.", ci, n_chunks)
+            break
+
+    tot = dict(initial_cost=float(init_cost.sum()),
+               final_cost=float(final_cost.sum()),
+               num_problems=P, iterations=int(iters_used.max(initial=0)))
+    if interrupted:
+        tot["interrupted"] = True
+    return x_cur.reshape(P, K, 2), tot

@@ -1,0 +1,97 @@
+"""Fused bicubic window interpolation + L2 chain rule (kernel K1).
+
+Counterpart of ``pixsfm_tpu/ops/interpolate_pallas.py``
+(``interpolate_rows_pallas``). On a CUDA tensor :func:`interpolate_rows`
+launches ``kernels/csrc/interpolate.cu``; on a CPU tensor it runs the plain
+PyTorch version (``base.interpolation.bicubic_window_eval_rows`` +
+``l2_normalize_with_grad``). A CUDA tensor never takes the plain path: a
+kernel that fails to build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..base.interpolation import (bicubic_window_eval_rows,
+                                  l2_normalize_with_grad)
+
+__all__ = ["interpolate_rows", "interpolate_rows_plain", "launches"]
+
+# Number of kernel launches since the last reset (set it to 0 to reset).
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def interpolate_rows_plain(rows, H: int, W: int, C: int, row_base, r, c,
+                           l2_normalize: bool):
+    """Plain PyTorch version of the kernel, on any device."""
+    f, dfdr, dfdc = bicubic_window_eval_rows(rows, H, W, C, row_base, r, c)
+    if l2_normalize:
+        f, (dfdr, dfdc) = l2_normalize_with_grad(f, (dfdr, dfdc))
+    return f, dfdr, dfdc
+
+
+def _lib():
+    from .. import kernels
+    lib = kernels.load("interpolate")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pixsfm_interp_rows.argtypes = [p, i, p, p, p, i, i, i, i, i,
+                                           p, p, p, p]
+        lib.pixsfm_interp_rows.restype = i
+        lib.pixsfm_interp_max_channels.argtypes = []
+        lib.pixsfm_interp_max_channels.restype = i
+        lib._typed = True
+    return lib
+
+
+def interpolate_rows(rows, H: int, W: int, C: int, row_base, r, c,
+                     l2_normalize: bool):
+    """``(f, dfdr, dfdc)`` ``[N, C]`` float32 at patch coordinates (r, c).
+
+    ``rows [NR, W, C]`` (float32 or bfloat16) is the flat row view of the
+    packed ``[B, H, W, C]`` patches, ``row_base [N]`` the first row of each
+    query's patch (``patch_row * H``), ``r, c [N]`` float32.
+    """
+    global launches
+    if not rows.is_cuda:
+        return interpolate_rows_plain(rows, H, W, C, row_base, r, c,
+                                      l2_normalize)
+    if rows.dtype not in _DTYPES:
+        raise TypeError(f"interpolate_rows: rows must be float32 or bfloat16, "
+                        f"got {rows.dtype}")
+    if rows.dim() != 3 or tuple(rows.shape[1:]) != (W, C) \
+            or not rows.is_contiguous():
+        raise ValueError(f"interpolate_rows: rows must be a contiguous "
+                         f"[NR, {W}, {C}] tensor, got {tuple(rows.shape)}")
+    if H < 1 or rows.shape[0] % H:
+        raise ValueError(f"interpolate_rows: {rows.shape[0]} rows are not a "
+                         f"whole number of {H}-row patches")
+    lib = _lib()
+    if C > lib.pixsfm_interp_max_channels():
+        raise ValueError(f"interpolate_rows: C={C} exceeds the kernel's "
+                         f"{lib.pixsfm_interp_max_channels()} channels")
+    dev = rows.device
+    row_base = row_base.to(device=dev, dtype=torch.int32).contiguous()
+    r = r.to(device=dev, dtype=torch.float32).contiguous()
+    c = c.to(device=dev, dtype=torch.float32).contiguous()
+    N = r.shape[0]
+    if row_base.shape != (N,) or c.shape != (N,):
+        raise ValueError("interpolate_rows: row_base, r, c must be [N]")
+    f = torch.empty((N, C), device=dev, dtype=torch.float32)
+    dfdr = torch.empty_like(f)
+    dfdc = torch.empty_like(f)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pixsfm_interp_rows(
+            rows.data_ptr(), _DTYPES[rows.dtype], row_base.data_ptr(),
+            r.data_ptr(), c.data_ptr(), N, H, W, C, int(bool(l2_normalize)),
+            f.data_ptr(), dfdr.data_ptr(), dfdc.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"interpolate_rows: kernel launch failed "
+                           f"(cudaError {err})")
+    launches += 1
+    return f, dfdr, dfdc

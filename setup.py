@@ -27,10 +27,15 @@ setup(
     name="pixsfm_tpu",
     version="0.1.0",
     description="TPU-native featuremetric Structure-from-Motion refinement",
-    packages=find_packages(include=["pixsfm_tpu", "pixsfm_tpu.*"]),
+    packages=find_packages(include=["pixsfm_tpu", "pixsfm_tpu.*",
+                                    "pixsfm_tpu_torch",
+                                    "pixsfm_tpu_torch.*"]),
     package_data={
         "pixsfm_tpu": ["configs/*.yaml", "native/*.so", "native/*.cpp",
                        "native/build.sh"],
+        # the PyTorch/CUDA port: kernels are built from these sources with
+        # nvcc at first use
+        "pixsfm_tpu_torch": ["configs/*.yaml", "kernels/csrc/*.cu"],
     },
     python_requires=">=3.10",
     install_requires=[

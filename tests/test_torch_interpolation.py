@@ -1,0 +1,88 @@
+"""Port parity: the plain PyTorch version of kernel K1 (bicubic window
+interpolation with derivatives and the L2 chain rule) against the JAX
+package's XLA path and its Pallas kernel in interpret mode.
+
+Tolerances are those of tests/test_pallas_interpolate.py: atol 2e-5 with
+float32 storage, 5e-3 with bfloat16 storage (bf16 rounding of the inputs is
+shared, but the two frameworks sum the taps in different orders).
+"""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from pixsfm_tpu.base.interpolation import (bicubic_window_eval_rows as
+                                           jax_eval_rows,
+                                           l2_normalize_with_grad as jax_l2)
+from pixsfm_tpu.ops.interpolate_pallas import interpolate_rows_pallas
+from pixsfm_tpu_torch.base.interpolation import (InterpolationConfig,
+                                                 check_window_config)
+from pixsfm_tpu_torch.ops.interpolate_cuda import interpolate_rows
+
+ATOL = {"float32": 2e-5, "bfloat16": 5e-3}
+
+
+def _inputs(rng, dtype, n_patches=6, n=24, ps=16, C=128):
+    patches = rng.normal(0, 1, (n_patches, ps, ps, C)).astype(np.float32)
+    if dtype == "bfloat16":
+        patches = patches.astype(ml_dtypes.bfloat16)
+    rows = patches.reshape(n_patches * ps, ps, C)
+    patch_row = rng.integers(0, n_patches, n).astype(np.int32)
+    r = rng.uniform(-1.5, ps + 0.5, n).astype(np.float32)
+    c = rng.uniform(-1.5, ps + 0.5, n).astype(np.float32)
+    # queries exactly on and next to the patch border
+    r[:4] = [0.0, ps - 1.0, 0.25, ps - 1.25]
+    c[:4] = [ps - 1.0, 0.0, ps - 1.5, 0.5]
+    return rows, patch_row * ps, r, c
+
+
+def _torch_rows(rows):
+    if rows.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(rows.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(rows)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l2", [False, True])
+def test_plain_k1_matches_xla_path(dtype, l2):
+    rng = np.random.default_rng(11)
+    rows, row_base, r, c = _inputs(rng, dtype)
+    ps, C = rows.shape[1], rows.shape[2]
+    ref = jax_eval_rows(jnp.asarray(rows), ps, ps, C, jnp.asarray(row_base),
+                        jnp.asarray(r), jnp.asarray(c))
+    if l2:
+        f, (dr, dc) = jax_l2(ref[0], (ref[1], ref[2]))
+        ref = (f, dr, dc)
+    out = interpolate_rows(_torch_rows(rows), ps, ps, C,
+                           torch.from_numpy(row_base), torch.from_numpy(r),
+                           torch.from_numpy(c), l2)
+    for a, b in zip(out, ref):
+        assert a.dtype == torch.float32 and a.shape == (len(r), C)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_k1_matches_pallas_interpret(dtype):
+    rng = np.random.default_rng(12)
+    rows, row_base, r, c = _inputs(rng, dtype, n=16)
+    ps, C = rows.shape[1], rows.shape[2]
+    ref = interpolate_rows_pallas(jnp.asarray(rows), ps, ps, C,
+                                  jnp.asarray(row_base), jnp.asarray(r),
+                                  jnp.asarray(c), True, interpret=True)
+    out = interpolate_rows(_torch_rows(rows), ps, ps, C,
+                           torch.from_numpy(row_base), torch.from_numpy(r),
+                           torch.from_numpy(c), True)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("conf", [
+    {"mode": "BILINEAR"}, {"ncc_normalize": True},
+    {"nodes": [[0.0, 0.0], [1.0, 0.0]]}])
+def test_unported_modes_raise(conf):
+    with pytest.raises(NotImplementedError):
+        check_window_config(InterpolationConfig(**conf))
