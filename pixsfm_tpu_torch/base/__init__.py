@@ -1,4 +1,5 @@
-"""Numeric core of the port: interpolation, robust losses, match graph."""
+"""Numeric core of the port: geometry, camera models, projection,
+interpolation, robust losses, match graph."""
 
 # Default config subtrees (reference: pixsfm/base/main.py:1-22)
 interpolation_default_conf = {

@@ -1,11 +1,12 @@
 """Feature extraction orchestration (reference: pixsfm/extract.py).
 
-Port of ``features_from_image_list`` / ``features_from_graph`` of
-``pixsfm_tpu/extract.py``: extract patches only at matched keypoints (the KA
-input), with image decoding prefetched on a background thread. ``image_dir``
-is a directory of image files or a mapping ``{image_name: [H, W, 3] uint8
-array}`` of decoded images. The H5 cache and extraction at reprojected
-observations (BA input) come with later slices of the port.
+Port of ``features_from_image_list`` / ``features_from_graph`` /
+``features_from_reconstruction`` of ``pixsfm_tpu/extract.py``: extract
+patches only at matched keypoints (the KA input) or at the reprojections of
+triangulated observations (the BA input), with image decoding prefetched on
+a background thread. ``image_dir`` is a directory of image files or a
+mapping ``{image_name: [H, W, 3] uint8 array}`` of decoded images. The H5
+cache comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import numpy as np
 from .features.extractor import FeatureExtractor
 from .features.featuremaps import FeatureManager
 
-__all__ = ["features_from_graph", "features_from_image_list"]
+__all__ = ["features_from_graph", "features_from_image_list",
+           "features_from_reconstruction"]
 
 
 def features_from_image_list(extractor: FeatureExtractor, image_list,
@@ -69,3 +71,32 @@ def features_from_graph(extractor: FeatureExtractor, image_dir, graph,
     return features_from_image_list(
         extractor, sorted(patch_data.keys()), image_dir, kp_per_image,
         keypoint_ids_per_image=patch_data, cache_path=cache_path)
+
+
+def features_from_reconstruction(extractor: FeatureExtractor,
+                                 reconstruction, image_dir,
+                                 cache_path=None) -> FeatureManager:
+    """Extract at the reprojections of triangulated observations only
+    (reference: extract.py:153-194)."""
+    from .base.projection import project_np
+
+    kp_per_image: Dict[str, np.ndarray] = {}
+    ids_per_image: Dict[str, list] = {}
+    for im in reconstruction.images.values():
+        if not im.registered:
+            continue
+        cam = reconstruction.cameras[im.camera_id]
+        tri = [(p2D_idx, pid) for p2D_idx, pid in enumerate(im.point3D_ids)
+               if pid >= 0 and pid in reconstruction.points3D]
+        if not tri:
+            continue
+        X = np.stack([reconstruction.points3D[pid].xyz for _, pid in tri])
+        xy, depth = project_np(cam, im.qvec, im.tvec, X)
+        keep = depth > 0
+        if keep.any():
+            kp_per_image[im.name] = xy[keep]
+            ids_per_image[im.name] = [tri[i][0]
+                                      for i in np.nonzero(keep)[0]]
+    return features_from_image_list(
+        extractor, sorted(kp_per_image.keys()), image_dir, kp_per_image,
+        keypoint_ids_per_image=ids_per_image, cache_path=cache_path)

@@ -140,6 +140,15 @@ class PackedFeatures:
     def num_patches(self) -> int:
         return self.patches.shape[0]
 
+    @property
+    def channels(self) -> int:
+        return self.patches.shape[-1]
+
+    def row_or(self, image_name: str, p2D_idx: int, default: int = -1) -> int:
+        """Packed row of an observation, ``default`` for one that was never
+        extracted (e.g. a reprojection behind the camera)."""
+        return self.index.get((image_name, int(p2D_idx)), default)
+
     def rows_for_image(self, image_name: str,
                        p2D_idxs: np.ndarray) -> np.ndarray:
         """Packed rows of many keypoints of ONE image (a dense ``p2D_idx
@@ -246,3 +255,18 @@ class FeatureView:
             name = graph.image_id_to_name[int(image_ids[nid])]
             required.setdefault(name, []).append(int(feature_idxs[nid]))
         return cls(fset, required, keypoints=keypoints)
+
+    @classmethod
+    def from_reconstruction(cls, fset: FeatureSet, reconstruction,
+                            point3D_ids: Optional[Sequence[int]] = None
+                            ) -> "FeatureView":
+        """The patches of every track observation of the given (or all)
+        3D points (``featuremaps.py:612`` of the JAX package)."""
+        required: Dict[str, List[int]] = {}
+        p3D_ids = (reconstruction.points3D.keys() if point3D_ids is None
+                   else point3D_ids)
+        for pid in p3D_ids:
+            for image_id, p2D_idx in reconstruction.points3D[pid].track:
+                name = reconstruction.images[image_id].name
+                required.setdefault(name, []).append(int(p2D_idx))
+        return cls(fset, required)

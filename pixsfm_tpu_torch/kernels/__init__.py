@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "load", "build_all", "nvcc_path"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("interpolate", "pcg")
+SOURCES = ("interpolate", "pcg", "schur")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 

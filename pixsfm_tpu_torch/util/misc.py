@@ -6,7 +6,8 @@ from typing import Dict
 
 import numpy as np
 
-__all__ = ["to_colmap_coordinates", "to_hloc_coordinates", "progress_iter"]
+__all__ = ["to_colmap_coordinates", "to_hloc_coordinates", "progress_iter",
+           "bucket"]
 
 
 def to_colmap_coordinates(keypoints: Dict[str, np.ndarray]) -> None:
@@ -36,3 +37,10 @@ def progress_iter(iterable, desc: str = "", total=None, min_items: int = 20):
         return tqdm(iterable, desc=desc, total=n, leave=False)
     except ImportError:
         return iterable
+
+
+def bucket(n: int, minimum: int = 8) -> int:
+    """Next power of two >= n (>= minimum); copy of the JAX package's
+    ``util/jit_cache.py:bucket``, which sizes BA problems and tracks."""
+    n = max(int(n), 1)
+    return max(1 << int(np.ceil(np.log2(n))), minimum)

@@ -36,7 +36,12 @@ def test_every_module_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
-    assert "pixsfm_tpu_torch.keypoint_adjustment.solver" in _module_names()
+    for name in ("keypoint_adjustment.solver", "ops.schur", "ops.schur_cuda",
+                 "bundle_adjustment.main", "bundle_adjustment.references",
+                 "bundle_adjustment.problem", "base.geometry",
+                 "base.cameras", "base.projection", "sfm.model",
+                 "sfm.synthetic", "refine_colmap"):
+        assert f"pixsfm_tpu_torch.{name}" in _module_names()
 
 
 def test_no_jax_import_lines():
@@ -56,6 +61,13 @@ def test_cuda_entry_points_raise_without_gpu():
         PixSfM()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pixsfm_tpu_torch.resolve_device("cuda")
+    from pixsfm_tpu_torch.bundle_adjustment import BundleAdjuster
+    from pixsfm_tpu_torch.refine_colmap import main as colmap_main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BundleAdjuster.create()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        colmap_main(["bundle_adjuster", "--input_path", "m", "--output_path",
+                     "o", "--image_dir", "i"])
     problems = solver.KAProblems(*[np.zeros((1, 8, 2))] * 15)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solver.solve_ka_problems(problems, np.zeros((1, 16, 16, 8)),

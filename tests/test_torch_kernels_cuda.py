@@ -12,7 +12,7 @@ which sets JAX up).
 import pytest
 import torch
 
-from pixsfm_tpu_torch.ops import cg_cuda, interpolate_cuda
+from pixsfm_tpu_torch.ops import cg_cuda, interpolate_cuda, schur_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +80,74 @@ def test_k2_rejects_oversized_system(dev):
     H = torch.eye(N, device=dev)[None]
     with pytest.raises(ValueError, match="shared"):
         cg_cuda.pcg_solve(H, torch.ones((1, N), device=dev), 5)
+
+
+def _k3_inputs(dev, T, I, Nc, k=4, Np=700, holes=0.3):
+    """Grid-packed Schur inputs on the card: random W blocks, a fraction of
+    track slots left as holes (zero blocks, indices at slot 0), Np not a
+    multiple of the tile so the tail points are padding."""
+    gen = torch.Generator(device=dev).manual_seed(T * 1000 + I)
+    NR = 6 + k
+    O = Np * T
+    Bt = torch.randn((NR * 3, O), generator=gen, device=dev)
+    img = torch.randint(0, I, (O,), generator=gen, device=dev)
+    cam = torch.randint(0, Nc, (O,), generator=gen, device=dev)
+    hole = torch.rand(O, generator=gen, device=dev) < holes
+    Bt[:, hole] = 0.0
+    img[hole] = 0
+    cam[hole] = 0
+    A = torch.randn((Np, 3, 3), generator=gen, device=dev)
+    Vinv = torch.einsum("pab,pcb->acp", A, A) + 3 * torch.eye(
+        3, device=dev)[:, :, None]
+    vpT = torch.randn((6, I), generator=gen, device=dev)
+    vcT = torch.randn((k, Nc), generator=gen, device=dev)
+    gx = torch.randn((3, Np), generator=gen, device=dev)
+    Btr, img_r, cam_r, Vi, Ppad = schur_cuda.pack_grid_blocks(
+        Bt, img, cam, Vinv, T)
+    gxp = torch.cat([gx, gx.new_zeros((3, Ppad - Np))], dim=1)
+    return vpT, vcT, Btr, img_r, cam_r, Vi, gxp
+
+
+def k3_error_ratio(out, fn, args):
+    """Largest ``|out - ref| / (2e-5 |ref| + 1e-6 S)`` over the entries, with
+    ``ref = fn(*args)`` in float64 and ``S = fn(*|args|)``: the sum of the
+    absolute values of every product that went into an entry. The kernels
+    sum in another (atomic) order than the plain version, so their float32
+    error grows with S, not with |ref| (sums of hundreds of terms cancel);
+    1e-6 S is ~16 float32 epsilons of it. A ratio <= 1 passes."""
+    f64 = [a.double() if a.is_floating_point() else a for a in args]
+    ref = fn(*f64)
+    S = fn(*[a.abs() if a.is_floating_point() else a for a in f64])
+    if isinstance(ref, torch.Tensor):
+        out, ref, S = (out,), (ref,), (S,)
+    return max(float(((o.double() - r).abs() / (2e-5 * r.abs() + 1e-6 * s + 1e-30))
+                     .max()) for o, r, s in zip(out, ref, S))
+
+
+@pytest.mark.parametrize("T", [4, 8, 16])
+@pytest.mark.parametrize("I,Nc", [(13, 3), (3000, 2)])
+def test_k3_match_plain(dev, T, I, Nc):
+    """K3a/b/c against their plain versions; (3000, 2) exceeds the
+    shared-memory tables and takes the global-atomics variant."""
+    vpT, vcT, Btr, img_r, cam_r, Vi, gxp = _k3_inputs(dev, T, I, Nc)
+    dims = dict(T=T, I=I, Nc=Nc, k=4)
+    before = dict(schur_cuda.launches)
+    up_uc = schur_cuda.schur_term_matvec(vpT, vcT, Btr, img_r, cam_r, Vi,
+                                         **dims)
+    rhs = schur_cuda.schur_rhs(Btr, img_r, cam_r, Vi, gxp, **dims)
+    t = schur_cuda.schur_backsub(vpT, vcT, Btr, img_r, cam_r, **dims)
+    torch.cuda.synchronize()
+    assert all(schur_cuda.launches[n] == before[n] + 1 for n in before)
+    assert k3_error_ratio(up_uc, schur_cuda.schur_term_matvec_plain,
+                          (vpT, vcT, Btr, img_r, cam_r, Vi)) <= 1.0
+    assert k3_error_ratio(rhs, lambda *a: schur_cuda.schur_rhs_plain(
+        *a, I, Nc), (Btr, img_r, cam_r, Vi, gxp)) <= 1.0
+    assert k3_error_ratio(t, schur_cuda.schur_backsub_plain,
+                          (vpT, vcT, Btr, img_r, cam_r)) <= 1.0
+
+
+def test_k3_rejects_bad_layout(dev):
+    vpT, vcT, Btr, img_r, cam_r, Vi, _ = _k3_inputs(dev, 4, 13, 3)
+    with pytest.raises(ValueError, match="int32"):
+        schur_cuda.schur_backsub(vpT, vcT, Btr, img_r.long(), cam_r, T=4,
+                                 I=13, Nc=3, k=4)
