@@ -30,7 +30,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``ops/schur_cuda.py``) against their plain versions at the BA main
    path's shape (T = 8 ranks, SIMPLE_RADIAL so k = 4, 56 images, one
    camera, 65 536 padded points): error against a float64 reference and
-   time per launch.
+   time per launch. Then K1 again at the BA path's shape: 8192 queries (one
+   chunk of observations) over 240 000 bf16 patches (one per observation,
+   7.9e9 elements, so offsets past 2^31), L2 on and off.
 8. A small scene through ``ba_solve`` on the grid layout on ``cuda`` and
    on ``cpu`` (the plain versions): final cost and points agree.
 9. The second main path at full size: ``PixSfM.run_ba`` with the default
@@ -49,7 +51,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA and BA), its error against the plain version, its time per
 launch (CUDA events), the plain version's time and the bound computed from
-this run's inputs; and last ``{"ok": true, "device": {...}}``.
+this run's inputs; K1, which both paths launch at different shapes, has one
+entry per path (``"path": "KA"`` / ``"BA"``) with that path's launches and
+the figures at its shape; and last ``{"ok": true, "device": {...}}``.
 
 The weights are S2DNet's deterministic random init (no checkpoint ships
 with the repository); the scenes are made from seeds with numpy.
@@ -109,18 +113,26 @@ def _max_err(a, b):
 # phase 2: K1
 # ---------------------------------------------------------------------------
 
-def check_k1(torch, interpolate_cuda, n_patches, n_queries, ps=16, C=128):
+def check_k1(torch, interpolate_cuda, n_patches, n_queries, dtypes,
+             ps=16, C=128):
+    """K1 against its plain version on random patches stored in each of
+    ``dtypes`` (the first one makes the random base), L2 on and off; timed
+    at the main paths' configuration, bf16 storage and L2 on."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    base = torch.randn((n_patches * ps, ps, C), generator=gen, device=dev)
+    base = torch.randn((n_patches * ps, ps, C), generator=gen, device=dev,
+                       dtype=dtypes[0])
     row_base = torch.randint(0, n_patches, (n_queries,), generator=gen,
                              device=dev) * ps
+    row_base[-1] = (n_patches - 1) * ps      # the last patch: top offsets
     r = torch.rand(n_queries, generator=gen, device=dev) * (ps + 2.0) - 1.5
     c = torch.rand(n_queries, generator=gen, device=dev) * (ps + 2.0) - 1.5
     r[:4] = torch.tensor([0.0, ps - 1.0, 0.25, ps - 1.25])
     c[:4] = torch.tensor([ps - 1.0, 0.0, ps - 1.5, 0.5])
     worst = 0.0
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 5e-3)):
+    tols = {torch.float32: 2e-5, torch.bfloat16: 5e-3}
+    for dtype in dtypes:
+        tol = tols[dtype]
         rows = base.to(dtype)
         for l2 in (False, True):
             out = interpolate_cuda.interpolate_rows(rows, ps, ps, C, row_base,
@@ -129,8 +141,9 @@ def check_k1(torch, interpolate_cuda, n_patches, n_queries, ps=16, C=128):
                                                           row_base, r, c, l2)
             torch.cuda.synchronize()
             err = _max_err(out, ref)
-            print(f"K1 {str(dtype)[6:]} l2={l2}: max |kernel - plain| = "
-                  f"{err:.3e} (atol {tol})")
+            print(f"K1 {str(dtype)[6:]} l2={l2} (N={n_queries}, "
+                  f"{n_patches} patches): max |kernel - plain| = {err:.3e} "
+                  f"(atol {tol})")
             if not all(bool(torch.isfinite(o).all()) for o in out) \
                     or err > tol:
                 raise SystemExit(f"K1 disagrees with its plain version "
@@ -607,7 +620,7 @@ def main() -> int:
     # -- phases 2-3: kernels against their plain versions ----------------------
     P, K = 128, 56                 # main path: chunk 128, 50 kps padded to 56
     k1 = check_k1(torch, interpolate_cuda, n_patches=20000,
-                  n_queries=P * K)
+                  n_queries=P * K, dtypes=(torch.float32, torch.bfloat16))
     k2 = check_k2(torch, cg_cuda, P=P, N=2 * K, iters=15)
 
     # -- phase 4: small scene, cuda against cpu --------------------------------
@@ -698,6 +711,11 @@ def main() -> int:
     n_views, n_pts = 56, 40000
     k3 = check_k3(torch, schur_cuda, T=8, I=n_views, Nc=1, k=4, P=65536,
                   n_obs=240000)
+    # K1 at the BA path's shape: one chunk of 8192 observations over one
+    # bf16 patch per observation (~240 000)
+    k1_ba = check_k1(torch, interpolate_cuda, n_patches=240000,
+                     n_queries=8192, dtypes=(torch.bfloat16,))
+    torch.cuda.empty_cache()
 
     # -- phase 8: small BA on the grid layout, cuda against cpu ----------------
     c_dev, x_dev, s_dev = small_ba(torch, np, "cuda")
@@ -803,14 +821,20 @@ def main() -> int:
                      f"iterations) ==\n{tab_bap}\n")
 
     # -- report ----------------------------------------------------------------
+    # K1 runs on both paths at different shapes: one entry per path, each
+    # with that path's launches and the figures measured at its shape
     both = {k: launches.get(k, 0) + launches_ba.get(k, 0)
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
     print(f"launches on the main paths: KA {launches}, BA {launches_ba}")
     kernels_line = {"kernels": [
-        dict(name="bicubic_window_interp_l2", route="cuda",
+        dict(name="bicubic_window_interp_l2", path="KA", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
              replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
-             launches=both["K1"], library_ms=None, **k1),
+             launches=launches["K1"], library_ms=None, **k1),
+        dict(name="bicubic_window_interp_l2", path="BA", route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_ba["K1"], library_ms=None, **k1_ba),
         dict(name="batched_jacobi_pcg", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/pcg.cu",
              replaces="pixsfm_tpu/ops/cg_pallas.py:88",

@@ -16,10 +16,12 @@ CPU, with the same numpy inputs on both sides.
 - ``Reconstruction`` text/binary files written by one package read back by
   the other.
 
-The JAX package raises ``KeyError: 'V'`` when its grid (or point-table)
-regime meets ``use_inner_iterations`` (``ops/schur.py:1356`` reads the flat
-point blocks); the port runs inner iterations on both layouts, so that case
-is held to the port's own flat layout instead.
+``use_inner_iterations`` (the BA default) is held to JAX on the flat
+layout at the same tolerances. The JAX package raises ``KeyError: 'V'`` when
+its grid (or point-table) regime meets ``use_inner_iterations``
+(``ops/schur.py:1356`` reads the flat point blocks); the port runs inner
+iterations on both layouts, so the grid case is held to the port's flat
+layout, itself held to JAX.
 """
 
 import dataclasses
@@ -277,7 +279,7 @@ def _solve_both(grid: bool, **opt_kw):
             packed.point_free)
     state = (packed.qvec, packed.tvec, packed.cams, packed.xyz)
     model = packed.cam_model
-    if not opt_kw.get("use_inner_iterations"):
+    if not (grid and opt_kw.get("use_inner_iterations")):
         pairs = jnp.asarray(np.zeros(4, np.int32) + len(sel))
         jobs = jschur.BAObservations(
             jnp.asarray(packed.obs_img[sel]), jnp.asarray(packed.obs_cam[sel]),
@@ -316,21 +318,29 @@ def test_ba_solve_matches(grid):
                                    atol=1e-4, err_msg=name)
 
 
+def _assert_solves_match(t_st, t_cost, ref_st, ref_cost):
+    np.testing.assert_allclose(t_cost, ref_cost, rtol=1e-5)
+    for name in ("xyz", "tvec", "qvec"):
+        np.testing.assert_allclose(getattr(t_st, name).numpy(),
+                                   np.asarray(getattr(ref_st, name)),
+                                   atol=1e-4, err_msg=name)
+
+
 def test_ba_solve_inner_iterations():
-    """Inner point iterations + non-monotonic steps: the flat layout
-    matches JAX; the grid layout (where JAX raises) matches the flat one."""
+    """Inner point iterations + non-monotonic steps (the BA defaults): the
+    flat layout matches JAX; the grid layout (where JAX raises) matches the
+    port's flat one."""
     kw = dict(use_nonmonotonic_steps=True)
-    (j_st, j_cost), (t_flat, s_flat) = _solve_both(False, **kw)
-    np.testing.assert_allclose(s_flat["final_cost"], j_cost, rtol=1e-5)
+    (j_st, j_cost), (t_st, t_sum) = _solve_both(False, **kw)
+    _assert_solves_match(t_st, t_sum["final_cost"], j_st, j_cost)
     kw["use_inner_iterations"] = True
-    for grid in (False, True):
-        _, (t_st, t_sum) = _solve_both(grid, **kw)
-        if not grid:
-            ref_st, ref_cost = t_st, t_sum["final_cost"]
-            continue
-        np.testing.assert_allclose(t_sum["final_cost"], ref_cost, rtol=1e-5)
-        np.testing.assert_allclose(t_st.xyz.numpy(), ref_st.xyz.numpy(),
-                                   atol=1e-4)
+    (j_st, j_cost), (flat_st, flat_sum) = _solve_both(False, **kw)
+    assert flat_sum["iterations"] == 12
+    _assert_solves_match(flat_st, flat_sum["final_cost"], j_st, j_cost)
+    j_out, (grid_st, grid_sum) = _solve_both(True, **kw)
+    assert j_out is None
+    _assert_solves_match(grid_st, grid_sum["final_cost"], flat_st,
+                         flat_sum["final_cost"])
 
 
 def test_ba_solve_out_of_scope_raises():
