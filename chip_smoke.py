@@ -10,7 +10,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (one nvcc per source, all at once).
 2. K1 (bicubic window interpolation, ``ops/interpolate_cuda.py``) against its
    plain PyTorch version on the card at the main path's shapes, bf16 and f32
-   storage, L2 on and off, queries on the patch border.
+   storage, L2 on and off, queries on the patch border; then at small shapes
+   that reach its general variant and the edges of the vector one (channel
+   counts that are no multiple of 8, every templated width, 3 x 3 patches, a
+   base that is not 16-byte aligned).
 3. K2 (batched Jacobi PCG, ``ops/cg_cuda.py``) against its plain version,
    folded-damping and explicit forms.
 4. A small scene through ``PixSfM.run_ka`` on ``cuda`` and on ``cpu`` (the
@@ -30,7 +33,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``ops/schur_cuda.py``) against their plain versions at the BA main
    path's shape (T = 8 ranks, SIMPLE_RADIAL so k = 4, 56 images, one
    camera, 65 536 padded points): error against a float64 reference and
-   time per launch. Then K1 again at the BA path's shape: 8192 queries (one
+   time per launch; then at small shapes that reach every variant of K3a
+   (fused with one and two ranks per warp, two-pass, tables in shared and in
+   global memory; T not a power of two, k = 1 and 8, mixed camera slots).
+   Then K1 again at the BA path's shape: 8192 queries (one
    chunk of observations) over 240 000 bf16 patches (one per observation,
    7.9e9 elements, so offsets past 2^31), L2 on and off.
 8. A small scene through ``ba_solve`` on the grid layout on ``cuda`` and
@@ -46,14 +52,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 10. Where the BA time goes: the same BA again, extraction and references +
    solve (``BA_PROFILE_ITERATIONS`` LM iterations) under ``torch.profiler``:
    device-busy time, idle share, the top kernels and the in-situ time per
-   launch of K1 and K3a/b/c.
+   launch of K1 and K3a/b/c (a kernel that launched and has no in-situ
+   figure fails the run).
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA and BA), its error against the plain version, its time per
 launch (CUDA events), the plain version's time and the bound computed from
-this run's inputs; K1, which both paths launch at different shapes, has one
-entry per path (``"path": "KA"`` / ``"BA"``) with that path's launches and
-the figures at its shape; and last ``{"ok": true, "device": {...}}``.
+this run's inputs (``cold_ms``: K1 on query sets that change from launch to
+launch, so that no tap is left in the L2 cache; ``general_ms`` and
+``general_cold_ms``: the same two for K1's general variant, forced by a
+misaligned copy of the rows; ``in_situ_ms``: the profiler's device time per
+launch inside the stage; ``prev_ms``: the time of the kernel's earlier
+design, from ``PERF.md``); K1, which both paths launch at different shapes,
+has one entry per path (``"path": "KA"`` / ``"BA"``) with that path's
+launches and the figures at its shape; and last ``{"ok": true, "device": {...}}``.
 
 The weights are S2DNet's deterministic random init (no checkpoint ships
 with the repository); the scenes are made from seeds with numpy.
@@ -69,6 +81,10 @@ from pathlib import Path
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+
+# ms per launch of the earlier designs of the redesigned kernels (PERF.md,
+# NVIDIA H100 80GB HBM3 @ 700.00 W), carried into the ``kernels`` line
+PREV_MS = {"K1_KA": 0.0382, "K1_BA": 0.0473, "K3a": 0.1117, "K3b": 0.0940}
 
 # depth of the full-size BA (the default config allows 100 LM iterations)
 BA_ITERATIONS = 30
@@ -152,10 +168,36 @@ def check_k1(torch, interpolate_cuda, n_patches, n_queries, dtypes,
     # timing at the main path's configuration: bf16 storage, L2 on
     rows = base.to(torch.bfloat16)
     del base
+    row_base = row_base.to(torch.int32)   # as the callers pass it: no cast
     ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
         rows, ps, ps, C, row_base, r, c, True))
     plain_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows_plain(
         rows, ps, ps, C, row_base, r, c, True), reps=5)
+    # the same launch on query sets that change every time: together they
+    # read far more than the 50 MB L2 holds, as a caller's chunks do
+    n_sets = 8
+    sets = [(torch.randint(0, n_patches, (n_queries,), generator=gen,
+                           device=dev).to(torch.int32) * ps,
+             torch.rand(n_queries, generator=gen, device=dev) * (ps + 2.0)
+             - 1.5,
+             torch.rand(n_queries, generator=gen, device=dev) * (ps + 2.0)
+             - 1.5) for _ in range(n_sets)]
+    turn = iter(range(10 ** 9))
+    cold_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
+        rows, ps, ps, C, *sets[next(turn) % n_sets], True), reps=40, warmup=8)
+    # the general variant on the same queries: a copy of the rows one
+    # element past an aligned base, which the 16-byte loads cannot take
+    shifted = torch.empty(rows.numel() + 8, device=dev,
+                          dtype=rows.dtype)[1:rows.numel() + 1].view_as(rows)
+    shifted.copy_(rows)
+    if interpolate_cuda.kernel_variant(shifted) != "general":
+        raise SystemExit("K1 took 16-byte loads on a misaligned base")
+    general_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
+        shifted, ps, ps, C, row_base, r, c, True))
+    general_cold_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
+        shifted, ps, ps, C, *sets[next(turn) % n_sets], True), reps=40,
+        warmup=8)
+    del shifted
     # bound: the distinct tap pixels this input needs, read once, plus the
     # query inputs and the three float32 outputs
     taps = torch.arange(-1, 3, device=dev)
@@ -169,11 +211,78 @@ def check_k1(torch, interpolate_cuda, n_patches, n_queries, dtypes,
     bound_ms = 1e3 * max(bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
     bound_by = "bytes" if bytes_ / HBM_BYTES_PER_S >= \
         flops / FP32_FLOP_PER_S else "operations"
-    print(f"K1 timing (bf16, L2, N={n_queries}, {n_patches} patches): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    variant = interpolate_cuda.kernel_variant(rows)
+    print(f"K1 timing (bf16, L2, N={n_queries}, {n_patches} patches, "
+          f"{variant} variant): kernel {ms:.4f} ms ({cold_ms:.4f} ms on "
+          f"changing query sets), general variant {general_ms:.4f} ms "
+          f"({general_cold_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bytes_ / 1e6:.1f} MB)")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    if variant != "vector":
+        raise SystemExit("K1 did not take its vector variant at a main "
+                         "path's shape")
+    return dict(max_abs_err=worst, ms=ms, cold_ms=cold_ms,
+                general_ms=general_ms, general_cold_ms=general_cold_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_k1_edges(torch, interpolate_cuda):
+    """K1 against its plain version at small shapes that reach the general
+    variant and every templated width of the vector one, at the tolerances
+    of :func:`check_k1`. Returns the largest error."""
+    dev = torch.device("cuda")
+    tols = {torch.float32: 2e-5, torch.bfloat16: 5e-3}
+    # (dtype, C, H, W, misaligned base, expected variant)
+    cases = [(dt, C, 16, 16, False, want)
+             for dt, widths in ((torch.bfloat16, {64: "vector",
+                                                  256: "vector",
+                                                  20: "general",
+                                                  136: "general"}),
+                                (torch.float32, {32: "vector", 64: "vector",
+                                                 128: "vector",
+                                                 20: "general",
+                                                 136: "general",
+                                                 256: "general"}))
+             for C, want in widths.items()]
+    cases += [(torch.bfloat16, 128, 3, 3, False, "vector"),
+              (torch.float32, 128, 3, 3, False, "vector"),
+              (torch.bfloat16, 20, 3, 3, False, "general"),
+              (torch.bfloat16, 128, 16, 16, True, "general"),
+              (torch.float32, 128, 16, 16, True, "general")]
+    worst = 0.0
+    for dtype, C, H, W, misaligned, want in cases:
+        gen = torch.Generator(device=dev).manual_seed(C + H)
+        n_patches, n = 40, 1501
+        numel = n_patches * H * W * C
+        buf = torch.randn(numel + 8, generator=gen, device=dev).to(dtype)
+        # one element past an aligned base: 2 or 4 bytes off
+        rows = buf[1:numel + 1] if misaligned else buf[:numel]
+        rows = rows.view(n_patches * H, W, C)
+        row_base = torch.randint(0, n_patches, (n,), generator=gen,
+                                 device=dev) * H
+        r = torch.rand(n, generator=gen, device=dev) * (H + 2.0) - 1.5
+        c = torch.rand(n, generator=gen, device=dev) * (W + 2.0) - 1.5
+        r[:4] = torch.tensor([0.0, H - 1.0, 0.25, H - 1.25])
+        c[:4] = torch.tensor([W - 1.0, 0.0, W - 1.5, 0.5])
+        got = interpolate_cuda.kernel_variant(rows)
+        for l2 in (False, True):
+            out = interpolate_cuda.interpolate_rows(rows, H, W, C, row_base,
+                                                    r, c, l2)
+            ref = interpolate_cuda.interpolate_rows_plain(rows, H, W, C,
+                                                          row_base, r, c, l2)
+            torch.cuda.synchronize()
+            err = _max_err(out, ref)
+            print(f"K1 edge {str(dtype)[6:]} C={C} {H}x{W} "
+                  f"{'misaligned ' if misaligned else ''}l2={l2} ({got} "
+                  f"variant): max |kernel - plain| = {err:.3e} (atol "
+                  f"{tols[dtype]})")
+            if got != want or err > tols[dtype] or not all(
+                    bool(torch.isfinite(o).all()) for o in out):
+                raise SystemExit(f"K1 edge case failed: {dtype} C={C} "
+                                 f"{H}x{W} misaligned={misaligned} l2={l2}: "
+                                 f"variant {got} (expected {want}), error "
+                                 f"{err}")
+            worst = max(worst, err)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -256,12 +365,16 @@ def k3_inputs(torch, schur_cuda, T, I, Nc, k, P, n_obs, seed=7,
                 gx=torch.randn((3, Ppad), generator=gen, device=dev))
 
 
-def check_k3(torch, schur_cuda, T, I, Nc, k, P, n_obs, device="cuda"):
+def check_k3(torch, schur_cuda, T, I, Nc, k, P, n_obs, device="cuda",
+             timed=True, seed=7):
     """Each K3 kernel against its plain version. Tolerance: |kernel - ref|
     <= 2e-5 |ref| + 1e-6 S per entry, ref the plain version in float64 and
     S the same sums over absolute values (the kernels add in another,
-    atomic, order, so their float32 error grows with S, not |ref|)."""
-    x = k3_inputs(torch, schur_cuda, T, I, Nc, k, P, n_obs, device=device)
+    atomic, order, so their float32 error grows with S, not |ref|). With
+    ``timed`` each kernel and its plain version are also timed and the bound
+    is computed."""
+    x = k3_inputs(torch, schur_cuda, T, I, Nc, k, P, n_obs, seed=seed,
+                  device=device)
     dims = dict(T=T, I=I, Nc=Nc, k=k)
     cases = {
         "K3a": (lambda a: schur_cuda.schur_term_matvec(
@@ -310,7 +423,11 @@ def check_k3(torch, schur_cuda, T, I, Nc, k, P, n_obs, device="cuda"):
               f"float64) = {ratio:.3f}")
         if not all(bool(torch.isfinite(g).all()) for g in got) \
                 or not ratio <= 1.0:
-            raise SystemExit(f"{name} disagrees with its plain version")
+            raise SystemExit(f"{name} disagrees with its plain version "
+                             f"(T={T}, k={k}, I={I}, Nc={Nc}, P={P})")
+        if not timed:
+            out[name] = dict(max_abs_err=err)
+            continue
         ms = _time_ms(lambda: kern(x))
         plain_ms = _time_ms(lambda: plain(x), reps=5)
         bound_ms, bound_by = _bound(bytes_[name], flops[name])
@@ -320,6 +437,33 @@ def check_k3(torch, schur_cuda, T, I, Nc, k, P, n_obs, device="cuda"):
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
     return out
+
+
+def check_k3_edges(torch, schur_cuda):
+    """K3a/b/c against their plain versions at small shapes that together
+    reach every variant of K3a, at :func:`check_k3`'s tolerance."""
+    # (T, I, Nc, k, points, observations)
+    cases = [(1, 13, 3, 4, 1024, 700),        # one rank, mixed camera slots
+             (5, 13, 3, 1, 4096, 15000),      # T not a power of two, k = 1
+             (8, 2, 1, 8, 4096, 30000),       # k = 8, few slots: large groups
+             (12, 7, 2, 3, 2048, 20000),      # two ranks per warp, odd T / 2
+             (16, 13, 3, 8, 4096, 50000),     # T = 16, k = 8
+             (20, 13, 3, 4, 2048, 30000),     # T > 16: two passes
+             (4, 3000, 2, 4, 4096, 12000),    # tables above shared memory
+             (16, 3000, 2, 8, 4096, 50000),
+             (20, 3000, 2, 4, 2048, 30000)]
+    seen = set()
+    for n, (T, I, Nc, k, P, n_obs) in enumerate(cases):
+        variant = schur_cuda.matvec_variant(T, k, I, Nc, P)
+        seen.add(variant)
+        print(f"K3 edge T={T} k={k} I={I} Nc={Nc} P={P} (K3a variant "
+              f"{variant}):")
+        check_k3(torch, schur_cuda, T=T, I=I, Nc=Nc, k=k, P=P, n_obs=n_obs,
+                 timed=False, seed=100 + n)
+    want = {f"{v}/{m}" for v in ("fused1", "fused2", "twopass")
+            for m in ("shared", "global")}
+    if seen != want:
+        raise SystemExit(f"K3a variants not reached: {sorted(want - seen)}")
 
 
 # ---------------------------------------------------------------------------
@@ -587,6 +731,23 @@ def profile_stage(torch, fn):
     return res, wall, busy, kern, table
 
 
+def _in_situ(kern, tags, launched):
+    """Device ms per launch inside a profiled stage, per kernel id: every
+    profiled kernel whose name contains the id's tag (the variants of one
+    kernel share it). A kernel that ``launched`` on the main path and shows
+    no launch in the profile fails the run."""
+    out = {}
+    for key, tag in tags.items():
+        hits = [(c, ms) for n, c, ms in kern if tag in n]
+        calls = sum(c for c, _ in hits)
+        if calls:
+            out[key] = sum(ms for _, ms in hits) / calls
+        elif launched.get(key, 0) > 0:
+            raise SystemExit(f"{key} launched on the main path but the "
+                             f"profile shows no kernel named *{tag}*")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -621,6 +782,8 @@ def main() -> int:
     P, K = 128, 56                 # main path: chunk 128, 50 kps padded to 56
     k1 = check_k1(torch, interpolate_cuda, n_patches=20000,
                   n_queries=P * K, dtypes=(torch.float32, torch.bfloat16))
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            check_k1_edges(torch, interpolate_cuda))
     k2 = check_k2(torch, cg_cuda, P=P, N=2 * K, iters=15)
 
     # -- phase 4: small scene, cuda against cpu --------------------------------
@@ -698,6 +861,9 @@ def main() -> int:
         for name, calls, dev_ms in kern[:6]:
             print(f"  {stage}: {dev_ms:9.3f} ms in {calls:5d} launches  "
                   f"{name[:90]}")
+    in_situ_ka = _in_situ(kern_ka, {"K1": "interp_kernel",
+                                    "K2": "pcg_kernel"}, launches)
+    print(f"phase 6: in-situ device ms per launch {in_situ_ka}")
     if args.profile_out:
         out_dir = Path(args.profile_out)
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -711,6 +877,12 @@ def main() -> int:
     n_views, n_pts = 56, 40000
     k3 = check_k3(torch, schur_cuda, T=8, I=n_views, Nc=1, k=4, P=65536,
                   n_obs=240000)
+    variant = schur_cuda.matvec_variant(8, 4, n_views, 1, 65536)
+    print(f"K3a variant at the BA path's shape: {variant}")
+    if variant != "fused1/shared":
+        raise SystemExit("K3a did not take its fused variant at the BA "
+                         "path's shape")
+    check_k3_edges(torch, schur_cuda)
     # K1 at the BA path's shape: one chunk of 8192 observations over one
     # bf16 patch per observation (~240 000)
     k1_ba = check_k1(torch, interpolate_cuda, n_patches=240000,
@@ -805,13 +977,10 @@ def main() -> int:
         for name, calls, dev_ms in kern[:8]:
             print(f"  {stage}: {dev_ms:9.3f} ms in {calls:6d} launches  "
                   f"{name[:90]}")
-    in_situ = {}
-    for key, tag in (("K3a", "matvec_kernel"), ("K3b", "rhs_kernel"),
-                     ("K3c", "backsub_kernel"), ("K1", "interp_kernel")):
-        hits = [(c, ms) for n, c, ms in kern_bap if tag in n]
-        calls = sum(c for c, _ in hits)
-        if calls:
-            in_situ[key] = sum(ms for _, ms in hits) / calls
+    in_situ = _in_situ(kern_bap, {"K3a": "matvec_kernel",
+                                  "K3b": "rhs_kernel",
+                                  "K3c": "backsub_kernel",
+                                  "K1": "interp_kernel"}, launches_ba)
     print(f"phase 10: in-situ device ms per launch {in_situ}")
     if args.profile_out:
         with open(Path(args.profile_out) / "chip_smoke_profile.txt",
@@ -830,27 +999,33 @@ def main() -> int:
         dict(name="bicubic_window_interp_l2", path="KA", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
              replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
-             launches=launches["K1"], library_ms=None, **k1),
+             launches=launches["K1"], library_ms=None,
+             in_situ_ms=in_situ_ka["K1"], prev_ms=PREV_MS["K1_KA"], **k1),
         dict(name="bicubic_window_interp_l2", path="BA", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
              replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
-             launches=launches_ba["K1"], library_ms=None, **k1_ba),
+             launches=launches_ba["K1"], library_ms=None,
+             in_situ_ms=in_situ["K1"], prev_ms=PREV_MS["K1_BA"], **k1_ba),
         dict(name="batched_jacobi_pcg", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/pcg.cu",
              replaces="pixsfm_tpu/ops/cg_pallas.py:88",
-             launches=both["K2"], library_ms=None, **k2),
+             launches=both["K2"], library_ms=None,
+             in_situ_ms=in_situ_ka["K2"], **k2),
         dict(name="schur_term_matvec", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",
              replaces="pixsfm_tpu/ops/schur_pallas.py:253",
-             launches=both["K3a"], library_ms=None, **k3["K3a"]),
+             launches=both["K3a"], library_ms=None,
+             in_situ_ms=in_situ["K3a"], prev_ms=PREV_MS["K3a"], **k3["K3a"]),
         dict(name="schur_rhs", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",
              replaces="pixsfm_tpu/ops/schur_pallas.py:280",
-             launches=both["K3b"], library_ms=None, **k3["K3b"]),
+             launches=both["K3b"], library_ms=None,
+             in_situ_ms=in_situ["K3b"], prev_ms=PREV_MS["K3b"], **k3["K3b"]),
         dict(name="schur_backsub", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",
              replaces="pixsfm_tpu/ops/schur_pallas.py:302",
-             launches=both["K3c"], library_ms=None, **k3["K3c"]),
+             launches=both["K3c"], library_ms=None,
+             in_situ_ms=in_situ["K3c"], **k3["K3c"]),
     ]}
     print(smi)
     print(json.dumps(kernels_line))

@@ -1,8 +1,8 @@
-// Bicubic window interpolation with derivatives and the L2 chain rule.
+// Bicubic window interpolation with derivatives and the L2 chain rule (K1).
 //
 // Replaces the Pallas TPU kernel pixsfm_tpu/ops/interpolate_pallas.py
 // (_make_call, driven by interpolate_rows_pallas) and serves the default
-// KA path, whose XLA form is bicubic_window_eval_rows +
+// KA and BA paths, whose XLA form is bicubic_window_eval_rows +
 // l2_normalize_with_grad (pixsfm_tpu/base/interpolation.py:388, :428).
 //
 // Per query n: the patch starts at row row_base[n] of a flat [NR, W, C] row
@@ -13,14 +13,51 @@
 // L2-normalized with the chain rule applied to both derivatives.
 //
 // Bound on the card: bytes. Each query needs its 16 taps x C channels
-// (4 KiB at C = 128 in bf16) and writes 3 x C floats; the arithmetic is
-// 3 FMAs per tap and channel. Design: one warp per query, channels across
-// the lanes (lane l owns channels l, l + 32, ...), so every tap is one
-// coalesced read of C contiguous values. The Catmull-Rom weights are
-// computed in registers from r and c (the TPU kernel read precomputed dense
-// [N, W] column weights). Accumulation is float32; the L2 norm and the two
-// chain-rule dot products are warp shuffle reductions. Only the 16 taps are
-// read, not the whole 4-row window the TPU kernel copied into VMEM.
+// (4 KiB at C = 128 in bf16, in four 1 KiB runs) and writes 3 x C floats;
+// the arithmetic is 3 FMAs per tap and channel. A launch is short (8192
+// queries are ~12 us of memory traffic), so what decides its time is how
+// the loads are made. Measured on the H100 with the general variant below
+// at that shape (one warp per query, a 2-byte load per lane, tap and 32
+// channels): without its loads it takes 11 us, without its arithmetic 32 us,
+// and with loads alone 24 us of its 44 us. The 64 narrow loads per lane and
+// their address arithmetic set its time, not the FMAs and not the bytes.
+//
+// Two variants; pixsfm_interp_rows picks one from C, the storage type and
+// the pointers' alignment (the Python wrapper does not choose):
+//
+// - interp_kernel_vec<T, C>, for bf16 rows with C in {64, 128, 256} (S2DNet's
+//   128 and the VGG widths around it) and f32 rows with C in {32, 64, 128}
+//   when rows and the outputs are 16-byte aligned. A pixel is C * sizeof(T) / 16 = 8, 16 or 32 16-byte units and
+//   each lane owns one unit (8 bf16 / 4 f32 channels), so one warp-wide
+//   ld.global.nc.v4 fetches 4, 2 or 1 taps (at C = 128 bf16: the two
+//   half-warps read two taps of one row). All of a query's loads (8 per lane
+//   at C = 128 bf16, where the general variant makes 64) are requested before
+//   the first use; bf16 pairs are unpacked with a shift and a mask; sums are
+//   float32. The lane groups' partial sums are combined with xor shuffles,
+//   the L2 norm and the two chain-rule dots are reductions within a group,
+//   and the three outputs leave as float4 stores (3 per lane at C = 128
+//   bf16). The grid is persistent: a warp walks queries q, q + stride, ...
+//   and software-pipelines them in registers: while query q is reduced, the
+//   taps of q + stride and the (r, c, row_base) of q + 2 stride are already
+//   requested, so a warp has two queries' bytes in flight and its
+//   index -> address -> taps -> store chain overlaps the next one's. The
+//   number of warps is chosen so that every warp gets the same number of
+//   queries (8192 queries -> 2048 warps x 4). The channel count is a
+//   template parameter: no loop has a run-time predicate. Register
+//   prefetching was chosen over a cp.async shared-memory ring: the taps are
+//   used once, straight from the registers they arrive in, and at 16 warps
+//   per SM two queries per warp already keep 128 KiB in flight per SM (8
+//   warps at the widths that need 16 loads per lane). Measured: 16 warps per
+//   SM beat 8, 12, 20 and 24 (the last two spill), and walking queries beat
+//   one query per warp by a quarter. The two tap buffers are separate
+//   arrays that swap roles in an unrolled pair of steps: indexed as one
+//   array they went to local memory and the kernel took twice as long.
+//
+// - interp_kernel_general<T>, everything else the function takes: any
+//   C <= 256 (also not a multiple of 8), misaligned bases, f32 rows of other
+//   widths. One warp per query, lane l owns channels l, l + 32, ..., scalar
+//   loads. Both variants take any H and W (W < 4: every column tap clamps)
+//   and offsets past 2^31.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (pixsfm_tpu_torch/kernels/__init__.py).
@@ -32,7 +69,8 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxChannelsPerLane = 8;  // C <= 256
+constexpr int kMaxChannelsPerLane = 8;  // general variant: C <= 256
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -54,16 +92,275 @@ __device__ __forceinline__ void catmull_rom(float t, float w[4], float dw[4]) {
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
+// ---------------------------------------------------------------------------
+// vector variant
+// ---------------------------------------------------------------------------
+
+template <typename V>
+__device__ __forceinline__ V sel4(const V v[4], int j) {
+  return j == 0 ? v[0] : j == 1 ? v[1] : j == 2 ? v[2] : v[3];
+}
+
+// the channels of one 16-byte unit as floats
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4],
+                                       const float*) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8],
+                                       const __nv_bfloat16*) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+struct Query {
+  float r, c;
+  int base;
+};
+
+__device__ __forceinline__ Query load_query(const int32_t* row_base,
+                                            const float* rq, const float* cq,
+                                            int q) {
+  Query s;
+  s.r = __ldg(rq + q);
+  s.c = __ldg(cq + q);
+  s.base = __ldg(row_base + q);
+  return s;
+}
+
+template <typename T, int C>
+struct VecShape {
+  static constexpr int kVec = 16 / sizeof(T);     // channels per lane
+  static constexpr int kLanes = C / kVec;         // lanes per pixel
+  static constexpr int kGroups = 32 / kLanes;     // taps per warp-wide load
+  static constexpr int kLoads = 16 / kGroups;     // loads per lane and query
+  static constexpr int kCols = 4 / kGroups;       // column taps of a lane
+  // two queries' taps live in registers: 64 of them at 8 loads, 128 at 16
+  static constexpr int kBlocksPerSM = kLoads > 8 ? 2 : 4;
+  static_assert(C % kVec == 0 && (kLanes == 8 || kLanes == 16 || kLanes == 32),
+                "a pixel must be 8, 16 or 32 16-byte units");
+};
+
+// Request the lane's taps of one query: load i * kCols + jj is tap
+// (i, jj * kGroups + group).
+template <typename T, int C>
+__device__ __forceinline__ void request_taps(
+    const T* __restrict__ rows, const Query& s, int h, int w, int group,
+    int unit, uint4 (&taps)[VecShape<T, C>::kLoads]) {
+  using S = VecShape<T, C>;
+  const int br = static_cast<int>(floorf(s.r));
+  const int bc = static_cast<int>(floorf(s.c));
+  int64_t col[S::kCols];
+#pragma unroll
+  for (int jj = 0; jj < S::kCols; ++jj) {
+    const int ci = min(max(bc - 1 + jj * S::kGroups + group, 0), w - 1);
+    col[jj] = static_cast<int64_t>(ci) * S::kLanes + unit;
+  }
+  const uint4* px = reinterpret_cast<const uint4*>(rows);
+  const int64_t row_units = static_cast<int64_t>(w) * S::kLanes;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ri = min(max(br - 1 + i, 0), h - 1);
+    const int64_t row = (static_cast<int64_t>(s.base) + ri) * row_units;
+#pragma unroll
+    for (int jj = 0; jj < S::kCols; ++jj)
+      taps[i * S::kCols + jj] = __ldg(px + row + col[jj]);
+  }
+}
+
+// A lane's V channels of output A (0 = f, 1 = df/dr, 2 = df/dc) as float4
+// stores, shared out among the G lane groups that hold the same sums.
+template <int V, int G, int A>
+__device__ __forceinline__ void store_shared(float* __restrict__ out,
+                                             const float (&x)[V], int group) {
+  if constexpr (V == 8 && G == 2) {
+    // group g stores the g-th float4: one full-warp store per output
+    const float4 v = group ? make_float4(x[4], x[5], x[6], x[7])
+                           : make_float4(x[0], x[1], x[2], x[3]);
+    *reinterpret_cast<float4*>(out + 4 * group) = v;
+  } else {
+#pragma unroll
+    for (int v4 = 0; v4 < V / 4; ++v4) {
+      if ((A * (V / 4) + v4) % G == group)
+        *reinterpret_cast<float4*>(out + 4 * v4) = make_float4(
+            x[4 * v4], x[4 * v4 + 1], x[4 * v4 + 2], x[4 * v4 + 3]);
+    }
+  }
+}
+
+template <typename T, int C>
+__device__ __forceinline__ void reduce_and_store(
+    const Query& s, const uint4 (&taps)[VecShape<T, C>::kLoads], int q,
+    int group, int unit, int l2, float* __restrict__ f_out,
+    float* __restrict__ dr_out, float* __restrict__ dc_out) {
+  using S = VecShape<T, C>;
+  constexpr int V = S::kVec;
+  float wr[4], dwr[4], wc[4], dwc[4];
+  catmull_rom(s.r - floorf(s.r), wr, dwr);
+  catmull_rom(s.c - floorf(s.c), wc, dwc);
+  float my_wc[S::kCols], my_dwc[S::kCols];
+#pragma unroll
+  for (int jj = 0; jj < S::kCols; ++jj) {
+    my_wc[jj] = sel4(wc, jj * S::kGroups + group);
+    my_dwc[jj] = sel4(dwc, jj * S::kGroups + group);
+  }
+
+  float f[V], fdr[V], fdc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) f[k] = fdr[k] = fdc[k] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < S::kCols; ++jj) {
+      const float a = wr[i] * my_wc[jj];
+      const float b = dwr[i] * my_wc[jj];
+      const float d = wr[i] * my_dwc[jj];
+      float v[V];
+      unpack(taps[i * S::kCols + jj], v, static_cast<const T*>(nullptr));
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        f[k] = fmaf(a, v[k], f[k]);
+        fdr[k] = fmaf(b, v[k], fdr[k]);
+        fdc[k] = fmaf(d, v[k], fdc[k]);
+      }
+    }
+  }
+  // the lane groups hold different taps of the same channels
+#pragma unroll
+  for (int o = S::kLanes; o < 32; o <<= 1) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      f[k] += __shfl_xor_sync(kFull, f[k], o);
+      fdr[k] += __shfl_xor_sync(kFull, fdr[k], o);
+      fdc[k] += __shfl_xor_sync(kFull, fdc[k], o);
+    }
+  }
+
+  if (l2) {
+    // XLA form of the JAX package: 1 / max(||f||, 1e-20); a group's lanes
+    // hold all C channels once
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < V; ++k) ss += f[k] * f[k];
+#pragma unroll
+    for (int o = S::kLanes / 2; o > 0; o >>= 1)
+      ss += __shfl_xor_sync(kFull, ss, o);
+    const float inv = 1.0f / fmaxf(sqrtf(ss), 1e-20f);
+    float pr = 0.f, pc = 0.f;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      f[k] *= inv;
+      fdr[k] *= inv;
+      fdc[k] *= inv;
+      pr += f[k] * fdr[k];
+      pc += f[k] * fdc[k];
+    }
+#pragma unroll
+    for (int o = S::kLanes / 2; o > 0; o >>= 1) {
+      pr += __shfl_xor_sync(kFull, pr, o);
+      pc += __shfl_xor_sync(kFull, pc, o);
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      fdr[k] -= pr * f[k];
+      fdc[k] -= pc * f[k];
+    }
+  }
+
+  // every group holds the full sums: the groups share the float4 stores
+  const int64_t o = static_cast<int64_t>(q) * C + unit * V;
+  store_shared<V, S::kGroups, 0>(f_out + o, f, group);
+  store_shared<V, S::kGroups, 1>(dr_out + o, fdr, group);
+  store_shared<V, S::kGroups, 2>(dc_out + o, fdc, group);
+}
+
+// What a warp carries from one query to the next.
+struct Walk {
+  int q, q1, stride;  // the query being reduced, the next one, the step
+  Query cur, nxt;     // their (r, c, row_base)
+};
+
+// One step of the pipeline: request the taps of query q1 into `want` and the
+// indices of the query after it, reduce query q from `have`, move on. False
+// when q was the warp's last query.
+template <typename T, int C>
+__device__ __forceinline__ bool walk_step(
+    const T* __restrict__ rows, const int32_t* __restrict__ row_base,
+    const float* __restrict__ rq, const float* __restrict__ cq, int n, int h,
+    int w, int l2, int group, int unit, Walk& s,
+    const uint4 (&have)[VecShape<T, C>::kLoads],
+    uint4 (&want)[VecShape<T, C>::kLoads], float* __restrict__ f_out,
+    float* __restrict__ dr_out, float* __restrict__ dc_out) {
+  const int q2 = s.q1 + s.stride;
+  Query ahead = s.nxt;
+  if (s.q1 < n) {
+    request_taps<T, C>(rows, s.nxt, h, w, group, unit, want);
+    if (q2 < n) ahead = load_query(row_base, rq, cq, q2);
+  }
+  reduce_and_store<T, C>(s.cur, have, s.q, group, unit, l2, f_out, dr_out,
+                         dc_out);
+  if (s.q1 >= n) return false;
+  s.q = s.q1;
+  s.q1 = q2;
+  s.cur = s.nxt;
+  s.nxt = ahead;
+  return true;
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock,
+                                  VecShape<T, C>::kBlocksPerSM)
+interp_kernel_vec(const T* __restrict__ rows,
+                  const int32_t* __restrict__ row_base,
+                  const float* __restrict__ rq, const float* __restrict__ cq,
+                  int n, int h, int w, int l2, float* __restrict__ f_out,
+                  float* __restrict__ dr_out, float* __restrict__ dc_out) {
+  using S = VecShape<T, C>;
+  const int lane = threadIdx.x & 31;
+  const int group = lane / S::kLanes;
+  const int unit = lane % S::kLanes;
+  Walk s;
+  s.stride = gridDim.x * kWarpsPerBlock;
+  s.q = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (s.q >= n) return;  // whole warp leaves together
+
+  // when the loop is entered the taps of q and the indices of q + stride
+  // are in flight; the two tap buffers (registers) swap roles every step
+  uint4 taps_a[S::kLoads], taps_b[S::kLoads];
+  s.cur = load_query(row_base, rq, cq, s.q);
+  request_taps<T, C>(rows, s.cur, h, w, group, unit, taps_a);
+  s.q1 = s.q + s.stride;
+  s.nxt = s.cur;
+  if (s.q1 < n) s.nxt = load_query(row_base, rq, cq, s.q1);
+  while (walk_step<T, C>(rows, row_base, rq, cq, n, h, w, l2, group, unit, s,
+                         taps_a, taps_b, f_out, dr_out, dc_out) &&
+         walk_step<T, C>(rows, row_base, rq, cq, n, h, w, l2, group, unit, s,
+                         taps_b, taps_a, f_out, dr_out, dc_out)) {
+  }
+}
+
+// ---------------------------------------------------------------------------
+// general variant
+// ---------------------------------------------------------------------------
+
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-interp_kernel(const T* __restrict__ rows, const int32_t* __restrict__ row_base,
-              const float* __restrict__ rq, const float* __restrict__ cq,
-              int n, int h, int w, int c, int l2, float* __restrict__ f_out,
-              float* __restrict__ dr_out, float* __restrict__ dc_out) {
+interp_kernel_general(const T* __restrict__ rows,
+                      const int32_t* __restrict__ row_base,
+                      const float* __restrict__ rq,
+                      const float* __restrict__ cq, int n, int h, int w, int c,
+                      int l2, float* __restrict__ f_out,
+                      float* __restrict__ dr_out, float* __restrict__ dc_out) {
   const int lane = threadIdx.x & 31;
   const int q = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (q >= n) return;  // whole warp leaves together
@@ -148,16 +445,61 @@ interp_kernel(const T* __restrict__ rows, const int32_t* __restrict__ row_base,
   }
 }
 
-template <typename T>
-int launch(const void* rows, const int32_t* row_base, const float* r,
-           const float* c, int n, int h, int w, int ch, int l2, float* f,
-           float* dfdr, float* dfdc, cudaStream_t stream) {
-  if (n == 0) return 0;
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  interp_kernel<T><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
-      static_cast<const T*>(rows), row_base, r, c, n, h, w, ch, l2, f, dfdr,
-      dfdc);
+// ---------------------------------------------------------------------------
+// dispatch
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void* rows;
+  const int32_t* row_base;
+  const float* r;
+  const float* c;
+  int n, h, w, ch, l2;
+  float* f;
+  float* dfdr;
+  float* dfdc;
+  cudaStream_t stream;
+};
+
+int sm_count() {
+  static int count = 0;  // the library serves one kind of card per process
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        count <= 0)
+      count = 132;
+  }
+  return count;
+}
+
+template <typename T, int C>
+int launch_vec(const Args& a) {
+  // as many warps as the card holds at once, then fewer so that every warp
+  // walks the same number of queries
+  const int resident =
+      sm_count() * VecShape<T, C>::kBlocksPerSM * kWarpsPerBlock;
+  const int rounds = (a.n + resident - 1) / resident;
+  const int warps = (a.n + rounds - 1) / rounds;
+  const int blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  interp_kernel_vec<T, C><<<blocks, 32 * kWarpsPerBlock, 0, a.stream>>>(
+      static_cast<const T*>(a.rows), a.row_base, a.r, a.c, a.n, a.h, a.w,
+      a.l2, a.f, a.dfdr, a.dfdc);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_general(const Args& a) {
+  const int blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  interp_kernel_general<T><<<blocks, 32 * kWarpsPerBlock, 0, a.stream>>>(
+      static_cast<const T*>(a.rows), a.row_base, a.r, a.c, a.n, a.h, a.w,
+      a.ch, a.l2, a.f, a.dfdr, a.dfdc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -166,20 +508,40 @@ extern "C" {
 
 int pixsfm_interp_max_channels() { return 32 * kMaxChannelsPerLane; }
 
+// Which variant pixsfm_interp_rows takes for these arguments: 1 = vector,
+// 0 = general (for tests and the smoke run; same rule as the launch).
+int pixsfm_interp_variant(const void* rows, int dtype, int ch, const float* f,
+                          const float* dfdr, const float* dfdc) {
+  if (!(aligned16(rows) && aligned16(f) && aligned16(dfdr) && aligned16(dfdc)))
+    return 0;
+  if (dtype == 0) return ch == 32 || ch == 64 || ch == 128;
+  if (dtype == 1) return ch == 64 || ch == 128 || ch == 256;
+  return 0;
+}
+
 // dtype: 0 = float32 rows, 1 = bfloat16 rows. Returns the cudaError_t of
 // the launch (0 = success).
 int pixsfm_interp_rows(const void* rows, int dtype, const int32_t* row_base,
                        const float* r, const float* c, int n, int h, int w,
                        int ch, int l2, float* f, float* dfdr, float* dfdc,
                        void* stream) {
-  if (ch > 32 * kMaxChannelsPerLane) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(rows, row_base, r, c, n, h, w, ch, l2, f, dfdr, dfdc, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(rows, row_base, r, c, n, h, w, ch, l2, f,
-                                 dfdr, dfdc, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (ch > 32 * kMaxChannelsPerLane || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const Args a{rows, row_base, r, c, n, h, w, ch, l2, f, dfdr, dfdc,
+               static_cast<cudaStream_t>(stream)};
+  if (pixsfm_interp_variant(rows, dtype, ch, f, dfdr, dfdc)) {
+    if (dtype == 0) {
+      if (ch == 32) return launch_vec<float, 32>(a);
+      if (ch == 64) return launch_vec<float, 64>(a);
+      return launch_vec<float, 128>(a);
+    }
+    if (ch == 64) return launch_vec<__nv_bfloat16, 64>(a);
+    if (ch == 128) return launch_vec<__nv_bfloat16, 128>(a);
+    return launch_vec<__nv_bfloat16, 256>(a);
+  }
+  return dtype == 0 ? launch_general<float>(a)
+                    : launch_general<__nv_bfloat16>(a);
 }
 
 }  // extern "C"

@@ -16,24 +16,54 @@
 // blocks and point their indices at slot 0, so they add exactly nothing.
 //
 // What bounds them: bytes. Per launch each kernel must read Btr once
-// (T * 3NR * P floats: 38 MB at T = 8, k = 4, P = 40 000) plus the index
+// (T * 3NR * P floats: 63 MB at T = 8, k = 4, P = 65 536) plus the index
 // rows and Vinv; the arithmetic is ~2 FLOP per byte of Btr, far below the
-// H100's ratio. The TPU kernels gather through one-hot MXU matmuls split
-// into 3 bf16 passes to stay exact; here every gather is an indexed f32 load
-// and every product an f32 FMA, so none of that is needed.
+// H100's ratio, so tensor cores have nothing to offer. The TPU kernels
+// gather through one-hot MXU matmuls split into 3 bf16 passes to stay exact;
+// here every gather is an indexed f32 load and every product an f32 FMA.
 //
-// Design (a simple correct kernel first; fewer atomics, bf16 Btr and
-// TMA-fed tiles are later work):
-// - one thread per point: each Btr[j, r, p] load is coalesced across the
-//   warp (points are the minor axis), and the thread loops over the T ranks;
-// - the pose/camera tables vpT [6, I], vcT [k, Nc] and the accumulators
-//   up [6, I], uc [k, Nc] live in shared memory when they fit the default
-//   48 KB (reads of the tables hit shared memory; accumulation is a shared
-//   atomicAdd per observation row, then one global atomicAdd per non-zero
-//   entry per block). Larger problems read the tables through the read-only
-//   cache and accumulate straight into global memory;
-// - K3a reads Btr twice (t = sum_j B_j^T rows_j needs every rank before
-//   w = Vinv t can be scattered back); the second read partly hits L2.
+// The scatter (K3a, K3b). u = B_j w goes to up [6, I] by image slot and to
+// uc [k, Nc] by camera slot. A float atomicAdd on shared memory is a
+// compare-and-swap loop, so lanes that add to one address take turns: with
+// one camera that is a 32-way turn per row and observation. scatter_rows
+// therefore reduces inside the warp first: __match_any_sync groups the lanes
+// by slot, the groups are summed with shuffles in ceil(log2(largest group))
+// rounds (all lanes on one slot: an ordinary 5-round tree), and only each
+// group's first lane adds, to an address no other lane of the warp touches.
+// Holes and padding points (all-zero u) get a key of their own, so they
+// neither lengthen a group nor add anything.
+//
+// K3a has two variants; pixsfm_schur_matvec picks by T (and P):
+// - matvec_kernel_fused (T <= 16) reads Btr from device memory once. A block
+//   is 32 points x RW warps, warp w owning rank w (T <= 8) or ranks w and
+//   w + RW (T <= 16); every load of Btr[j, r, p] is a coalesced 128-byte row
+//   along the point axis, and a thread keeps its ranks' 3 x NR blocks in
+//   registers (30 floats per rank at k = 4). The warps' partial
+//   t = B_j^T rows_j meet in a small shared array (double-buffered, one
+//   __syncthreads per tile), every warp forms w = V^-1 t, and scatters its
+//   own ranks from registers. T times more threads are in flight than with
+//   one thread per point, which is what a 63 MB read needs. The grid is
+//   persistent (blocks walk tiles of 32 points), so the tables are staged
+//   and the accumulators flushed once per block, not once per 32 points.
+//   Measured on the H100: with the bytes read once and the atomics out of
+//   the way the kernel turned out to be bound by instruction rate, ~10
+//   integer instructions of 64-bit address arithmetic per 4-byte load. A
+//   rank's block is therefore addressed with 32-bit offsets from one 64-bit
+//   base (one multiply-add per load), which took a seventh off the time.
+//   Staging the next tile in a second register set was tried and was slower
+//   (half the resident warps, and the scatter's latency shows).
+// - matvec_kernel_twopass: one thread per point, Btr read a second time for
+//   the scatter (partly from L2), 64-bit offsets. Takes T > 16 and rank
+//   blocks of 2^31 floats or more.
+// K3b and K3c keep one thread per point and one read; K3b shares
+// scatter_rows.
+//
+// Tables: vpT [6, I], vcT [k, Nc] and the accumulators live in shared memory
+// when they fit the default 48 KB (then one global atomicAdd per non-zero
+// entry per block at the end); larger problems read the tables through the
+// read-only cache and the group leaders add straight to global memory. The
+// 227 KB opt-in is not used: a block would spend more on staging and
+// flushing such tables than it reads of Btr.
 // The caller zeroes up/uc. Atomic accumulation makes the float sum order,
 // and so the last bits of up/uc, vary from run to run.
 //
@@ -45,8 +75,11 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;           // one-thread-per-point kernels
 constexpr size_t kSharedLimit = 48 * 1024;  // no opt-in needed below this
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFusedWarps = 8;          // rank-warps per block, at most
+constexpr int kFusedRanksPerWarp = 2;   // so the fused K3a takes T <= 16
 
 // rows_j[a] of observation (j, p): pose rows a < 6, camera rows a >= 6
 template <int K>
@@ -64,24 +97,95 @@ __device__ __forceinline__ void accumulate_bt_rows(
   }
 }
 
-// u = B_j w scattered to the pose/camera accumulators
+// u = B_j w of observation (j, p), B read from device memory
 template <int K>
-__device__ __forceinline__ void scatter_b_w(
-    const float* __restrict__ Btr, const float w[3], int i, int c, int I,
-    int Nc, int P, size_t base, float* ap, float* ac) {
-  constexpr int NR = 6 + K;
+__device__ __forceinline__ void b_times_w(const float* __restrict__ Btr,
+                                          const float w[3], int P, size_t base,
+                                          float (&u)[6 + K]) {
 #pragma unroll
-  for (int a = 0; a < NR; ++a) {
+  for (int a = 0; a < 6 + K; ++a) {
     const float* b = Btr + base + static_cast<size_t>(3 * a) * P;
-    const float u = fmaf(b[0], w[0],
-                         fmaf(b[P], w[1], b[2 * static_cast<size_t>(P)] * w[2]));
-    if (u != 0.f) {
-      if (a < 6)
-        atomicAdd(ap + a * I + i, u);
-      else
-        atomicAdd(ac + (a - 6) * Nc + c, u);
-    }
+    u[a] = fmaf(b[0], w[0],
+                fmaf(b[P], w[1], b[2 * static_cast<size_t>(P)] * w[2]));
   }
+}
+
+// Sum x over the lanes that share a key (peers: this lane's group, from
+// __match_any_sync); the sums end in each group's lowest lane. Each round a
+// lane adds the value of its next surviving peer above and every second
+// peer drops out, so the largest group sets the number of rounds. Called by
+// all 32 lanes.
+template <int N>
+__device__ __forceinline__ void reduce_by_key(unsigned peers, float (&x)[N]) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));  // position in the group
+  unsigned above = peers & (0xfffffffeu << lane);
+  while (__any_sync(kFull, above != 0u)) {
+    const int next = __ffs(above);  // 0: no peer left above
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const float y = __shfl_sync(kFull, x[n], (next - 1) & 31);
+      if (next) x[n] += y;
+    }
+    above &= __ballot_sync(kFull, (rank & 1) == 0);
+    rank >>= 1;
+  }
+}
+
+// x [N] of one observation per lane, added to acc [N, n_slots] at column
+// `slot`: one add per distinct slot and row of the warp. When every lane
+// with something to add names the same slot, an xor tree sums all 32 lanes
+// (the others hold zeros) and lane 0 adds; otherwise the lanes are grouped
+// by slot (a lane with nothing to add gets a key of its own) and each
+// group's first lane adds. Called by all 32 lanes.
+template <int N>
+__device__ __forceinline__ void scatter_by_slot(float (&x)[N], bool nz,
+                                                unsigned live, int slot,
+                                                int n_slots, float* acc) {
+  const int lane = threadIdx.x & 31;
+  const int first = __shfl_sync(kFull, slot, __ffs(live) - 1);
+  if (__all_sync(kFull, !nz || slot == first)) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) x[n] += __shfl_xor_sync(kFull, x[n], o);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        if (x[n] != 0.f) atomicAdd(acc + n * n_slots + first, x[n]);
+    }
+    return;
+  }
+  const unsigned peers = __match_any_sync(kFull, nz ? slot : n_slots + lane);
+  reduce_by_key<N>(peers, x);
+  if (lane == __ffs(peers) - 1) {
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      if (x[n] != 0.f) atomicAdd(acc + n * n_slots + slot, x[n]);
+  }
+}
+
+// u [6 + K] of one observation per lane, added to the pose accumulator
+// ap [6, I] at image slot i and the camera accumulator ac [K, Nc] at camera
+// slot c (shared or global memory). Called by all 32 lanes; a lane with
+// nothing to add (a hole, a padding point) passes zeros.
+template <int K>
+__device__ __forceinline__ void scatter_rows(const float (&u)[6 + K], int i,
+                                             int c, int I, int Nc, float* ap,
+                                             float* ac) {
+  bool nz = false;
+#pragma unroll
+  for (int a = 0; a < 6 + K; ++a) nz |= u[a] != 0.f;
+  const unsigned live = __ballot_sync(kFull, nz);
+  if (live == 0u) return;  // a warp of holes
+  float xp[6], xc[K];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) xp[a] = u[a];
+#pragma unroll
+  for (int a = 0; a < K; ++a) xc[a] = u[6 + a];
+  scatter_by_slot<6>(xp, nz, live, i, I, ap);
+  scatter_by_slot<K>(xc, nz, live, c, Nc, ac);
 }
 
 __device__ __forceinline__ void vinv_apply(const float* __restrict__ Vinv,
@@ -95,23 +199,164 @@ __device__ __forceinline__ void vinv_apply(const float* __restrict__ Vinv,
 }
 
 __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
-  for (int e = threadIdx.x; e < n; e += kThreads) dst[e] = src ? src[e] : 0.f;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src ? src[e] : 0.f;
 }
 
 __device__ __forceinline__ void flush(float* dst, const float* src, int n) {
-  for (int e = threadIdx.x; e < n; e += kThreads) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
     const float v = src[e];
     if (v != 0.f) atomicAdd(dst + e, v);
   }
 }
 
-// K3a: (W V^-1 W^T) v accumulated into up [6, I], uc [K, Nc]
+// What a thread of the fused K3a holds of one tile of 32 points: the W
+// blocks of its ranks (warp w owns ranks w + rr * RW), their slots, and its
+// point's V^-1.
+template <int K, int RPW>
+struct Tile {
+  float B[RPW][3 * (6 + K)];
+  float V[9];
+  int img[RPW], cam[RPW];
+};
+
+// Request everything a thread needs of tile `tile`; nothing is used here, so
+// all loads are in flight together. Lanes past P and ranks past T get zeros.
+template <int K, int RPW>
+__device__ __forceinline__ void load_tile(
+    Tile<K, RPW>& x, const float* __restrict__ Btr,
+    const int* __restrict__ img_r, const int* __restrict__ cam_r,
+    const float* __restrict__ Vinv, int tile, int T, int P) {
+  constexpr int R3 = 3 * (6 + K);
+  const int p = tile * 32 + (threadIdx.x & 31);
+  const int warp = threadIdx.x >> 5, RW = blockDim.x >> 5;
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int j = warp + rr * RW;
+    const bool live = p < P && j < T;
+    x.img[rr] = x.cam[rr] = 0;
+    if (live) {
+      const size_t o = static_cast<size_t>(j) * P + p;
+      x.img[rr] = img_r[o];
+      x.cam[rr] = cam_r[o];
+    }
+    // offsets inside one rank's block fit 32 bits (the dispatch sees to
+    // it): one multiply-add forms each address
+    const float* b = Btr + static_cast<size_t>(j) * R3 * P + p;
+#pragma unroll
+    for (int e = 0; e < R3; ++e) x.B[rr][e] = live ? b[e * P] : 0.f;
+  }
+  const float* v = Vinv + p;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) x.V[e] = p < P ? v[e * P] : 0.f;
+}
+
+// t = sum_j B_j^T rows_j across the block's warps (through s_t, one
+// __syncthreads), w = V^-1 t, and the scatter of this thread's ranks.
+template <int K, int RPW>
+__device__ __forceinline__ void process_tile(
+    const Tile<K, RPW>& x, const float* vp, const float* vc, int I, int Nc,
+    float (&s_t)[kFusedWarps][3][32], float* ap, float* ac) {
+  constexpr int NR = 6 + K;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, RW = blockDim.x >> 5;
+  float t[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+#pragma unroll
+    for (int a = 0; a < NR; ++a) {
+      const float v =
+          a < 6 ? vp[a * I + x.img[rr]] : vc[(a - 6) * Nc + x.cam[rr]];
+      t[0] = fmaf(x.B[rr][3 * a], v, t[0]);
+      t[1] = fmaf(x.B[rr][3 * a + 1], v, t[1]);
+      t[2] = fmaf(x.B[rr][3 * a + 2], v, t[2]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) s_t[warp][a][lane] = t[a];
+  __syncthreads();
+  // every warp sums the partial t in the same order, so all hold one w
+#pragma unroll
+  for (int a = 0; a < 3; ++a) t[a] = s_t[0][a][lane];
+#pragma unroll
+  for (int ww = 1; ww < kFusedWarps; ++ww) {
+    if (ww < RW) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) t[a] += s_t[ww][a][lane];
+    }
+  }
+  float w[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    w[a] = fmaf(x.V[3 * a], t[0],
+                fmaf(x.V[3 * a + 1], t[1], x.V[3 * a + 2] * t[2]));
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    float u[NR];
+#pragma unroll
+    for (int a = 0; a < NR; ++a)
+      u[a] = fmaf(x.B[rr][3 * a], w[0],
+                  fmaf(x.B[rr][3 * a + 1], w[1], x.B[rr][3 * a + 2] * w[2]));
+    scatter_rows<K>(u, x.img[rr], x.cam[rr], I, Nc, ap, ac);
+  }
+}
+
+// K3a, T <= kFusedWarps * RPW: (W V^-1 W^T) v accumulated into up [6, I],
+// uc [K, Nc] with Btr read once. blockDim.x = 32 * RW; the block walks tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... of 32 points. s_t is
+// double-buffered, so one barrier per tile is enough: a warp can be at most
+// one tile ahead of the slowest.
+template <int K, bool SMEM, int RPW>
+__global__ void __launch_bounds__(32 * kFusedWarps)
+matvec_kernel_fused(const float* __restrict__ vpT,
+                    const float* __restrict__ vcT,
+                    const float* __restrict__ Btr,
+                    const int* __restrict__ img_r,
+                    const int* __restrict__ cam_r,
+                    const float* __restrict__ Vinv, int T, int I, int Nc,
+                    int P, int n_tiles, float* up, float* uc) {
+  extern __shared__ float smem[];
+  __shared__ float s_t[2][kFusedWarps][3][32];
+  const int nP = 6 * I, nC = K * Nc;
+  const float* vp = vpT;
+  const float* vc = vcT;
+  float* ap = up;
+  float* ac = uc;
+  if (SMEM) {
+    float* s_vp = smem;
+    float* s_vc = s_vp + nP;
+    ap = s_vc + nC;
+    ac = ap + nP;
+    stage(s_vp, vpT, nP);
+    stage(s_vc, vcT, nC);
+    stage(ap, nullptr, nP);
+    stage(ac, nullptr, nC);
+    __syncthreads();
+    vp = s_vp;
+    vc = s_vc;
+  }
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    Tile<K, RPW> x;
+    load_tile<K, RPW>(x, Btr, img_r, cam_r, Vinv, tile, T, P);
+    process_tile<K, RPW>(x, vp, vc, I, Nc, s_t[buf], ap, ac);
+  }
+  if (SMEM) {
+    __syncthreads();
+    flush(up, ap, nP);
+    flush(uc, ac, nC);
+  }
+}
+
+// K3a, any T: one thread per point, Btr read twice
 template <int K, bool SMEM>
 __global__ void __launch_bounds__(kThreads)
-matvec_kernel(const float* __restrict__ vpT, const float* __restrict__ vcT,
-              const float* __restrict__ Btr, const int* __restrict__ img_r,
-              const int* __restrict__ cam_r, const float* __restrict__ Vinv,
-              int T, int I, int Nc, int P, float* up, float* uc) {
+matvec_kernel_twopass(const float* __restrict__ vpT,
+                      const float* __restrict__ vcT,
+                      const float* __restrict__ Btr,
+                      const int* __restrict__ img_r,
+                      const int* __restrict__ cam_r,
+                      const float* __restrict__ Vinv, int T, int I, int Nc,
+                      int P, float* up, float* uc) {
   extern __shared__ float smem[];
   const int nP = 6 * I, nC = K * Nc;
   const float* vp = vpT;
@@ -131,22 +376,29 @@ matvec_kernel(const float* __restrict__ vpT, const float* __restrict__ vcT,
     vp = s_vp;
     vc = s_vc;
   }
+  constexpr int R3 = 3 * (6 + K);
   const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p < P) {
-    constexpr int R3 = 3 * (6 + K);
+  const bool live = p < P;
+  float w[3] = {0.f, 0.f, 0.f};
+  if (live) {
     float t[3] = {0.f, 0.f, 0.f};
     for (int j = 0; j < T; ++j) {
       const size_t o = static_cast<size_t>(j) * P + p;
       accumulate_bt_rows<K>(Btr, vp, vc, img_r[o], cam_r[o], I, Nc, P,
                             static_cast<size_t>(j) * R3 * P + p, t);
     }
-    float w[3];
     vinv_apply(Vinv, P, p, t, w);
-    for (int j = 0; j < T; ++j) {
+  }
+  for (int j = 0; j < T; ++j) {  // whole warps: scatter_rows is collective
+    float u[6 + K] = {};
+    int i = 0, c = 0;
+    if (live) {
       const size_t o = static_cast<size_t>(j) * P + p;
-      scatter_b_w<K>(Btr, w, img_r[o], cam_r[o], I, Nc, P,
-                     static_cast<size_t>(j) * R3 * P + p, ap, ac);
+      i = img_r[o];
+      c = cam_r[o];
+      b_times_w<K>(Btr, w, P, static_cast<size_t>(j) * R3 * P + p, u);
     }
+    scatter_rows<K>(u, i, c, I, Nc, ap, ac);
   }
   if (SMEM) {
     __syncthreads();
@@ -173,18 +425,25 @@ rhs_kernel(const float* __restrict__ Btr, const int* __restrict__ img_r,
     stage(ac, nullptr, nC);
     __syncthreads();
   }
+  constexpr int R3 = 3 * (6 + K);
   const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p < P) {
-    constexpr int R3 = 3 * (6 + K);
+  const bool live = p < P;
+  float w[3] = {0.f, 0.f, 0.f};
+  if (live) {
     const float g[3] = {gx[p], gx[static_cast<size_t>(P) + p],
                         gx[2 * static_cast<size_t>(P) + p]};
-    float w[3];
     vinv_apply(Vinv, P, p, g, w);
-    for (int j = 0; j < T; ++j) {
+  }
+  for (int j = 0; j < T; ++j) {  // whole warps: scatter_rows is collective
+    float u[6 + K] = {};
+    int i = 0, c = 0;
+    if (live) {
       const size_t o = static_cast<size_t>(j) * P + p;
-      scatter_b_w<K>(Btr, w, img_r[o], cam_r[o], I, Nc, P,
-                     static_cast<size_t>(j) * R3 * P + p, ap, ac);
+      i = img_r[o];
+      c = cam_r[o];
+      b_times_w<K>(Btr, w, P, static_cast<size_t>(j) * R3 * P + p, u);
     }
+    scatter_rows<K>(u, i, c, I, Nc, ap, ac);
   }
   if (SMEM) {
     __syncthreads();
@@ -228,6 +487,59 @@ backsub_kernel(const float* __restrict__ vpT, const float* __restrict__ vcT,
 
 inline int grid_of(int P) { return (P + kThreads - 1) / kThreads; }
 
+int sm_count() {
+  static int count = 0;  // the library serves one kind of card per process
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        count <= 0)
+      count = 132;
+  }
+  return count;
+}
+
+// The fused K3a on a persistent grid: as many blocks as the card holds at
+// once, then fewer so that every block walks the same number of tiles.
+template <int K, bool SMEM, int RPW>
+int launch_fused(const float* vpT, const float* vcT, const float* Btr,
+                 const int* img_r, const int* cam_r, const float* Vinv, int T,
+                 int I, int Nc, int P, float* up, float* uc, size_t shared,
+                 cudaStream_t s) {
+  const int threads = 32 * ((T + RPW - 1) / RPW);
+  const int n_tiles = (P + 31) / 32;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, matvec_kernel_fused<K, SMEM, RPW>, threads, shared) !=
+          cudaSuccess ||
+      per_sm < 1)
+    per_sm = 1;
+  const int resident = sm_count() * per_sm;
+  const int rounds = (n_tiles + resident - 1) / resident;
+  const int blocks = (n_tiles + rounds - 1) / rounds;
+  matvec_kernel_fused<K, SMEM, RPW><<<blocks, threads, shared, s>>>(
+      vpT, vcT, Btr, img_r, cam_r, Vinv, T, I, Nc, P, n_tiles, up, uc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Which K3a variant a shape takes: 0 / 1 = fused with one / two ranks per
+// warp, 2 = two-pass (T > 16, or 2^31 floats or more per rank); + 4 when the tables and accumulators fit shared memory
+// (the fused kernel also keeps the partial t there).
+int matvec_variant(int T, int K, int I, int Nc, int P) {
+  const size_t table = sizeof(float) * (6 * static_cast<size_t>(I) +
+                                        static_cast<size_t>(K) * Nc);
+  const size_t partial = sizeof(float) * 2 * kFusedWarps * 3 * 32;
+  // the fused kernel forms addresses inside a rank's [3 NR, P] block with
+  // 32-bit offsets
+  const bool offsets_fit =
+      3 * (6 + static_cast<size_t>(K)) * static_cast<size_t>(P) <= 0x7fffffffu;
+  if (T <= kFusedWarps * kFusedRanksPerWarp && offsets_fit)
+    return (T <= kFusedWarps ? 0 : 1) +
+           (2 * table + partial <= kSharedLimit ? 4 : 0);
+  return 2 + (2 * table <= kSharedLimit ? 4 : 0);
+}
+
 template <int K>
 int launch(int which, const float* vpT, const float* vcT, const float* Btr,
            const int* img_r, const int* cam_r, const float* Vinv,
@@ -237,12 +549,23 @@ int launch(int which, const float* vpT, const float* vcT, const float* Btr,
                                         static_cast<size_t>(K) * Nc);
   const dim3 grid(grid_of(P));
   if (which == 0) {
-    if (2 * table <= kSharedLimit)
-      matvec_kernel<K, true><<<grid, kThreads, 2 * table, s>>>(
-          vpT, vcT, Btr, img_r, cam_r, Vinv, T, I, Nc, P, up, uc);
-    else
-      matvec_kernel<K, false><<<grid, kThreads, 0, s>>>(
-          vpT, vcT, Btr, img_r, cam_r, Vinv, T, I, Nc, P, up, uc);
+    switch (matvec_variant(T, K, I, Nc, P)) {
+#define PIXSFM_FUSED(SMEM, RPW, SHARED)                                    \
+  return launch_fused<K, SMEM, RPW>(vpT, vcT, Btr, img_r, cam_r, Vinv, T, \
+                                    I, Nc, P, up, uc, SHARED, s);
+      case 0: PIXSFM_FUSED(false, 1, 0)
+      case 1: PIXSFM_FUSED(false, kFusedRanksPerWarp, 0)
+      case 4: PIXSFM_FUSED(true, 1, 2 * table)
+      case 5: PIXSFM_FUSED(true, kFusedRanksPerWarp, 2 * table)
+#undef PIXSFM_FUSED
+      case 6:
+        matvec_kernel_twopass<K, true><<<grid, kThreads, 2 * table, s>>>(
+            vpT, vcT, Btr, img_r, cam_r, Vinv, T, I, Nc, P, up, uc);
+        break;
+      default:
+        matvec_kernel_twopass<K, false><<<grid, kThreads, 0, s>>>(
+            vpT, vcT, Btr, img_r, cam_r, Vinv, T, I, Nc, P, up, uc);
+    }
   } else if (which == 1) {
     if (table <= kSharedLimit)
       rhs_kernel<K, true><<<grid, kThreads, table, s>>>(
@@ -293,6 +616,13 @@ extern "C" {
 
 // Largest number of camera parameters per camera the kernels take.
 int pixsfm_schur_max_k() { return 8; }
+
+// Which variant pixsfm_schur_matvec takes (for tests and the smoke run):
+// 0 / 1 = fused, one / two ranks per warp; 2 = two-pass; + 4 = tables in
+// shared memory.
+int pixsfm_schur_matvec_variant(int T, int k, int I, int Nc, int P) {
+  return matvec_variant(T, k, I, Nc, P);
+}
 
 // K3a. vpT [6, I], vcT [k, Nc], Btr [T, 3(6+k), P], img_r/cam_r [T, P]
 // int32, Vinv [3, 3, P]; up [6, I] and uc [k, Nc] are accumulated into

@@ -6,6 +6,11 @@ launches ``kernels/csrc/interpolate.cu``; on a CPU tensor it runs the plain
 PyTorch version (``base.interpolation.bicubic_window_eval_rows`` +
 ``l2_normalize_with_grad``). A CUDA tensor never takes the plain path: a
 kernel that fails to build or launch raises.
+
+The CUDA source holds two variants, a vector one (16-byte loads, for bf16
+rows of 64/128/256 channels and f32 rows of 32/64/128 on a 16-byte aligned
+base) and a general one (everything else up to 256 channels). The C entry
+point chooses between them; :func:`kernel_variant` reports its choice.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ import torch
 from ..base.interpolation import (bicubic_window_eval_rows,
                                   l2_normalize_with_grad)
 
-__all__ = ["interpolate_rows", "interpolate_rows_plain", "launches"]
+__all__ = ["interpolate_rows", "interpolate_rows_plain", "kernel_variant",
+           "launches"]
 
 # Number of kernel launches since the last reset (set it to 0 to reset).
 launches = 0
@@ -44,8 +50,19 @@ def _lib():
         lib.pixsfm_interp_rows.restype = i
         lib.pixsfm_interp_max_channels.argtypes = []
         lib.pixsfm_interp_max_channels.restype = i
+        lib.pixsfm_interp_variant.argtypes = [p, i, i, p, p, p]
+        lib.pixsfm_interp_variant.restype = i
         lib._typed = True
     return lib
+
+
+def kernel_variant(rows) -> str:
+    """``"vector"`` or ``"general"``: the variant the C entry point takes for
+    these CUDA ``rows [NR, W, C]`` (outputs come from ``torch.empty`` and
+    are always aligned)."""
+    code = _lib().pixsfm_interp_variant(rows.data_ptr(), _DTYPES[rows.dtype],
+                                        rows.shape[-1], 0, 0, 0)
+    return "vector" if code else "general"
 
 
 def interpolate_rows(rows, H: int, W: int, C: int, row_base, r, c,

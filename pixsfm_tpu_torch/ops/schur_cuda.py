@@ -19,7 +19,10 @@ tensors it runs its plain PyTorch version (gathers, einsums,
 ``index_add_``). A CUDA tensor never takes the plain path: a kernel that
 fails to build or launch raises. The JAX package gates its kernels on the
 TPU backend and VMEM size (``schur_pallas.enabled``); the CUDA kernels take
-any I, Nc and T, so the grid path always uses them.
+any I, Nc and T, so the grid path always uses them. K3a has a fused variant
+(T <= 16, Btr read once) and a two-pass one (any T), each with its tables in
+shared or global memory; the C entry point chooses, :func:`matvec_variant`
+reports its choice.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ import torch
 
 __all__ = ["pack_grid_blocks", "schur_term_matvec", "schur_rhs",
            "schur_backsub", "schur_term_matvec_plain", "schur_rhs_plain",
-           "schur_backsub_plain", "schur_term_matvec_ref", "launches",
-           "DEFAULT_TILE"]
+           "schur_backsub_plain", "schur_term_matvec_ref", "matvec_variant",
+           "launches", "DEFAULT_TILE"]
 
 # Kernel launches since the last reset, per kernel (set an entry to 0 to
 # reset it).
@@ -144,8 +147,10 @@ def _lib():
         lib.pixsfm_schur_matvec.argtypes = [p] * 6 + [i] * 5 + [p] * 3
         lib.pixsfm_schur_rhs.argtypes = [p] * 5 + [i] * 5 + [p] * 3
         lib.pixsfm_schur_backsub.argtypes = [p] * 5 + [i] * 5 + [p] * 2
+        lib.pixsfm_schur_matvec_variant.argtypes = [i] * 5
         for f in (lib.pixsfm_schur_matvec, lib.pixsfm_schur_rhs,
-                  lib.pixsfm_schur_backsub, lib.pixsfm_schur_max_k):
+                  lib.pixsfm_schur_backsub, lib.pixsfm_schur_max_k,
+                  lib.pixsfm_schur_matvec_variant):
             f.restype = i
         lib.pixsfm_schur_max_k.argtypes = []
         lib._typed = True
@@ -174,6 +179,13 @@ def _f32(t, dev):
     return t.to(device=dev, dtype=torch.float32).contiguous()
 
 
+def _zero_planes(I: int, Nc: int, k: int, dev):
+    """Zeroed accumulators ``up [6, I]`` and ``uc [k, Nc]``, views of one
+    buffer so that one fill kernel clears both."""
+    buf = torch.zeros(6 * I + k * Nc, device=dev)
+    return buf[:6 * I].view(6, I), buf[6 * I:].view(k, Nc)
+
+
 def _run(name, fn, *args):
     dev = args[0].device if isinstance(args[0], torch.Tensor) else None
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
@@ -185,6 +197,16 @@ def _run(name, fn, *args):
     launches[name] += 1
 
 
+def matvec_variant(T: int, k: int, I: int, Nc: int, P: int) -> str:
+    """The K3a variant the C entry point takes for this shape: ``fused1`` /
+    ``fused2`` (Btr read once, one / two ranks per warp) or ``twopass``
+    (T > 16, or a rank block of 2^31 floats or more), with ``/shared`` or ``/global`` for where the pose and camera
+    tables and accumulators live."""
+    code = _lib().pixsfm_schur_matvec_variant(T, k, I, Nc, P)
+    return (("fused1", "fused2", "twopass")[code & 3]
+            + ("/shared" if code & 4 else "/global"))
+
+
 def schur_term_matvec(vpT, vcT, Btr, img_r, cam_r, Vinv_pad, *, T: int,
                       I: int, Nc: int, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -194,8 +216,7 @@ def schur_term_matvec(vpT, vcT, Btr, img_r, cam_r, Vinv_pad, *, T: int,
     P = _check(Btr, img_r, cam_r, T, k)
     dev = Btr.device
     vpT, vcT, Vinv_pad = (_f32(x, dev) for x in (vpT, vcT, Vinv_pad))
-    up = torch.zeros((6, I), device=dev)
-    uc = torch.zeros((k, Nc), device=dev)
+    up, uc = _zero_planes(I, Nc, k, dev)
     lib = _lib()
     _run("matvec", lib.pixsfm_schur_matvec, vpT, vcT, Btr.contiguous(),
          img_r.contiguous(), cam_r.contiguous(), Vinv_pad, T, k, I, Nc, P,
@@ -210,8 +231,7 @@ def schur_rhs(Btr, img_r, cam_r, Vinv_pad, gxt_pad, *, T: int, I: int,
         return schur_rhs_plain(Btr, img_r, cam_r, Vinv_pad, gxt_pad, I, Nc)
     P = _check(Btr, img_r, cam_r, T, k)
     dev = Btr.device
-    up = torch.zeros((6, I), device=dev)
-    uc = torch.zeros((k, Nc), device=dev)
+    up, uc = _zero_planes(I, Nc, k, dev)
     lib = _lib()
     _run("rhs", lib.pixsfm_schur_rhs, Btr.contiguous(), img_r.contiguous(),
          cam_r.contiguous(), _f32(Vinv_pad, dev), _f32(gxt_pad, dev), T, k,

@@ -86,3 +86,31 @@ def test_plain_k1_matches_pallas_interpret(dtype):
 def test_unported_modes_raise(conf):
     with pytest.raises(NotImplementedError):
         check_window_config(InterpolationConfig(**conf))
+
+
+# Shapes that reach the general variant of the CUDA kernel (C no multiple of
+# 8, narrow and wide) and the border handling of both variants (3 x 3
+# patches: every query clamps taps in both directions; queries beyond the
+# border). The card holds the kernel to the plain version at these shapes;
+# these cases hold the plain version to the JAX package.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l2", [False, True])
+@pytest.mark.parametrize("C,ps", [(20, 16), (136, 16), (128, 3), (20, 3)])
+def test_plain_k1_edge_shapes_match_xla_path(dtype, l2, C, ps):
+    rng = np.random.default_rng(13)
+    rows, row_base, r, c = _inputs(rng, dtype, n_patches=5, n=20, ps=ps, C=C)
+    # far beyond the border on both sides
+    r[4:8] = [-3.0, ps + 2.5, -0.75, ps - 0.25]
+    c[4:8] = [ps + 4.0, -2.25, ps - 0.5, -0.5]
+    ref = jax_eval_rows(jnp.asarray(rows), ps, ps, C, jnp.asarray(row_base),
+                        jnp.asarray(r), jnp.asarray(c))
+    if l2:
+        f, (dr, dc) = jax_l2(ref[0], (ref[1], ref[2]))
+        ref = (f, dr, dc)
+    out = interpolate_rows(_torch_rows(rows), ps, ps, C,
+                           torch.from_numpy(row_base), torch.from_numpy(r),
+                           torch.from_numpy(c), l2)
+    for a, b in zip(out, ref):
+        assert a.dtype == torch.float32 and a.shape == (len(r), C)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   atol=ATOL[dtype])

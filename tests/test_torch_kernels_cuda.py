@@ -24,10 +24,15 @@ def dev():
     return torch.device("cuda")
 
 
-def _k1_inputs(dev, dtype, n_patches=64, n=1000, ps=16, C=128):
+def _k1_inputs(dev, dtype, n_patches=64, n=1000, ps=16, C=128,
+               misaligned=False):
+    """``misaligned``: rows is a view one element (2 or 4 bytes) past an
+    aligned base, which the kernel's 16-byte loads cannot take."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = torch.randn((n_patches * ps, ps, C), generator=gen,
-                       device=dev).to(dtype)
+    numel = n_patches * ps * ps * C
+    buf = torch.randn(numel + 8, generator=gen, device=dev).to(dtype)
+    rows = (buf[1:numel + 1] if misaligned else buf[:numel]).view(
+        n_patches * ps, ps, C)
     row_base = torch.randint(0, n_patches, (n,), generator=gen,
                              device=dev) * ps
     r = torch.rand(n, generator=gen, device=dev) * (ps + 2.0) - 1.5
@@ -51,6 +56,45 @@ def test_k1_matches_plain(dev, dtype, atol, l2):
     assert interpolate_cuda.launches == before + 1
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, atol=atol, rtol=0)
+
+
+K1_ATOL = {torch.float32: 2e-5, torch.bfloat16: 5e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l2", [False, True])
+@pytest.mark.parametrize("C,ps,misaligned,variant", [
+    (20, 16, False, "general"),      # C no multiple of 8
+    (136, 16, False, "general"),
+    (64, 16, False, "vector"),       # a narrower templated width
+    (128, 3, False, "vector"),       # W = H = 3: every tap clamps
+    (20, 3, False, "general"),
+    (128, 16, True, "general"),      # base not 16-byte aligned
+])
+def test_k1_edge_shapes_match_plain(dev, dtype, l2, C, ps, misaligned,
+                                    variant):
+    rows, row_base, r, c = _k1_inputs(dev, dtype, n_patches=40, n=1501,
+                                      ps=ps, C=C, misaligned=misaligned)
+    assert interpolate_cuda.kernel_variant(rows) == variant
+    assert (rows.data_ptr() % 16 != 0) == misaligned
+    out = interpolate_cuda.interpolate_rows(rows, ps, ps, C, row_base, r, c,
+                                            l2)
+    ref = interpolate_cuda.interpolate_rows_plain(rows, ps, ps, C, row_base,
+                                                  r, c, l2)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=K1_ATOL[dtype], rtol=0)
+
+
+def test_k1_variant_by_width_and_type(dev):
+    """The C entry point picks the vector variant for bf16 rows of 64 / 128 /
+    256 channels and f32 rows of 32 / 64 / 128, the general one otherwise."""
+    for dtype, widths in ((torch.bfloat16, (64, 128, 256)),
+                          (torch.float32, (32, 64, 128))):
+        for C in (8, 20, 32, 64, 128, 136, 256):
+            rows = torch.zeros((16, 16, C), device=dev, dtype=dtype)
+            want = "vector" if C in widths else "general"
+            assert interpolate_cuda.kernel_variant(rows) == want, (dtype, C)
 
 
 def test_k1_rejects_bad_layout(dev):
@@ -144,6 +188,35 @@ def test_k3_match_plain(dev, T, I, Nc):
         *a, I, Nc), (Btr, img_r, cam_r, Vi, gxp)) <= 1.0
     assert k3_error_ratio(t, schur_cuda.schur_backsub_plain,
                           (vpT, vcT, Btr, img_r, cam_r)) <= 1.0
+
+
+@pytest.mark.parametrize("T,I,Nc,k,variant", [
+    (1, 13, 3, 4, "fused1/shared"),       # one rank, mixed camera slots
+    (5, 13, 3, 1, "fused1/shared"),       # T no power of two, k = 1
+    (8, 2, 1, 8, "fused1/shared"),        # k = 8, two image slots
+    (12, 7, 2, 3, "fused2/shared"),       # two ranks per warp
+    (16, 13, 3, 8, "fused2/shared"),
+    (20, 13, 3, 4, "twopass/shared"),     # T > 16
+    (5, 3000, 2, 4, "fused1/global"),     # tables above shared memory
+    (16, 3000, 2, 8, "fused2/global"),
+    (20, 3000, 2, 4, "twopass/global"),
+])
+def test_k3a_edge_shapes_match_plain(dev, T, I, Nc, k, variant):
+    """Every variant of K3a (and K3b, which shares its scatter) against the
+    plain versions, holes and a ragged Np included."""
+    vpT, vcT, Btr, img_r, cam_r, Vi, gxp = _k3_inputs(dev, T, I, Nc, k=k)
+    dims = dict(T=T, I=I, Nc=Nc, k=k)
+    assert schur_cuda.matvec_variant(T, k, I, Nc, Btr.shape[2]) == variant
+    if Nc > 1:   # camera slots are mixed inside a warp's 32 points
+        assert cam_r[0, :32].unique().numel() > 1
+    up_uc = schur_cuda.schur_term_matvec(vpT, vcT, Btr, img_r, cam_r, Vi,
+                                         **dims)
+    rhs = schur_cuda.schur_rhs(Btr, img_r, cam_r, Vi, gxp, **dims)
+    torch.cuda.synchronize()
+    assert k3_error_ratio(up_uc, schur_cuda.schur_term_matvec_plain,
+                          (vpT, vcT, Btr, img_r, cam_r, Vi)) <= 1.0
+    assert k3_error_ratio(rhs, lambda *a: schur_cuda.schur_rhs_plain(
+        *a, I, Nc), (Btr, img_r, cam_r, Vi, gxp)) <= 1.0
 
 
 def test_k3_rejects_bad_layout(dev):

@@ -130,3 +130,62 @@ def test_plain_versions_only_on_cpu_tensors():
                          torch.as_tensor(p["vc"].T), tB, ti, tc, tV,
                          T=4, I=p["I"], Nc=p["Nc"], k=p["k"])
     assert sc.launches == before
+
+
+# Shapes that reach the variants of the CUDA K3a (one and two ranks per
+# warp, a rank count that is no power of two, one rank, k = 1 and k = 8),
+# with mixed camera slots, holes and a ragged Np: the card holds the kernel
+# to the plain version, and these cases hold the plain version to JAX.
+EDGE_SHAPES = [dict(T=5, k=4), dict(T=1, k=4), dict(T=8, k=1),
+               dict(T=12, k=8), dict(T=5, k=8, I=7, Nc=1)]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES,
+                         ids=lambda s: "-".join(f"{k}{v}" for k, v in
+                                                s.items()))
+def test_k3a_matvec_edge_shapes(shape):
+    p = _problem(5, Np=203, holes=0.3, **shape)
+    (jB, ji, jc, jV, _), (tB, ti, tc, tV, P) = _pack_both(p, 128)
+    assert P == 256 and (ti[:, p["Np"]:] == 0).all()
+    dims = dict(T=p["T"], I=p["I"], Nc=p["Nc"], k=p["k"])
+    vpT_j, vcT_j = jnp.asarray(p["vp"].T), jnp.asarray(p["vc"].T)
+    vpT, vcT = torch.as_tensor(p["vp"].T), torch.as_tensor(p["vc"].T)
+    up_t, uc_t = sc.schur_term_matvec(vpT, vcT, tB, ti, tc, tV, **dims)
+    assert up_t.shape == (6, p["I"]) and uc_t.shape == (p["k"], p["Nc"])
+    # the interpreted Pallas kernel takes all of these shapes
+    up_j, uc_j = sp.schur_term_matvec(vpT_j, vcT_j, jB, ji, jc, jV, tile=128,
+                                      **dims)
+    _close(up_t, up_j)
+    _close(uc_t, uc_j)
+    # and the JAX oracle
+    up_r, uc_r = sp.schur_term_matvec_ref(vpT_j, vcT_j, jB, ji, jc, jV)
+    _close(up_t, up_r)
+    _close(uc_t, uc_r)
+    if p["Nc"] > 1:   # camera slots really are mixed inside a 32-point run
+        assert len(np.unique(tc[0, :32].numpy())) > 1
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES[:3],
+                         ids=lambda s: "-".join(f"{k}{v}" for k, v in
+                                                s.items()))
+def test_k3b_rhs_edge_shapes(shape):
+    p = _problem(6, Np=203, holes=0.3, **shape)
+    (jB, ji, jc, jV, P), (tB, ti, tc, tV, _) = _pack_both(p, 128)
+    dims = dict(T=p["T"], I=p["I"], Nc=p["Nc"], k=p["k"])
+    gxp = np.concatenate([p["gx"], np.zeros((3, P - p["Np"]), np.float32)],
+                         axis=1)
+    up_j, uc_j = sp.schur_rhs(jB, ji, jc, jV, jnp.asarray(gxp), tile=128,
+                              **dims)
+    up_t, uc_t = sc.schur_rhs(tB, ti, tc, tV, torch.as_tensor(gxp), **dims)
+    _close(up_t, up_j)
+    _close(uc_t, uc_j)
+
+
+def test_accumulator_planes_share_one_buffer():
+    """The CUDA wrappers clear both accumulators with one fill: the planes
+    are contiguous views of one zeroed buffer."""
+    up, uc = sc._zero_planes(7, 3, 4, torch.device("cpu"))
+    assert up.shape == (6, 7) and uc.shape == (4, 3)
+    assert up.is_contiguous() and uc.is_contiguous()
+    assert not up.any() and not uc.any()
+    assert up.untyped_storage().data_ptr() == uc.untyped_storage().data_ptr()
