@@ -12,8 +12,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    plain PyTorch version on the card at the main path's shapes, bf16 and f32
    storage, L2 on and off, queries on the patch border; then at small shapes
    that reach its general variant and the edges of the vector one (channel
-   counts that are no multiple of 8, every templated width, 3 x 3 patches, a
-   base that is not 16-byte aligned).
+   counts that are no multiple of 8, f32 rows of 128 channels, 3 x 3
+   patches, a base that is not 16-byte aligned).
 3. K2 (batched Jacobi PCG, ``ops/cg_cuda.py``) against its plain version,
    folded-damping and explicit forms.
 4. A small scene through ``PixSfM.run_ka`` on ``cuda`` and on ``cpu`` (the
@@ -61,11 +61,14 @@ launch (CUDA events), the plain version's time and the bound computed from
 this run's inputs (``cold_ms``: K1 on query sets that change from launch to
 launch, so that no tap is left in the L2 cache; ``general_ms`` and
 ``general_cold_ms``: the same two for K1's general variant, forced by a
-misaligned copy of the rows; ``in_situ_ms``: the profiler's device time per
-launch inside the stage; ``prev_ms``: the time of the kernel's earlier
-design, from ``PERF.md``); K1, which both paths launch at different shapes,
-has one entry per path (``"path": "KA"`` / ``"BA"``) with that path's
-launches and the figures at its shape; and last ``{"ok": true, "device": {...}}``.
+misaligned copy of the rows, which is the kernel's earlier design;
+``in_situ_ms``: the profiler's device time per launch inside the stage;
+``max_abs_err`` is the error at the shape that was timed, K1's
+``edge_max_abs_err`` the largest one over the small edge shapes, whose
+tolerances are printed with each case); K1, which both paths launch at
+different shapes, has one entry per path (``"path": "KA"`` / ``"BA"``) with
+that path's launches and the figures at its shape; and last
+``{"ok": true, "device": {...}}``.
 
 The weights are S2DNet's deterministic random init (no checkpoint ships
 with the repository); the scenes are made from seeds with numpy.
@@ -81,10 +84,6 @@ from pathlib import Path
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-
-# ms per launch of the earlier designs of the redesigned kernels (PERF.md,
-# NVIDIA H100 80GB HBM3 @ 700.00 W), carried into the ``kernels`` line
-PREV_MS = {"K1_KA": 0.0382, "K1_BA": 0.0473, "K3a": 0.1117, "K3b": 0.0940}
 
 # depth of the full-size BA (the default config allows 100 LM iterations)
 BA_ITERATIONS = 30
@@ -227,27 +226,20 @@ def check_k1(torch, interpolate_cuda, n_patches, n_queries, dtypes,
 
 def check_k1_edges(torch, interpolate_cuda):
     """K1 against its plain version at small shapes that reach the general
-    variant and every templated width of the vector one, at the tolerances
-    of :func:`check_k1`. Returns the largest error."""
+    variant and the edges of the vector one, at the tolerances of
+    :func:`check_k1`. Returns the largest error."""
     dev = torch.device("cuda")
     tols = {torch.float32: 2e-5, torch.bfloat16: 5e-3}
     # (dtype, C, H, W, misaligned base, expected variant)
-    cases = [(dt, C, 16, 16, False, want)
-             for dt, widths in ((torch.bfloat16, {64: "vector",
-                                                  256: "vector",
-                                                  20: "general",
-                                                  136: "general"}),
-                                (torch.float32, {32: "vector", 64: "vector",
-                                                 128: "vector",
-                                                 20: "general",
-                                                 136: "general",
-                                                 256: "general"}))
-             for C, want in widths.items()]
-    cases += [(torch.bfloat16, 128, 3, 3, False, "vector"),
-              (torch.float32, 128, 3, 3, False, "vector"),
-              (torch.bfloat16, 20, 3, 3, False, "general"),
-              (torch.bfloat16, 128, 16, 16, True, "general"),
-              (torch.float32, 128, 16, 16, True, "general")]
+    cases = [(torch.bfloat16, 20, 16, 16, False, "general"),
+             (torch.bfloat16, 136, 16, 16, False, "general"),
+             (torch.float32, 20, 16, 16, False, "general"),
+             (torch.float32, 128, 16, 16, False, "vector"),
+             (torch.bfloat16, 128, 3, 3, False, "vector"),
+             (torch.float32, 128, 3, 3, False, "vector"),
+             (torch.bfloat16, 20, 3, 3, False, "general"),
+             (torch.bfloat16, 128, 16, 16, True, "general"),
+             (torch.float32, 128, 16, 16, True, "general")]
     worst = 0.0
     for dtype, C, H, W, misaligned, want in cases:
         gen = torch.Generator(device=dev).manual_seed(C + H)
@@ -782,8 +774,7 @@ def main() -> int:
     P, K = 128, 56                 # main path: chunk 128, 50 kps padded to 56
     k1 = check_k1(torch, interpolate_cuda, n_patches=20000,
                   n_queries=P * K, dtypes=(torch.float32, torch.bfloat16))
-    k1["max_abs_err"] = max(k1["max_abs_err"],
-                            check_k1_edges(torch, interpolate_cuda))
+    k1["edge_max_abs_err"] = check_k1_edges(torch, interpolate_cuda)
     k2 = check_k2(torch, cg_cuda, P=P, N=2 * K, iters=15)
 
     # -- phase 4: small scene, cuda against cpu --------------------------------
@@ -1000,12 +991,12 @@ def main() -> int:
              source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
              replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
              launches=launches["K1"], library_ms=None,
-             in_situ_ms=in_situ_ka["K1"], prev_ms=PREV_MS["K1_KA"], **k1),
+             in_situ_ms=in_situ_ka["K1"], **k1),
         dict(name="bicubic_window_interp_l2", path="BA", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
              replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
              launches=launches_ba["K1"], library_ms=None,
-             in_situ_ms=in_situ["K1"], prev_ms=PREV_MS["K1_BA"], **k1_ba),
+             in_situ_ms=in_situ["K1"], **k1_ba),
         dict(name="batched_jacobi_pcg", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/pcg.cu",
              replaces="pixsfm_tpu/ops/cg_pallas.py:88",
@@ -1015,12 +1006,12 @@ def main() -> int:
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",
              replaces="pixsfm_tpu/ops/schur_pallas.py:253",
              launches=both["K3a"], library_ms=None,
-             in_situ_ms=in_situ["K3a"], prev_ms=PREV_MS["K3a"], **k3["K3a"]),
+             in_situ_ms=in_situ["K3a"], **k3["K3a"]),
         dict(name="schur_rhs", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",
              replaces="pixsfm_tpu/ops/schur_pallas.py:280",
              launches=both["K3b"], library_ms=None,
-             in_situ_ms=in_situ["K3b"], prev_ms=PREV_MS["K3b"], **k3["K3b"]),
+             in_situ_ms=in_situ["K3b"], **k3["K3b"]),
         dict(name="schur_backsub", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",
              replaces="pixsfm_tpu/ops/schur_pallas.py:302",

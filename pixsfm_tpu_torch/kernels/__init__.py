@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the hash is
-of the source and flags, so an edited source is rebuilt) and loaded with
+of the source, the headers beside it and the flags, so an edited source is
+rebuilt) and loaded with
 ``ctypes``. Nothing is built when the package is imported. A failed build
 raises with nvcc's output; there is no fallback.
 
@@ -47,6 +48,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.h")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

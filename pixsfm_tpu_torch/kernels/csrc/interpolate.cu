@@ -25,18 +25,19 @@
 // Two variants; pixsfm_interp_rows picks one from C, the storage type and
 // the pointers' alignment (the Python wrapper does not choose):
 //
-// - interp_kernel_vec<T, C>, for bf16 rows with C in {64, 128, 256} (S2DNet's
-//   128 and the VGG widths around it) and f32 rows with C in {32, 64, 128}
-//   when rows and the outputs are 16-byte aligned. A pixel is C * sizeof(T) / 16 = 8, 16 or 32 16-byte units and
-//   each lane owns one unit (8 bf16 / 4 f32 channels), so one warp-wide
-//   ld.global.nc.v4 fetches 4, 2 or 1 taps (at C = 128 bf16: the two
-//   half-warps read two taps of one row). All of a query's loads (8 per lane
-//   at C = 128 bf16, where the general variant makes 64) are requested before
-//   the first use; bf16 pairs are unpacked with a shift and a mask; sums are
-//   float32. The lane groups' partial sums are combined with xor shuffles,
-//   the L2 norm and the two chain-rule dots are reductions within a group,
-//   and the three outputs leave as float4 stores (3 per lane at C = 128
-//   bf16). The grid is persistent: a warp walks queries q, q + stride, ...
+// - interp_kernel_vec<T, C>, for C = 128 (what every dense-feature config of
+//   the package produces: S2DNet and DSIFT), bf16 or f32 rows, when rows and
+//   the outputs are 16-byte aligned. A pixel is C * sizeof(T) / 16 = 16
+//   (bf16) or 32 (f32) 16-byte units and each lane owns one unit (8 bf16 /
+//   4 f32 channels), so one warp-wide ld.global.nc.v4 fetches 2 taps or 1
+//   (bf16: the two half-warps read two taps of one row). All of a query's
+//   loads (8 per lane in bf16, where the general variant makes 64) are
+//   requested before the first use; bf16 pairs are unpacked with a shift and
+//   a mask; sums are float32. In bf16 the half-warps' partial sums are
+//   combined with one xor shuffle per accumulator; the L2 norm and the two
+//   chain-rule dots are reductions over a pixel's lanes, and the three
+//   outputs leave as float4 stores (3 per lane). The grid is persistent:
+//   a warp walks queries q, q + stride, ...
 //   and software-pipelines them in registers: while query q is reduced, the
 //   taps of q + stride and the (r, c, row_base) of q + 2 stride are already
 //   requested, so a warp has two queries' bytes in flight and its
@@ -47,17 +48,18 @@
 //   prefetching was chosen over a cp.async shared-memory ring: the taps are
 //   used once, straight from the registers they arrive in, and at 16 warps
 //   per SM two queries per warp already keep 128 KiB in flight per SM (8
-//   warps at the widths that need 16 loads per lane). Measured: 16 warps per
-//   SM beat 8, 12, 20 and 24 (the last two spill), and walking queries beat
-//   one query per warp by a quarter. The two tap buffers are separate
-//   arrays that swap roles in an unrolled pair of steps: indexed as one
-//   array they went to local memory and the kernel took twice as long.
+//   warps for f32 rows, whose 16 loads per lane and query take twice the
+//   registers). Measured in bf16: 16 warps per SM beat 8, 12, 20 and 24 (the
+//   last two spill), and walking queries beat one query per warp by a
+//   quarter. The two tap buffers are separate arrays that swap roles in an
+//   unrolled pair of steps: indexed as one array they went to local memory
+//   and the kernel took twice as long.
 //
 // - interp_kernel_general<T>, everything else the function takes: any
-//   C <= 256 (also not a multiple of 8), misaligned bases, f32 rows of other
-//   widths. One warp per query, lane l owns channels l, l + 32, ..., scalar
-//   loads. Both variants take any H and W (W < 4: every column tap clamps)
-//   and offsets past 2^31.
+//   C <= 256 other than 128 (also not a multiple of 8: the 1-3 channels of
+//   the image "features" come here) and misaligned bases. One warp per
+//   query, lane l owns channels l, l + 32, ..., scalar loads. Both variants
+//   take any H and W (W < 4: every column tap clamps) and offsets past 2^31.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (pixsfm_tpu_torch/kernels/__init__.py).
@@ -65,6 +67,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "device_info.h"
 
 namespace {
 
@@ -141,14 +145,14 @@ __device__ __forceinline__ Query load_query(const int32_t* row_base,
 template <typename T, int C>
 struct VecShape {
   static constexpr int kVec = 16 / sizeof(T);     // channels per lane
-  static constexpr int kLanes = C / kVec;         // lanes per pixel
+  static constexpr int kLanes = C / kVec;         // lanes per pixel: 16 or 32
   static constexpr int kGroups = 32 / kLanes;     // taps per warp-wide load
   static constexpr int kLoads = 16 / kGroups;     // loads per lane and query
   static constexpr int kCols = 4 / kGroups;       // column taps of a lane
   // two queries' taps live in registers: 64 of them at 8 loads, 128 at 16
   static constexpr int kBlocksPerSM = kLoads > 8 ? 2 : 4;
-  static_assert(C % kVec == 0 && (kLanes == 8 || kLanes == 16 || kLanes == 32),
-                "a pixel must be 8, 16 or 32 16-byte units");
+  static_assert(C % kVec == 0 && (kLanes == 16 || kLanes == 32),
+                "a pixel must be 16 or 32 16-byte units");
 };
 
 // Request the lane's taps of one query: load i * kCols + jj is tap
@@ -178,24 +182,17 @@ __device__ __forceinline__ void request_taps(
   }
 }
 
-// A lane's V channels of output A (0 = f, 1 = df/dr, 2 = df/dc) as float4
-// stores, shared out among the G lane groups that hold the same sums.
-template <int V, int G, int A>
-__device__ __forceinline__ void store_shared(float* __restrict__ out,
-                                             const float (&x)[V], int group) {
-  if constexpr (V == 8 && G == 2) {
-    // group g stores the g-th float4: one full-warp store per output
-    const float4 v = group ? make_float4(x[4], x[5], x[6], x[7])
-                           : make_float4(x[0], x[1], x[2], x[3]);
-    *reinterpret_cast<float4*>(out + 4 * group) = v;
-  } else {
-#pragma unroll
-    for (int v4 = 0; v4 < V / 4; ++v4) {
-      if ((A * (V / 4) + v4) % G == group)
-        *reinterpret_cast<float4*>(out + 4 * v4) = make_float4(
-            x[4 * v4], x[4 * v4 + 1], x[4 * v4 + 2], x[4 * v4 + 3]);
-    }
-  }
+// A lane's channels of one output as one float4 store per lane. In bf16 both
+// half-warps hold the same 8 sums: half g stores the g-th float4.
+__device__ __forceinline__ void store4(float* __restrict__ out,
+                                       const float (&x)[4], int) {
+  *reinterpret_cast<float4*>(out) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store4(float* __restrict__ out,
+                                       const float (&x)[8], int group) {
+  const float4 v = group ? make_float4(x[4], x[5], x[6], x[7])
+                         : make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(out + 4 * group) = v;
 }
 
 template <typename T, int C>
@@ -277,11 +274,10 @@ __device__ __forceinline__ void reduce_and_store(
     }
   }
 
-  // every group holds the full sums: the groups share the float4 stores
   const int64_t o = static_cast<int64_t>(q) * C + unit * V;
-  store_shared<V, S::kGroups, 0>(f_out + o, f, group);
-  store_shared<V, S::kGroups, 1>(dr_out + o, fdr, group);
-  store_shared<V, S::kGroups, 2>(dc_out + o, fdc, group);
+  store4(f_out + o, f, group);
+  store4(dr_out + o, fdr, group);
+  store4(dc_out + o, fdc, group);
 }
 
 // What a warp carries from one query to the next.
@@ -461,25 +457,14 @@ struct Args {
   cudaStream_t stream;
 };
 
-int sm_count() {
-  static int count = 0;  // the library serves one kind of card per process
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        count <= 0)
-      count = 132;
-  }
-  return count;
-}
-
 template <typename T, int C>
 int launch_vec(const Args& a) {
   // as many warps as the card holds at once, then fewer so that every warp
   // walks the same number of queries
-  const int resident =
-      sm_count() * VecShape<T, C>::kBlocksPerSM * kWarpsPerBlock;
+  int sms = 0;
+  const cudaError_t err = pixsfm::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int resident = sms * VecShape<T, C>::kBlocksPerSM * kWarpsPerBlock;
   const int rounds = (a.n + resident - 1) / resident;
   const int warps = (a.n + rounds - 1) / rounds;
   const int blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
@@ -514,9 +499,7 @@ int pixsfm_interp_variant(const void* rows, int dtype, int ch, const float* f,
                           const float* dfdr, const float* dfdc) {
   if (!(aligned16(rows) && aligned16(f) && aligned16(dfdr) && aligned16(dfdc)))
     return 0;
-  if (dtype == 0) return ch == 32 || ch == 64 || ch == 128;
-  if (dtype == 1) return ch == 64 || ch == 128 || ch == 256;
-  return 0;
+  return (dtype == 0 || dtype == 1) && ch == 128;
 }
 
 // dtype: 0 = float32 rows, 1 = bfloat16 rows. Returns the cudaError_t of
@@ -531,14 +514,8 @@ int pixsfm_interp_rows(const void* rows, int dtype, const int32_t* row_base,
   const Args a{rows, row_base, r, c, n, h, w, ch, l2, f, dfdr, dfdc,
                static_cast<cudaStream_t>(stream)};
   if (pixsfm_interp_variant(rows, dtype, ch, f, dfdr, dfdc)) {
-    if (dtype == 0) {
-      if (ch == 32) return launch_vec<float, 32>(a);
-      if (ch == 64) return launch_vec<float, 64>(a);
-      return launch_vec<float, 128>(a);
-    }
-    if (ch == 64) return launch_vec<__nv_bfloat16, 64>(a);
-    if (ch == 128) return launch_vec<__nv_bfloat16, 128>(a);
-    return launch_vec<__nv_bfloat16, 256>(a);
+    return dtype == 0 ? launch_vec<float, 128>(a)
+                      : launch_vec<__nv_bfloat16, 128>(a);
   }
   return dtype == 0 ? launch_general<float>(a)
                     : launch_general<__nv_bfloat16>(a);

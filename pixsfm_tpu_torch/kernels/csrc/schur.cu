@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "device_info.h"
+
 namespace {
 
 constexpr int kThreads = 128;           // one-thread-per-point kernels
@@ -487,19 +489,6 @@ backsub_kernel(const float* __restrict__ vpT, const float* __restrict__ vcT,
 
 inline int grid_of(int P) { return (P + kThreads - 1) / kThreads; }
 
-int sm_count() {
-  static int count = 0;  // the library serves one kind of card per process
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        count <= 0)
-      count = 132;
-  }
-  return count;
-}
-
 // The fused K3a on a persistent grid: as many blocks as the card holds at
 // once, then fewer so that every block walks the same number of tiles.
 template <int K, bool SMEM, int RPW>
@@ -509,13 +498,24 @@ int launch_fused(const float* vpT, const float* vcT, const float* Btr,
                  cudaStream_t s) {
   const int threads = 32 * ((T + RPW - 1) / RPW);
   const int n_tiles = (P + 31) / 32;
-  int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, matvec_kernel_fused<K, SMEM, RPW>, threads, shared) !=
-          cudaSuccess ||
-      per_sm < 1)
-    per_sm = 1;
-  const int resident = sm_count() * per_sm;
+  // blocks per SM of this instantiation at the last (threads, shared) asked
+  // for: a solve launches one shape hundreds of times
+  static thread_local int cached_threads = 0, cached_per_sm = 0;
+  static thread_local size_t cached_shared = 0;
+  if (cached_threads != threads || cached_shared != shared) {
+    int per_sm = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, matvec_kernel_fused<K, SMEM, RPW>, threads, shared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    cached_threads = threads;
+    cached_shared = shared;
+    cached_per_sm = per_sm;
+  }
+  int sms = 0;
+  const cudaError_t err = pixsfm::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int resident = sms * cached_per_sm;
   const int rounds = (n_tiles + resident - 1) / resident;
   const int blocks = (n_tiles + rounds - 1) / rounds;
   matvec_kernel_fused<K, SMEM, RPW><<<blocks, threads, shared, s>>>(
@@ -524,8 +524,9 @@ int launch_fused(const float* vpT, const float* vcT, const float* Btr,
 }
 
 // Which K3a variant a shape takes: 0 / 1 = fused with one / two ranks per
-// warp, 2 = two-pass (T > 16, or 2^31 floats or more per rank); + 4 when the tables and accumulators fit shared memory
-// (the fused kernel also keeps the partial t there).
+// warp, 2 = two-pass (T > 16, or 2^31 floats or more per rank); + 4 when the
+// tables and accumulators fit shared memory (the fused kernel also keeps the
+// partial t there).
 int matvec_variant(int T, int K, int I, int Nc, int P) {
   const size_t table = sizeof(float) * (6 * static_cast<size_t>(I) +
                                         static_cast<size_t>(K) * Nc);

@@ -7,9 +7,9 @@ PyTorch version (``base.interpolation.bicubic_window_eval_rows`` +
 ``l2_normalize_with_grad``). A CUDA tensor never takes the plain path: a
 kernel that fails to build or launch raises.
 
-The CUDA source holds two variants, a vector one (16-byte loads, for bf16
-rows of 64/128/256 channels and f32 rows of 32/64/128 on a 16-byte aligned
-base) and a general one (everything else up to 256 channels). The C entry
+The CUDA source holds two variants, a vector one (16-byte loads, for bf16 or
+f32 rows of 128 channels on a 16-byte aligned base) and a general one
+(everything else up to 256 channels). The C entry
 point chooses between them; :func:`kernel_variant` reports its choice.
 """
 

@@ -66,7 +66,7 @@ K1_ATOL = {torch.float32: 2e-5, torch.bfloat16: 5e-3}
 @pytest.mark.parametrize("C,ps,misaligned,variant", [
     (20, 16, False, "general"),      # C no multiple of 8
     (136, 16, False, "general"),
-    (64, 16, False, "vector"),       # a narrower templated width
+    (64, 16, False, "general"),      # a multiple of 8 that is not 128
     (128, 3, False, "vector"),       # W = H = 3: every tap clamps
     (20, 3, False, "general"),
     (128, 16, True, "general"),      # base not 16-byte aligned
@@ -87,13 +87,12 @@ def test_k1_edge_shapes_match_plain(dev, dtype, l2, C, ps, misaligned,
 
 
 def test_k1_variant_by_width_and_type(dev):
-    """The C entry point picks the vector variant for bf16 rows of 64 / 128 /
-    256 channels and f32 rows of 32 / 64 / 128, the general one otherwise."""
-    for dtype, widths in ((torch.bfloat16, (64, 128, 256)),
-                          (torch.float32, (32, 64, 128))):
+    """The C entry point picks the vector variant for bf16 and f32 rows of
+    128 channels, the general one otherwise."""
+    for dtype in (torch.bfloat16, torch.float32):
         for C in (8, 20, 32, 64, 128, 136, 256):
             rows = torch.zeros((16, 16, C), device=dev, dtype=dtype)
-            want = "vector" if C in widths else "general"
+            want = "vector" if C == 128 else "general"
             assert interpolate_cuda.kernel_variant(rows) == want, (dtype, C)
 
 
