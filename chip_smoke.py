@@ -15,7 +15,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    counts that are no multiple of 8, f32 rows of 128 channels, 3 x 3
    patches, a base that is not 16-byte aligned).
 3. K2 (batched Jacobi PCG, ``ops/cg_cuda.py``) against its plain version,
-   folded-damping and explicit forms.
+   folded-damping and explicit forms, each variant (register, general) at
+   the main path's shape (P = 128 systems of N = 112, 15 steps) and at
+   edge shapes (P = 300 and 1, 0 and 1 steps, N = 128, 51, 132 and 200);
+   the main shape must take the register variant. Timed there on a
+   repeated H, on 20 H sets that change from launch to launch, through the
+   general variant (the earlier design), and with no CG step (load and set-up).
 4. A small scene through ``PixSfM.run_ka`` on ``cuda`` and on ``cpu`` (the
    plain versions): the refined keypoints agree.
 5. The main path at full width: ``PixSfM.run_ka`` with the default config
@@ -28,14 +33,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 6. Where the time goes: the same scene again, graph building, extraction
    and KA timed apart, the last two under ``torch.profiler`` (device-busy
    time and the top kernels; with ``--profile-out DIR`` the full tables go
-   to ``DIR/chip_smoke_profile.txt``).
+   to ``DIR/chip_smoke_profile.txt``). K2 must show its register variant
+   only.
 7. K3a/b/c (the Schur kernels of the grid-regime CG solve,
    ``ops/schur_cuda.py``) against their plain versions at the BA main
    path's shape (T = 8 ranks, SIMPLE_RADIAL so k = 4, 56 images, one
    camera, 65 536 padded points): error against a float64 reference and
-   time per launch; then at small shapes that reach every variant of K3a
-   (fused with one and two ranks per warp, two-pass, tables in shared and in
-   global memory; T not a power of two, k = 1 and 8, mixed camera slots).
+   time per launch, K3b also forced to its one-pass variant; then at small
+   shapes that reach every variant of K3a and of K3b (fused with one and
+   two ranks per warp, two-pass / one-pass, tables in shared and in global
+   memory; T not a power of two, k = 1 and 8, mixed camera slots).
    Then K1 again at the BA path's shape: 8192 queries (one
    chunk of observations) over 240 000 bf16 patches (one per observation,
    7.9e9 elements, so offsets past 2^31), L2 on and off.
@@ -53,7 +60,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    solve (``BA_PROFILE_ITERATIONS`` LM iterations) under ``torch.profiler``:
    device-busy time, idle share, the top kernels and the in-situ time per
    launch of K1 and K3a/b/c (a kernel that launched and has no in-situ
-   figure fails the run).
+   figure fails the run). K3b must show its fused variant only.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA and BA), its error against the plain version, its time per
@@ -61,10 +68,12 @@ launch (CUDA events), the plain version's time and the bound computed from
 this run's inputs (``cold_ms``: K1 on query sets that change from launch to
 launch, so that no tap is left in the L2 cache; ``general_ms`` and
 ``general_cold_ms``: the same two for K1's general variant, forced by a
-misaligned copy of the rows, which is the kernel's earlier design;
+misaligned copy of the rows, which is the kernel's earlier design; K2's
+``variant``, ``cold_ms`` on changing systems and ``general_ms``, its earlier
+design; K3b's ``variant`` and ``onepass_ms``, its earlier design;
 ``in_situ_ms``: the profiler's device time per launch inside the stage;
-``max_abs_err`` is the error at the shape that was timed, K1's
-``edge_max_abs_err`` the largest one over the small edge shapes, whose
+``max_abs_err`` is the error at the shape that was timed, K1's and K2's
+``edge_max_abs_err`` the largest one over the edge shapes, whose
 tolerances are printed with each case); K1, which both paths launch at
 different shapes, has one entry per path (``"path": "KA"`` / ``"BA"``) with
 that path's launches and the figures at its shape; and last
@@ -281,39 +290,101 @@ def check_k1_edges(torch, interpolate_cuda):
 # phase 3: K2
 # ---------------------------------------------------------------------------
 
-def check_k2(torch, cg_cuda, P, N, iters):
+def _spd(torch, P, N, seed):
+    """A batch of SPD systems on the card: (H, g, damp)."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     A = torch.randn((P, N, N), generator=gen, device=dev)
     H = A @ A.transpose(1, 2) / N + 0.5 * torch.eye(N, device=dev)
     g = torch.randn((P, N), generator=gen, device=dev)
     damp = torch.rand((P, N), generator=gen, device=dev) * 0.1
+    return H, g, damp
+
+
+def _k2_err(torch, cg_cuda, H, g, damp, iters, variant, what):
+    """Largest |kernel - plain| over the folded and explicit forms; fails
+    past rtol/atol 1e-4."""
     worst = 0.0
     for name, Hx, dx in (("folded damping", H, damp),
                          ("explicit Hd", H + torch.diag_embed(damp), None)):
-        out = cg_cuda.pcg_solve(Hx, g, iters, damp=dx)
+        out = cg_cuda.pcg_solve(Hx, g, iters, damp=dx, variant=variant)
         ref = cg_cuda.pcg_solve_plain(Hx, g, iters, damp=dx)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         ok = bool(torch.isfinite(out).all()) and bool(
             ((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
-        print(f"K2 {name}: max |kernel - plain| = {err:.3e} "
-              f"(rtol/atol 1e-4)")
+        print(f"K2 {what}, {variant} variant, {name}: max |kernel - plain| "
+              f"= {err:.3e} (rtol/atol 1e-4)")
         if not ok:
-            raise SystemExit(f"K2 disagrees with its plain version ({name})")
+            raise SystemExit(f"K2 disagrees with its plain version ({what}, "
+                             f"{variant}, {name})")
         worst = max(worst, err)
+    return worst
+
+
+# (P, N, iters) besides the main path's: more systems than SMs, one system,
+# zero and one step, the register variant's largest N, N that take the
+# general variant (odd, the first multiple of 4 past 128, 200)
+K2_EDGES = [(300, 112, 15), (1, 112, 15), (128, 112, 0), (128, 112, 1),
+            (64, 128, 15), (64, 51, 15), (64, 132, 15), (9, 200, 15)]
+
+
+def check_k2(torch, cg_cuda, P, N, iters):
+    """K2 against its plain version, each variant that a shape allows, at
+    the main path's shape and at :data:`K2_EDGES`; timed at the main path's
+    shape on a repeated H, on H sets that change from launch to launch
+    (``cold_ms``) and through the general variant (``general_ms``)."""
+    variant = cg_cuda.kernel_variant(N)
+    if variant != "register":
+        raise SystemExit(f"K2 takes its {variant} variant at the main "
+                         f"path's N={N}")
+    H, g, damp = _spd(torch, P, N, seed=2)
+    err = _k2_err(torch, cg_cuda, H, g, damp, iters, variant,
+                  f"P={P} N={N} iters={iters}")
+    edge = _k2_err(torch, cg_cuda, H, g, damp, iters, "general",
+                   f"P={P} N={N} iters={iters}")
+    seen = {variant, "general"}
+    for Pe, Ne, it in K2_EDGES:
+        He, ge, de = _spd(torch, Pe, Ne, seed=Pe + Ne + it)
+        for v in sorted({cg_cuda.kernel_variant(Ne), "general"}):
+            edge = max(edge, _k2_err(torch, cg_cuda, He, ge, de, it, v,
+                                     f"P={Pe} N={Ne} iters={it}"))
+            seen.add(v)
+    if seen != set(cg_cuda.VARIANTS):
+        raise SystemExit(f"K2 variants not reached: {seen}")
     ms = _time_ms(lambda: cg_cuda.pcg_solve(H, g, iters, damp=damp))
+    general_ms = _time_ms(lambda: cg_cuda.pcg_solve(H, g, iters, damp=damp,
+                                                    variant="general"))
     plain_ms = _time_ms(lambda: cg_cuda.pcg_solve_plain(H, g, iters,
                                                         damp=damp))
+    # the load and set-up alone: the same launch with no CG step
+    zero_ms = _time_ms(lambda: cg_cuda.pcg_solve(H, g, 0, damp=damp))
+    general_zero_ms = _time_ms(lambda: cg_cuda.pcg_solve(
+        H, g, 0, damp=damp, variant="general"))
+    # 20 sets of 6.4 MB, more than the 50 MB L2 holds, as the LM's
+    # systems change from launch to launch
+    n_sets = 20
+    sets = [_spd(torch, P, N, seed=1000 + k) for k in range(n_sets)]
+    turn = iter(range(10 ** 9))
+
+    def cold():
+        Hs, gs, ds = sets[next(turn) % n_sets]
+        cg_cuda.pcg_solve(Hs, gs, iters, damp=ds)
+    cold_ms = _time_ms(cold, reps=40, warmup=8)
+    del sets
     bytes_ = P * N * N * 4 + 3 * P * N * 4
     flops = P * (iters * (2 * N * N + 13 * N) + 5 * N)
-    bound_ms = 1e3 * max(bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
-    bound_by = "bytes" if bytes_ / HBM_BYTES_PER_S >= \
-        flops / FP32_FLOP_PER_S else "operations"
-    print(f"K2 timing (P={P}, N={N}, {iters} iters): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    bound_ms, bound_by = _bound(bytes_, flops)
+    print(f"K2 timing (P={P}, N={N}, {iters} iters, {variant} variant): "
+          f"kernel {ms:.4f} ms ({cold_ms:.4f} ms on changing systems; "
+          f"{zero_ms:.4f} ms with no step, so "
+          f"{(ms - zero_ms) / iters * 1e3:.3f} us per step), general "
+          f"variant {general_ms:.4f} ms ({general_zero_ms:.4f} ms with no "
+          f"step, {(general_ms - general_zero_ms) / iters * 1e3:.3f} us per "
+          f"step), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    return dict(variant=variant, max_abs_err=err, edge_max_abs_err=edge,
+                ms=ms, cold_ms=cold_ms, general_ms=general_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +430,8 @@ def k3_inputs(torch, schur_cuda, T, I, Nc, k, P, n_obs, seed=7,
 
 def check_k3(torch, schur_cuda, T, I, Nc, k, P, n_obs, device="cuda",
              timed=True, seed=7):
-    """Each K3 kernel against its plain version. Tolerance: |kernel - ref|
+    """Each K3 kernel against its plain version (K3b also forced to its
+    one-pass variant, ``"K3b onepass"``). Tolerance: |kernel - ref|
     <= 2e-5 |ref| + 1e-6 S per entry, ref the plain version in float64 and
     S the same sums over absolute values (the kernels add in another,
     atomic, order, so their float32 error grows with S, not |ref|). With
@@ -381,6 +453,12 @@ def check_k3(torch, schur_cuda, T, I, Nc, k, P, n_obs, device="cuda",
                 lambda a: schur_cuda.schur_rhs_plain(
                     a["Btr"], a["img_r"], a["cam_r"], a["Vinv"], a["gx"], I,
                     Nc)),
+        "K3b onepass": (lambda a: schur_cuda.schur_rhs(
+                    a["Btr"], a["img_r"], a["cam_r"], a["Vinv"], a["gx"],
+                    variant="onepass", **dims),
+                lambda a: schur_cuda.schur_rhs_plain(
+                    a["Btr"], a["img_r"], a["cam_r"], a["Vinv"], a["gx"], I,
+                    Nc)),
         "K3c": (lambda a: (schur_cuda.schur_backsub(
                     a["vpT"], a["vcT"], a["Btr"], a["img_r"], a["cam_r"],
                     **dims),),
@@ -396,10 +474,12 @@ def check_k3(torch, schur_cuda, T, I, Nc, k, P, n_obs, device="cuda",
     bytes_ = {"K3a": n_in + x["Vinv"].numel() * 4 + 2 * tables,
               "K3b": n_in + x["Vinv"].numel() * 4 + x["gx"].numel() * 4
               + tables,
+              "K3b onepass": n_in + x["Vinv"].numel() * 4
+              + x["gx"].numel() * 4 + tables,
               "K3c": n_in + tables + x["gx"].numel() * 4}
     per_obs = P * T * NR * 3 * 2
     flops = {"K3a": 2 * per_obs + 18 * P, "K3b": per_obs + 18 * P,
-             "K3c": per_obs}
+             "K3b onepass": per_obs + 18 * P, "K3c": per_obs}
     out = {}
     for name, (kern, plain) in cases.items():
         got = kern(x)
@@ -433,7 +513,8 @@ def check_k3(torch, schur_cuda, T, I, Nc, k, P, n_obs, device="cuda",
 
 def check_k3_edges(torch, schur_cuda):
     """K3a/b/c against their plain versions at small shapes that together
-    reach every variant of K3a, at :func:`check_k3`'s tolerance."""
+    reach every variant of K3a and of K3b, at :func:`check_k3`'s
+    tolerance."""
     # (T, I, Nc, k, points, observations)
     cases = [(1, 13, 3, 4, 1024, 700),        # one rank, mixed camera slots
              (5, 13, 3, 1, 4096, 15000),      # T not a power of two, k = 1
@@ -444,18 +525,23 @@ def check_k3_edges(torch, schur_cuda):
              (4, 3000, 2, 4, 4096, 12000),    # tables above shared memory
              (16, 3000, 2, 8, 4096, 50000),
              (20, 3000, 2, 4, 2048, 30000)]
-    seen = set()
+    seen, seen_rhs = set(), set()
     for n, (T, I, Nc, k, P, n_obs) in enumerate(cases):
         variant = schur_cuda.matvec_variant(T, k, I, Nc, P)
+        rhs = schur_cuda.rhs_variant(T, k, I, Nc, P)
         seen.add(variant)
+        seen_rhs.add(rhs)
         print(f"K3 edge T={T} k={k} I={I} Nc={Nc} P={P} (K3a variant "
-              f"{variant}):")
+              f"{variant}, K3b variant {rhs}):")
         check_k3(torch, schur_cuda, T=T, I=I, Nc=Nc, k=k, P=P, n_obs=n_obs,
                  timed=False, seed=100 + n)
-    want = {f"{v}/{m}" for v in ("fused1", "fused2", "twopass")
-            for m in ("shared", "global")}
-    if seen != want:
-        raise SystemExit(f"K3a variants not reached: {sorted(want - seen)}")
+    for name, got, kinds in (("K3a", seen, ("fused1", "fused2", "twopass")),
+                             ("K3b", seen_rhs,
+                              ("fused1", "fused2", "onepass"))):
+        want = {f"{v}/{m}" for v in kinds for m in ("shared", "global")}
+        if got != want:
+            raise SystemExit(f"{name} variants not reached: "
+                             f"{sorted(want - got)}")
 
 
 # ---------------------------------------------------------------------------
@@ -740,6 +826,15 @@ def _in_situ(kern, tags, launched):
     return out
 
 
+def _took_variant(kern, key, want, other):
+    """Fail unless a profiled stage launched kernel ``want`` and never
+    ``other`` (two variants of kernel ``key``)."""
+    names = {n for n, _, _ in kern}
+    if not any(want in n for n in names) or any(other in n for n in names):
+        raise SystemExit(f"{key}: the main path did not take {want} alone")
+    print(f"{key}: the main path launched {want} only")
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -854,6 +949,7 @@ def main() -> int:
                   f"{name[:90]}")
     in_situ_ka = _in_situ(kern_ka, {"K1": "interp_kernel",
                                     "K2": "pcg_kernel"}, launches)
+    _took_variant(kern_ka, "K2", "pcg_kernel_register", "pcg_kernel_general")
     print(f"phase 6: in-situ device ms per launch {in_situ_ka}")
     if args.profile_out:
         out_dir = Path(args.profile_out)
@@ -869,10 +965,14 @@ def main() -> int:
     k3 = check_k3(torch, schur_cuda, T=8, I=n_views, Nc=1, k=4, P=65536,
                   n_obs=240000)
     variant = schur_cuda.matvec_variant(8, 4, n_views, 1, 65536)
-    print(f"K3a variant at the BA path's shape: {variant}")
-    if variant != "fused1/shared":
-        raise SystemExit("K3a did not take its fused variant at the BA "
-                         "path's shape")
+    rhs_variant = schur_cuda.rhs_variant(8, 4, n_views, 1, 65536)
+    print(f"K3a / K3b variants at the BA path's shape: {variant} / "
+          f"{rhs_variant}")
+    if variant != "fused1/shared" or rhs_variant != "fused1/shared":
+        raise SystemExit("K3a or K3b did not take its fused variant at the "
+                         "BA path's shape")
+    onepass = k3.pop("K3b onepass")
+    k3["K3b"].update(variant=rhs_variant, onepass_ms=onepass["ms"])
     check_k3_edges(torch, schur_cuda)
     # K1 at the BA path's shape: one chunk of 8192 observations over one
     # bf16 patch per observation (~240 000)
@@ -973,6 +1073,7 @@ def main() -> int:
                                   "K3c": "backsub_kernel",
                                   "K1": "interp_kernel"}, launches_ba)
     print(f"phase 10: in-situ device ms per launch {in_situ}")
+    _took_variant(kern_bap, "K3b", "rhs_kernel_fused", "rhs_kernel_onepass")
     if args.profile_out:
         with open(Path(args.profile_out) / "chip_smoke_profile.txt",
                   "a") as fh:

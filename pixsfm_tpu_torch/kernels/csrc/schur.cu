@@ -55,8 +55,22 @@
 // - matvec_kernel_twopass: one thread per point, Btr read a second time for
 //   the scatter (partly from L2), 64-bit offsets. Takes T > 16 and rank
 //   blocks of 2^31 floats or more.
-// K3b and K3c keep one thread per point and one read; K3b shares
-// scatter_rows.
+// K3b has two variants; pixsfm_schur_rhs picks by T (and P):
+// - rhs_kernel_fused (T <= 16): the fused K3a's body in its right-hand-side
+//   mode (one template, two names so that a profile tells them apart).
+//   w = V^-1 g_x depends on the point alone, so each warp forms it from its
+//   lane's 9 Vinv and 3 g_x floats: no tables, no gather, no exchange of t
+//   and no barrier inside the walk; only the accumulators live in shared
+//   memory. The one-pass kernel, which this replaces at these T, has one
+//   thread per point, one rank's loads in flight at a time and 64-bit
+//   address arithmetic per load. Measured on an H100 SXM at 700 W at the BA
+//   shape (T = 8, k = 4, P = 65 536, 70 MB): 35-36 us per call with the
+//   wrapper's 2.3 us fill, against 44-45 us for the one-pass kernel; a
+//   variant without the scatter (not kept) reads Btr in 26.7 us (2.6 TB/s),
+//   so the scatter costs ~6.5 us, as in K3a.
+// - rhs_kernel_onepass: the first design. Takes T > 16 and rank blocks of
+//   2^31 floats or more, and can be forced for comparison.
+// K3c keeps one thread per point and one read.
 //
 // Tables: vpT [6, I], vcT [k, Nc] and the accumulators live in shared memory
 // when they fit the default 48 KB (then one global atomicAdd per non-zero
@@ -211,23 +225,25 @@ __device__ __forceinline__ void flush(float* dst, const float* src, int n) {
   }
 }
 
-// What a thread of the fused K3a holds of one tile of 32 points: the W
-// blocks of its ranks (warp w owns ranks w + rr * RW), their slots, and its
-// point's V^-1.
+// What a thread of the fused kernel holds of one tile of 32 points: the W
+// blocks of its ranks (warp w owns ranks w + rr * RW), their slots, its
+// point's V^-1 and, in the K3b mode, its point's g_x.
 template <int K, int RPW>
 struct Tile {
   float B[RPW][3 * (6 + K)];
   float V[9];
+  float gx[3];
   int img[RPW], cam[RPW];
 };
 
 // Request everything a thread needs of tile `tile`; nothing is used here, so
 // all loads are in flight together. Lanes past P and ranks past T get zeros.
-template <int K, int RPW>
+template <int K, int RPW, bool RHS>
 __device__ __forceinline__ void load_tile(
     Tile<K, RPW>& x, const float* __restrict__ Btr,
     const int* __restrict__ img_r, const int* __restrict__ cam_r,
-    const float* __restrict__ Vinv, int tile, int T, int P) {
+    const float* __restrict__ Vinv, const float* __restrict__ gx, int tile,
+    int T, int P) {
   constexpr int R3 = 3 * (6 + K);
   const int p = tile * 32 + (threadIdx.x & 31);
   const int warp = threadIdx.x >> 5, RW = blockDim.x >> 5;
@@ -250,40 +266,50 @@ __device__ __forceinline__ void load_tile(
   const float* v = Vinv + p;
 #pragma unroll
   for (int e = 0; e < 9; ++e) x.V[e] = p < P ? v[e * P] : 0.f;
+  if constexpr (RHS) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x.gx[a] = p < P ? gx[a * P + p] : 0.f;
+  }
 }
 
-// t = sum_j B_j^T rows_j across the block's warps (through s_t, one
-// __syncthreads), w = V^-1 t, and the scatter of this thread's ranks.
-template <int K, int RPW>
+// K3a: t = sum_j B_j^T rows_j across the block's warps (through s_t, one
+// __syncthreads); K3b: t = g_x, which needs neither. Then w = V^-1 t and
+// the scatter of this thread's ranks.
+template <int K, int RPW, bool RHS>
 __device__ __forceinline__ void process_tile(
     const Tile<K, RPW>& x, const float* vp, const float* vc, int I, int Nc,
-    float (&s_t)[kFusedWarps][3][32], float* ap, float* ac) {
+    float (*s_t)[3][32], float* ap, float* ac) {
   constexpr int NR = 6 + K;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5, RW = blockDim.x >> 5;
   float t[3] = {0.f, 0.f, 0.f};
+  if constexpr (RHS) {
 #pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
+    for (int a = 0; a < 3; ++a) t[a] = x.gx[a];
+  } else {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5, RW = blockDim.x >> 5;
 #pragma unroll
-    for (int a = 0; a < NR; ++a) {
-      const float v =
-          a < 6 ? vp[a * I + x.img[rr]] : vc[(a - 6) * Nc + x.cam[rr]];
-      t[0] = fmaf(x.B[rr][3 * a], v, t[0]);
-      t[1] = fmaf(x.B[rr][3 * a + 1], v, t[1]);
-      t[2] = fmaf(x.B[rr][3 * a + 2], v, t[2]);
+    for (int rr = 0; rr < RPW; ++rr) {
+#pragma unroll
+      for (int a = 0; a < NR; ++a) {
+        const float v =
+            a < 6 ? vp[a * I + x.img[rr]] : vc[(a - 6) * Nc + x.cam[rr]];
+        t[0] = fmaf(x.B[rr][3 * a], v, t[0]);
+        t[1] = fmaf(x.B[rr][3 * a + 1], v, t[1]);
+        t[2] = fmaf(x.B[rr][3 * a + 2], v, t[2]);
+      }
     }
-  }
 #pragma unroll
-  for (int a = 0; a < 3; ++a) s_t[warp][a][lane] = t[a];
-  __syncthreads();
-  // every warp sums the partial t in the same order, so all hold one w
+    for (int a = 0; a < 3; ++a) s_t[warp][a][lane] = t[a];
+    __syncthreads();
+    // every warp sums the partial t in the same order, so all hold one w
 #pragma unroll
-  for (int a = 0; a < 3; ++a) t[a] = s_t[0][a][lane];
+    for (int a = 0; a < 3; ++a) t[a] = s_t[0][a][lane];
 #pragma unroll
-  for (int ww = 1; ww < kFusedWarps; ++ww) {
-    if (ww < RW) {
+    for (int ww = 1; ww < kFusedWarps; ++ww) {
+      if (ww < RW) {
 #pragma unroll
-      for (int a = 0; a < 3; ++a) t[a] += s_t[ww][a][lane];
+        for (int a = 0; a < 3; ++a) t[a] += s_t[ww][a][lane];
+      }
     }
   }
   float w[3];
@@ -302,11 +328,58 @@ __device__ __forceinline__ void process_tile(
   }
 }
 
-// K3a, T <= kFusedWarps * RPW: (W V^-1 W^T) v accumulated into up [6, I],
-// uc [K, Nc] with Btr read once. blockDim.x = 32 * RW; the block walks tiles
-// blockIdx.x, blockIdx.x + gridDim.x, ... of 32 points. s_t is
-// double-buffered, so one barrier per tile is enough: a warp can be at most
-// one tile ahead of the slowest.
+// The fused kernel, T <= kFusedWarps * RPW, Btr read once. K3a (RHS false):
+// (W V^-1 W^T) v accumulated into up [6, I], uc [K, Nc] (gx is null);
+// K3b (RHS true): W V^-1 g_x into the same (vpT, vcT are null, and shared
+// memory holds only the accumulators). blockDim.x =
+// 32 * RW; the block walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... of
+// 32 points. K3a's s_t is double-buffered, so one barrier per tile is
+// enough: a warp can be at most one tile ahead of the slowest. K3b's warps
+// never wait for each other inside the walk.
+template <int K, bool SMEM, int RPW, bool RHS>
+__device__ __forceinline__ void fused_body(
+    const float* __restrict__ vpT, const float* __restrict__ vcT,
+    const float* __restrict__ Btr, const int* __restrict__ img_r,
+    const int* __restrict__ cam_r, const float* __restrict__ Vinv,
+    const float* __restrict__ gx, int T, int I, int Nc, int P, int n_tiles,
+    float* up, float* uc) {
+  extern __shared__ float smem[];
+  __shared__ float s_t[2][RHS ? 1 : kFusedWarps][3][32];
+  const int nP = 6 * I, nC = K * Nc;
+  const float* vp = vpT;
+  const float* vc = vcT;
+  float* ap = up;
+  float* ac = uc;
+  if (SMEM) {
+    float* s = smem;
+    if constexpr (!RHS) {
+      stage(s, vpT, nP);
+      stage(s + nP, vcT, nC);
+      vp = s;
+      vc = s + nP;
+      s += nP + nC;
+    }
+    ap = s;
+    ac = ap + nP;
+    stage(ap, nullptr, nP);
+    stage(ac, nullptr, nC);
+    __syncthreads();
+  }
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    Tile<K, RPW> x;
+    load_tile<K, RPW, RHS>(x, Btr, img_r, cam_r, Vinv, gx, tile, T, P);
+    process_tile<K, RPW, RHS>(x, vp, vc, I, Nc, s_t[buf], ap, ac);
+  }
+  if (SMEM) {
+    __syncthreads();
+    flush(up, ap, nP);
+    flush(uc, ac, nC);
+  }
+}
+
+// K3a and K3b's fused variants: one body, two names, so that a profile
+// tells them apart; both take the same arguments (unused ones null).
 template <int K, bool SMEM, int RPW>
 __global__ void __launch_bounds__(32 * kFusedWarps)
 matvec_kernel_fused(const float* __restrict__ vpT,
@@ -314,39 +387,25 @@ matvec_kernel_fused(const float* __restrict__ vpT,
                     const float* __restrict__ Btr,
                     const int* __restrict__ img_r,
                     const int* __restrict__ cam_r,
-                    const float* __restrict__ Vinv, int T, int I, int Nc,
+                    const float* __restrict__ Vinv,
+                    const float* __restrict__ gx, int T, int I, int Nc,
                     int P, int n_tiles, float* up, float* uc) {
-  extern __shared__ float smem[];
-  __shared__ float s_t[2][kFusedWarps][3][32];
-  const int nP = 6 * I, nC = K * Nc;
-  const float* vp = vpT;
-  const float* vc = vcT;
-  float* ap = up;
-  float* ac = uc;
-  if (SMEM) {
-    float* s_vp = smem;
-    float* s_vc = s_vp + nP;
-    ap = s_vc + nC;
-    ac = ap + nP;
-    stage(s_vp, vpT, nP);
-    stage(s_vc, vcT, nC);
-    stage(ap, nullptr, nP);
-    stage(ac, nullptr, nC);
-    __syncthreads();
-    vp = s_vp;
-    vc = s_vc;
-  }
-  int buf = 0;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
-    Tile<K, RPW> x;
-    load_tile<K, RPW>(x, Btr, img_r, cam_r, Vinv, tile, T, P);
-    process_tile<K, RPW>(x, vp, vc, I, Nc, s_t[buf], ap, ac);
-  }
-  if (SMEM) {
-    __syncthreads();
-    flush(up, ap, nP);
-    flush(uc, ac, nC);
-  }
+  fused_body<K, SMEM, RPW, false>(vpT, vcT, Btr, img_r, cam_r, Vinv, gx, T, I,
+                                  Nc, P, n_tiles, up, uc);
+}
+
+template <int K, bool SMEM, int RPW>
+__global__ void __launch_bounds__(32 * kFusedWarps)
+rhs_kernel_fused(const float* __restrict__ vpT,
+                 const float* __restrict__ vcT,
+                 const float* __restrict__ Btr,
+                 const int* __restrict__ img_r,
+                 const int* __restrict__ cam_r,
+                 const float* __restrict__ Vinv,
+                 const float* __restrict__ gx, int T, int I, int Nc,
+                 int P, int n_tiles, float* up, float* uc) {
+  fused_body<K, SMEM, RPW, true>(vpT, vcT, Btr, img_r, cam_r, Vinv, gx, T, I,
+                                 Nc, P, n_tiles, up, uc);
 }
 
 // K3a, any T: one thread per point, Btr read twice
@@ -409,10 +468,11 @@ matvec_kernel_twopass(const float* __restrict__ vpT,
   }
 }
 
-// K3b: (W V^-1 g_x) accumulated into up [6, I], uc [K, Nc]
+// K3b, any T: (W V^-1 g_x) accumulated into up [6, I], uc [K, Nc], one
+// thread per point
 template <int K, bool SMEM>
 __global__ void __launch_bounds__(kThreads)
-rhs_kernel(const float* __restrict__ Btr, const int* __restrict__ img_r,
+rhs_kernel_onepass(const float* __restrict__ Btr, const int* __restrict__ img_r,
            const int* __restrict__ cam_r, const float* __restrict__ Vinv,
            const float* __restrict__ gx, int T, int I, int Nc, int P,
            float* up, float* uc) {
@@ -489,13 +549,16 @@ backsub_kernel(const float* __restrict__ vpT, const float* __restrict__ vcT,
 
 inline int grid_of(int P) { return (P + kThreads - 1) / kThreads; }
 
-// The fused K3a on a persistent grid: as many blocks as the card holds at
-// once, then fewer so that every block walks the same number of tiles.
-template <int K, bool SMEM, int RPW>
+// The fused K3a or K3b on a persistent grid: as many blocks as the card
+// holds at once, then fewer so that every block walks the same number of
+// tiles.
+template <int K, bool SMEM, int RPW, bool RHS>
 int launch_fused(const float* vpT, const float* vcT, const float* Btr,
-                 const int* img_r, const int* cam_r, const float* Vinv, int T,
-                 int I, int Nc, int P, float* up, float* uc, size_t shared,
-                 cudaStream_t s) {
+                 const int* img_r, const int* cam_r, const float* Vinv,
+                 const float* gx, int T, int I, int Nc, int P, float* up,
+                 float* uc, size_t shared, cudaStream_t s) {
+  auto* kernel = RHS ? rhs_kernel_fused<K, SMEM, RPW>
+                     : matvec_kernel_fused<K, SMEM, RPW>;
   const int threads = 32 * ((T + RPW - 1) / RPW);
   const int n_tiles = (P + 31) / 32;
   // blocks per SM of this instantiation at the last (threads, shared) asked
@@ -505,7 +568,7 @@ int launch_fused(const float* vpT, const float* vcT, const float* Btr,
   if (cached_threads != threads || cached_shared != shared) {
     int per_sm = 0;
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, matvec_kernel_fused<K, SMEM, RPW>, threads, shared);
+        &per_sm, kernel, threads, shared);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
     cached_threads = threads;
@@ -518,9 +581,17 @@ int launch_fused(const float* vpT, const float* vcT, const float* Btr,
   const int resident = sms * cached_per_sm;
   const int rounds = (n_tiles + resident - 1) / resident;
   const int blocks = (n_tiles + rounds - 1) / rounds;
-  matvec_kernel_fused<K, SMEM, RPW><<<blocks, threads, shared, s>>>(
-      vpT, vcT, Btr, img_r, cam_r, Vinv, T, I, Nc, P, n_tiles, up, uc);
+  kernel<<<blocks, threads, shared, s>>>(vpT, vcT, Btr, img_r, cam_r, Vinv,
+                                         gx, T, I, Nc, P, n_tiles, up, uc);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether the fused kernel takes a shape: T <= 16, and the offsets inside a
+// rank's [3 NR, P] block fit the 32 bits it forms addresses with.
+inline bool fused_takes(int T, int K, int P) {
+  return T <= kFusedWarps * kFusedRanksPerWarp &&
+         3 * (6 + static_cast<size_t>(K)) * static_cast<size_t>(P) <=
+             0x7fffffffu;
 }
 
 // Which K3a variant a shape takes: 0 / 1 = fused with one / two ranks per
@@ -531,29 +602,40 @@ int matvec_variant(int T, int K, int I, int Nc, int P) {
   const size_t table = sizeof(float) * (6 * static_cast<size_t>(I) +
                                         static_cast<size_t>(K) * Nc);
   const size_t partial = sizeof(float) * 2 * kFusedWarps * 3 * 32;
-  // the fused kernel forms addresses inside a rank's [3 NR, P] block with
-  // 32-bit offsets
-  const bool offsets_fit =
-      3 * (6 + static_cast<size_t>(K)) * static_cast<size_t>(P) <= 0x7fffffffu;
-  if (T <= kFusedWarps * kFusedRanksPerWarp && offsets_fit)
+  if (fused_takes(T, K, P))
     return (T <= kFusedWarps ? 0 : 1) +
            (2 * table + partial <= kSharedLimit ? 4 : 0);
   return 2 + (2 * table <= kSharedLimit ? 4 : 0);
 }
 
+// Which K3b variant a shape takes: 0 / 1 = fused with one / two ranks per
+// warp, 2 = one-pass (T > 16, 2^31 floats or more per rank, or `onepass`
+// forced); + 4 when the accumulators fit shared memory (beside the fused
+// kernel's one-warp s_t, which K3b does not use).
+int rhs_variant(int T, int K, int I, int Nc, int P, bool onepass) {
+  const size_t table = sizeof(float) * (6 * static_cast<size_t>(I) +
+                                        static_cast<size_t>(K) * Nc);
+  const size_t partial = sizeof(float) * 2 * 3 * 32;
+  if (!onepass && fused_takes(T, K, P))
+    return (T <= kFusedWarps ? 0 : 1) +
+           (table + partial <= kSharedLimit ? 4 : 0);
+  return 2 + (table <= kSharedLimit ? 4 : 0);
+}
+
 template <int K>
-int launch(int which, const float* vpT, const float* vcT, const float* Btr,
-           const int* img_r, const int* cam_r, const float* Vinv,
-           const float* gx, int T, int I, int Nc, int P, float* up,
-           float* uc, float* tout, cudaStream_t s) {
+int launch(int which, bool onepass, const float* vpT, const float* vcT,
+           const float* Btr, const int* img_r, const int* cam_r,
+           const float* Vinv, const float* gx, int T, int I, int Nc, int P,
+           float* up, float* uc, float* tout, cudaStream_t s) {
   const size_t table = sizeof(float) * (6 * static_cast<size_t>(I) +
                                         static_cast<size_t>(K) * Nc);
   const dim3 grid(grid_of(P));
   if (which == 0) {
     switch (matvec_variant(T, K, I, Nc, P)) {
-#define PIXSFM_FUSED(SMEM, RPW, SHARED)                                    \
-  return launch_fused<K, SMEM, RPW>(vpT, vcT, Btr, img_r, cam_r, Vinv, T, \
-                                    I, Nc, P, up, uc, SHARED, s);
+#define PIXSFM_FUSED(SMEM, RPW, SHARED)                                     \
+  return launch_fused<K, SMEM, RPW, false>(vpT, vcT, Btr, img_r, cam_r,    \
+                                           Vinv, nullptr, T, I, Nc, P, up, \
+                                           uc, SHARED, s);
       case 0: PIXSFM_FUSED(false, 1, 0)
       case 1: PIXSFM_FUSED(false, kFusedRanksPerWarp, 0)
       case 4: PIXSFM_FUSED(true, 1, 2 * table)
@@ -568,12 +650,24 @@ int launch(int which, const float* vpT, const float* vcT, const float* Btr,
             vpT, vcT, Btr, img_r, cam_r, Vinv, T, I, Nc, P, up, uc);
     }
   } else if (which == 1) {
-    if (table <= kSharedLimit)
-      rhs_kernel<K, true><<<grid, kThreads, table, s>>>(
-          Btr, img_r, cam_r, Vinv, gx, T, I, Nc, P, up, uc);
-    else
-      rhs_kernel<K, false><<<grid, kThreads, 0, s>>>(
-          Btr, img_r, cam_r, Vinv, gx, T, I, Nc, P, up, uc);
+    switch (rhs_variant(T, K, I, Nc, P, onepass)) {
+#define PIXSFM_FUSED(SMEM, RPW, SHARED)                                  \
+  return launch_fused<K, SMEM, RPW, true>(nullptr, nullptr, Btr, img_r, \
+                                          cam_r, Vinv, gx, T, I, Nc, P, \
+                                          up, uc, SHARED, s);
+      case 0: PIXSFM_FUSED(false, 1, 0)
+      case 1: PIXSFM_FUSED(false, kFusedRanksPerWarp, 0)
+      case 4: PIXSFM_FUSED(true, 1, table)
+      case 5: PIXSFM_FUSED(true, kFusedRanksPerWarp, table)
+#undef PIXSFM_FUSED
+      case 6:
+        rhs_kernel_onepass<K, true><<<grid, kThreads, table, s>>>(
+            Btr, img_r, cam_r, Vinv, gx, T, I, Nc, P, up, uc);
+        break;
+      default:
+        rhs_kernel_onepass<K, false><<<grid, kThreads, 0, s>>>(
+            Btr, img_r, cam_r, Vinv, gx, T, I, Nc, P, up, uc);
+    }
   } else {
     if (table <= kSharedLimit)
       backsub_kernel<K, true><<<grid, kThreads, table, s>>>(
@@ -585,18 +679,18 @@ int launch(int which, const float* vpT, const float* vcT, const float* Btr,
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(int which, const float* vpT, const float* vcT, const float* Btr,
-             const int* img_r, const int* cam_r, const float* Vinv,
-             const float* gx, int T, int k, int I, int Nc, int P, float* up,
-             float* uc, float* tout, void* stream) {
+int dispatch(int which, bool onepass, const float* vpT, const float* vcT,
+             const float* Btr, const int* img_r, const int* cam_r,
+             const float* Vinv, const float* gx, int T, int k, int I, int Nc,
+             int P, float* up, float* uc, float* tout, void* stream) {
   if (P == 0 || T == 0) return 0;
   if (T < 0 || I < 1 || Nc < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
 #define PIXSFM_SCHUR_K(KV)                                                  \
   case KV:                                                                  \
-    return launch<KV>(which, vpT, vcT, Btr, img_r, cam_r, Vinv, gx, T, I,   \
-                      Nc, P, up, uc, tout, s);
+    return launch<KV>(which, onepass, vpT, vcT, Btr, img_r, cam_r, Vinv,  \
+                      gx, T, I, Nc, P, up, uc, tout, s);
     PIXSFM_SCHUR_K(1)
     PIXSFM_SCHUR_K(2)
     PIXSFM_SCHUR_K(3)
@@ -625,6 +719,13 @@ int pixsfm_schur_matvec_variant(int T, int k, int I, int Nc, int P) {
   return matvec_variant(T, k, I, Nc, P);
 }
 
+// Which variant pixsfm_schur_rhs takes when none is forced: 0 / 1 = fused,
+// one / two ranks per warp; 2 = one-pass; + 4 = accumulators in shared
+// memory.
+int pixsfm_schur_rhs_variant(int T, int k, int I, int Nc, int P) {
+  return rhs_variant(T, k, I, Nc, P, false);
+}
+
 // K3a. vpT [6, I], vcT [k, Nc], Btr [T, 3(6+k), P], img_r/cam_r [T, P]
 // int32, Vinv [3, 3, P]; up [6, I] and uc [k, Nc] are accumulated into
 // (zero them first). All float32 contiguous. Returns the cudaError_t of the
@@ -633,24 +734,26 @@ int pixsfm_schur_matvec(const float* vpT, const float* vcT, const float* Btr,
                         const int* img_r, const int* cam_r, const float* Vinv,
                         int T, int k, int I, int Nc, int P, float* up,
                         float* uc, void* stream) {
-  return dispatch(0, vpT, vcT, Btr, img_r, cam_r, Vinv, nullptr, T, k, I, Nc,
-                  P, up, uc, nullptr, stream);
+  return dispatch(0, false, vpT, vcT, Btr, img_r, cam_r, Vinv, nullptr, T, k,
+                  I, Nc, P, up, uc, nullptr, stream);
 }
 
-// K3b. As K3a without vpT/vcT, plus gx [3, P].
+// K3b. As K3a without vpT/vcT, plus gx [3, P]; onepass != 0 forces the
+// one-pass variant where the fused one would be taken.
 int pixsfm_schur_rhs(const float* Btr, const int* img_r, const int* cam_r,
                      const float* Vinv, const float* gx, int T, int k, int I,
-                     int Nc, int P, float* up, float* uc, void* stream) {
-  return dispatch(1, nullptr, nullptr, Btr, img_r, cam_r, Vinv, gx, T, k, I,
-                  Nc, P, up, uc, nullptr, stream);
+                     int Nc, int P, int onepass, float* up, float* uc,
+                     void* stream) {
+  return dispatch(1, onepass != 0, nullptr, nullptr, Btr, img_r, cam_r, Vinv,
+                  gx, T, k, I, Nc, P, up, uc, nullptr, stream);
 }
 
 // K3c. As K3a without Vinv; writes t [3, P].
 int pixsfm_schur_backsub(const float* vpT, const float* vcT, const float* Btr,
                          const int* img_r, const int* cam_r, int T, int k,
                          int I, int Nc, int P, float* t, void* stream) {
-  return dispatch(2, vpT, vcT, Btr, img_r, cam_r, nullptr, nullptr, T, k, I,
-                  Nc, P, nullptr, nullptr, t, stream);
+  return dispatch(2, false, vpT, vcT, Btr, img_r, cam_r, nullptr, nullptr, T,
+                  k, I, Nc, P, nullptr, nullptr, t, stream);
 }
 
 }  // extern "C"

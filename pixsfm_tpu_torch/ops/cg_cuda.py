@@ -6,7 +6,10 @@ path. On a CUDA tensor :func:`pcg_solve` launches ``kernels/csrc/pcg.cu``;
 on a CPU tensor it runs :func:`pcg_solve_plain`, the scan written out in
 PyTorch. A CUDA tensor never takes the plain path: a kernel that fails to
 build or launch, or a system too large for one block's shared memory,
-raises.
+raises. The kernel has a register variant (N a multiple of 4 up to 128,
+the system in registers) and a general one (any N that fits one block's
+shared memory); the C entry point chooses, :func:`kernel_variant` reports
+its choice.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["pcg_solve", "pcg_solve_plain", "jacobi_inverse", "launches"]
+__all__ = ["pcg_solve", "pcg_solve_plain", "jacobi_inverse", "kernel_variant",
+           "launches"]
 
 # Number of kernel launches since the last reset (set it to 0 to reset).
 launches = 0
@@ -62,18 +66,37 @@ def _lib():
     lib = kernels.load("pcg")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pixsfm_pcg.argtypes = [p, p, p, p, i, i, i, p]
-        lib.pixsfm_pcg.restype = i
+        lib.pixsfm_pcg.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.pixsfm_pcg_max_n.argtypes = []
-        lib.pixsfm_pcg_max_n.restype = i
+        lib.pixsfm_pcg_variant.argtypes = [i]
+        for f in (lib.pixsfm_pcg, lib.pixsfm_pcg_max_n,
+                  lib.pixsfm_pcg_variant):
+            f.restype = i
         lib._typed = True
     return lib
 
 
-def pcg_solve(H, g, iters: int, damp: Optional[torch.Tensor] = None):
+VARIANTS = ("register", "general")
+
+
+def kernel_variant(N: int) -> str:
+    """The variant the C entry point takes for systems of N unknowns on a
+    16-byte aligned H (as torch allocates it): ``register`` (N a multiple
+    of 4 up to 128: H in registers, a float4 of 16 rows per lane) or
+    ``general`` (every other N, H in shared memory; a misaligned H takes it
+    too)."""
+    return VARIANTS[_lib().pixsfm_pcg_variant(int(N))]
+
+
+def pcg_solve(H, g, iters: int, damp: Optional[torch.Tensor] = None, *,
+              variant: Optional[str] = None):
     """``dx [P, N]`` with ``(H + diag(damp)) dx ~= -g`` after ``iters``
-    Jacobi-PCG steps. ``H [P, N, N]``, ``g/damp [P, N]``, float32."""
+    Jacobi-PCG steps. ``H [P, N, N]``, ``g/damp [P, N]``, float32.
+    ``variant`` forces ``register`` or ``general`` on the card (for checks
+    and timing); ``None`` is the C entry point's own choice."""
     global launches
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"pcg_solve: unknown variant {variant!r}")
     if not H.is_cuda:
         return pcg_solve_plain(H, g, iters, damp)
     P, N = g.shape
@@ -87,6 +110,10 @@ def pcg_solve(H, g, iters: int, damp: Optional[torch.Tensor] = None):
     dev = H.device
     tensors = [t.to(device=dev, dtype=torch.float32).contiguous()
                for t in (H, g)]
+    if variant == "register" and (kernel_variant(N) != "register"
+                                  or tensors[0].data_ptr() % 16):
+        raise ValueError(f"pcg_solve: the register variant does not take "
+                         f"N={N} or an H that is not 16-byte aligned")
     if damp is not None:
         damp = damp.to(device=dev, dtype=torch.float32).contiguous()
         if damp.shape != (P, N):
@@ -97,7 +124,9 @@ def pcg_solve(H, g, iters: int, damp: Optional[torch.Tensor] = None):
         err = lib.pixsfm_pcg(tensors[0].data_ptr(),
                              None if damp is None else damp.data_ptr(),
                              tensors[1].data_ptr(), dx.data_ptr(), P, N,
-                             int(iters), stream)
+                             int(iters),
+                             -1 if variant is None
+                             else VARIANTS.index(variant), stream)
     if err:
         raise RuntimeError(f"pcg_solve: kernel launch failed (cudaError {err})")
     launches += 1

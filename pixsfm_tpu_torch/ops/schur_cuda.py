@@ -19,23 +19,24 @@ tensors it runs its plain PyTorch version (gathers, einsums,
 ``index_add_``). A CUDA tensor never takes the plain path: a kernel that
 fails to build or launch raises. The JAX package gates its kernels on the
 TPU backend and VMEM size (``schur_pallas.enabled``); the CUDA kernels take
-any I, Nc and T, so the grid path always uses them. K3a has a fused variant
-(T <= 16, Btr read once) and a two-pass one (any T), each with its tables in
-shared or global memory; the C entry point chooses, :func:`matvec_variant`
-reports its choice.
+any I, Nc and T, so the grid path always uses them. K3a and K3b each have a
+fused variant (T <= 16, Btr read once, one kernel body for both) and one
+for any T (K3a two-pass, K3b one-pass), with their tables in shared or
+global memory; the C entry point chooses, :func:`matvec_variant` and
+:func:`rhs_variant` report its choice.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 __all__ = ["pack_grid_blocks", "schur_term_matvec", "schur_rhs",
            "schur_backsub", "schur_term_matvec_plain", "schur_rhs_plain",
            "schur_backsub_plain", "schur_term_matvec_ref", "matvec_variant",
-           "launches", "DEFAULT_TILE"]
+           "rhs_variant", "launches", "DEFAULT_TILE"]
 
 # Kernel launches since the last reset, per kernel (set an entry to 0 to
 # reset it).
@@ -145,12 +146,14 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pixsfm_schur_matvec.argtypes = [p] * 6 + [i] * 5 + [p] * 3
-        lib.pixsfm_schur_rhs.argtypes = [p] * 5 + [i] * 5 + [p] * 3
+        lib.pixsfm_schur_rhs.argtypes = [p] * 5 + [i] * 6 + [p] * 3
         lib.pixsfm_schur_backsub.argtypes = [p] * 5 + [i] * 5 + [p] * 2
         lib.pixsfm_schur_matvec_variant.argtypes = [i] * 5
+        lib.pixsfm_schur_rhs_variant.argtypes = [i] * 5
         for f in (lib.pixsfm_schur_matvec, lib.pixsfm_schur_rhs,
                   lib.pixsfm_schur_backsub, lib.pixsfm_schur_max_k,
-                  lib.pixsfm_schur_matvec_variant):
+                  lib.pixsfm_schur_matvec_variant,
+                  lib.pixsfm_schur_rhs_variant):
             f.restype = i
         lib.pixsfm_schur_max_k.argtypes = []
         lib._typed = True
@@ -197,14 +200,28 @@ def _run(name, fn, *args):
     launches[name] += 1
 
 
+def _variant_name(code: int, names) -> str:
+    return names[code & 3] + ("/shared" if code & 4 else "/global")
+
+
 def matvec_variant(T: int, k: int, I: int, Nc: int, P: int) -> str:
     """The K3a variant the C entry point takes for this shape: ``fused1`` /
     ``fused2`` (Btr read once, one / two ranks per warp) or ``twopass``
-    (T > 16, or a rank block of 2^31 floats or more), with ``/shared`` or ``/global`` for where the pose and camera
-    tables and accumulators live."""
-    code = _lib().pixsfm_schur_matvec_variant(T, k, I, Nc, P)
-    return (("fused1", "fused2", "twopass")[code & 3]
-            + ("/shared" if code & 4 else "/global"))
+    (T > 16, or a rank block of 2^31 floats or more), with ``/shared`` or
+    ``/global`` for where the pose and camera tables and accumulators
+    live."""
+    return _variant_name(_lib().pixsfm_schur_matvec_variant(T, k, I, Nc, P),
+                         ("fused1", "fused2", "twopass"))
+
+
+def rhs_variant(T: int, k: int, I: int, Nc: int, P: int) -> str:
+    """The K3b variant the C entry point takes for this shape: ``fused1`` /
+    ``fused2`` (K3a's fused kernel in its right-hand-side mode, one / two
+    ranks per warp) or ``onepass`` (one thread per point: T > 16, or a rank
+    block of 2^31 floats or more), with ``/shared`` or ``/global`` for where
+    the accumulators live."""
+    return _variant_name(_lib().pixsfm_schur_rhs_variant(T, k, I, Nc, P),
+                         ("fused1", "fused2", "onepass"))
 
 
 def schur_term_matvec(vpT, vcT, Btr, img_r, cam_r, Vinv_pad, *, T: int,
@@ -225,8 +242,13 @@ def schur_term_matvec(vpT, vcT, Btr, img_r, cam_r, Vinv_pad, *, T: int,
 
 
 def schur_rhs(Btr, img_r, cam_r, Vinv_pad, gxt_pad, *, T: int, I: int,
-              Nc: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(W V^-1 g_x) reduced to camera planes: ``[6, I], [k, Nc]``."""
+              Nc: int, k: int, variant: Optional[str] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(W V^-1 g_x) reduced to camera planes: ``[6, I], [k, Nc]``.
+    ``variant="onepass"`` forces the one-pass kernel on the card (for checks
+    and timing); ``None`` is the C entry point's own choice."""
+    if variant not in (None, "onepass"):
+        raise ValueError(f"schur_rhs: unknown variant {variant!r}")
     if not Btr.is_cuda:
         return schur_rhs_plain(Btr, img_r, cam_r, Vinv_pad, gxt_pad, I, Nc)
     P = _check(Btr, img_r, cam_r, T, k)
@@ -235,7 +257,7 @@ def schur_rhs(Btr, img_r, cam_r, Vinv_pad, gxt_pad, *, T: int, I: int,
     lib = _lib()
     _run("rhs", lib.pixsfm_schur_rhs, Btr.contiguous(), img_r.contiguous(),
          cam_r.contiguous(), _f32(Vinv_pad, dev), _f32(gxt_pad, dev), T, k,
-         I, Nc, P, up, uc)
+         I, Nc, P, int(variant == "onepass"), up, uc)
     return up, uc
 
 

@@ -118,6 +118,75 @@ def test_k2_matches_plain(dev, folded):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
+def _spd(dev, P, N, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((P, N, N), generator=gen, device=dev)
+    H = A @ A.transpose(1, 2) / N + 0.5 * torch.eye(N, device=dev)
+    g = torch.randn((P, N), generator=gen, device=dev)
+    damp = torch.rand((P, N), generator=gen, device=dev)
+    return H, g, damp
+
+
+@pytest.mark.parametrize("variant", ["register", "general"])
+@pytest.mark.parametrize("folded", [True, False])
+@pytest.mark.parametrize("P,N,iters", [
+    (1, 112, 15),        # one system
+    (300, 112, 15),      # more systems than SMs
+    (128, 112, 0),       # no step: dx = 0
+    (128, 112, 1),
+    (40, 128, 15),       # the register variant's largest N
+    (40, 100, 15),       # N % 8 == 4: the last warp holds 4 rows
+    (40, 4, 15),         # its smallest N
+])
+def test_k2_variants_match_plain(dev, variant, folded, P, N, iters):
+    H, g, damp = _spd(dev, P, N, seed=P + N + iters)
+    if not folded:
+        H, damp = H + torch.diag_embed(damp), None
+    before = cg_cuda.launches
+    out = cg_cuda.pcg_solve(H, g, iters, damp=damp, variant=variant)
+    ref = cg_cuda.pcg_solve_plain(H, g, iters, damp=damp)
+    torch.cuda.synchronize()
+    assert cg_cuda.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("folded", [True, False])
+@pytest.mark.parametrize("N", [51, 129, 132, 200])
+def test_k2_general_shapes_match_plain(dev, folded, N):
+    """N that the register variant refuses: the automatic choice is the
+    general variant, and forcing the register one raises."""
+    assert cg_cuda.kernel_variant(N) == "general"
+    H, g, damp = _spd(dev, 9, N, seed=N)
+    if not folded:
+        H, damp = H + torch.diag_embed(damp), None
+    out = cg_cuda.pcg_solve(H, g, 15, damp=damp)
+    ref = cg_cuda.pcg_solve_plain(H, g, 15, damp=damp)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="register"):
+        cg_cuda.pcg_solve(H, g, 15, damp=damp, variant="register")
+
+
+def test_k2_variant_at_the_boundaries(dev):
+    """Register for every multiple of 4 up to 128, general otherwise."""
+    for N in range(1, 260):
+        want = "register" if N % 4 == 0 and N <= 128 else "general"
+        assert cg_cuda.kernel_variant(N) == want, N
+
+
+def test_k2_misaligned_h_takes_the_general_variant(dev):
+    P, N = 8, 112
+    H, g, damp = _spd(dev, P, N, seed=3)
+    buf = torch.empty(H.numel() + 4, device=dev)
+    Hm = buf[1:H.numel() + 1].view(P, N, N)
+    Hm.copy_(H)
+    assert Hm.data_ptr() % 16 != 0
+    out = cg_cuda.pcg_solve(Hm, g, 15, damp=damp)
+    ref = cg_cuda.pcg_solve_plain(H, g, 15, damp=damp)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="aligned"):
+        cg_cuda.pcg_solve(Hm, g, 15, damp=damp, variant="register")
+
+
 def test_k2_rejects_oversized_system(dev):
     N = 400  # 640 KB of float32: more than one block's shared memory
     H = torch.eye(N, device=dev)[None]
@@ -216,6 +285,62 @@ def test_k3a_edge_shapes_match_plain(dev, T, I, Nc, k, variant):
                           (vpT, vcT, Btr, img_r, cam_r, Vi)) <= 1.0
     assert k3_error_ratio(rhs, lambda *a: schur_cuda.schur_rhs_plain(
         *a, I, Nc), (Btr, img_r, cam_r, Vi, gxp)) <= 1.0
+
+
+def _k3b_ratio(out, Btr, img_r, cam_r, Vi, gxp, I, Nc):
+    return k3_error_ratio(out, lambda *a: schur_cuda.schur_rhs_plain(
+        *a, I, Nc), (Btr, img_r, cam_r, Vi, gxp))
+
+
+@pytest.mark.parametrize("T,I,Nc,k,variant", [
+    (1, 13, 3, 4, "fused1/shared"),
+    (8, 56, 1, 4, "fused1/shared"),       # the BA path's T, k and camera
+    (8, 2, 1, 8, "fused1/shared"),
+    (12, 7, 2, 3, "fused2/shared"),
+    (16, 13, 3, 8, "fused2/shared"),
+    (17, 13, 3, 4, "onepass/shared"),     # the first T past the fused one
+    (20, 13, 3, 4, "onepass/shared"),
+    (5, 3000, 2, 4, "fused1/global"),     # accumulators above shared memory
+    (16, 3000, 2, 8, "fused2/global"),
+    (20, 3000, 2, 4, "onepass/global"),
+])
+def test_k3b_variants_match_plain(dev, T, I, Nc, k, variant):
+    """Every K3b variant, and the one-pass kernel forced at the same shape,
+    at K3a's tolerance (2e-5 |ref| + 1e-6 S against float64)."""
+    _, _, Btr, img_r, cam_r, Vi, gxp = _k3_inputs(dev, T, I, Nc, k=k)
+    P = Btr.shape[2]
+    dims = dict(T=T, I=I, Nc=Nc, k=k)
+    assert schur_cuda.rhs_variant(T, k, I, Nc, P) == variant
+    before = schur_cuda.launches["rhs"]
+    auto = schur_cuda.schur_rhs(Btr, img_r, cam_r, Vi, gxp, **dims)
+    onepass = schur_cuda.schur_rhs(Btr, img_r, cam_r, Vi, gxp,
+                                   variant="onepass", **dims)
+    torch.cuda.synchronize()
+    assert schur_cuda.launches["rhs"] == before + 2
+    assert _k3b_ratio(auto, Btr, img_r, cam_r, Vi, gxp, I, Nc) <= 1.0
+    assert _k3b_ratio(onepass, Btr, img_r, cam_r, Vi, gxp, I, Nc) <= 1.0
+
+
+def test_k3b_variant_at_the_boundaries(dev):
+    """Fused up to T = 16 (one rank per warp up to 8), one-pass past it;
+    accumulators in shared memory while 6 I + k Nc floats fit 48 KB beside
+    the fused kernel's 768 bytes (the one-pass kernel has no such array)."""
+    P = 4096
+    for T, want in ((1, "fused1"), (8, "fused1"), (9, "fused2"),
+                    (16, "fused2"), (17, "onepass"), (40, "onepass")):
+        assert schur_cuda.rhs_variant(T, 4, 13, 3, P) == want + "/shared"
+    room = (48 * 1024 - 768) // 4          # floats beside the fused s_t
+    I = (room - 4) // 6                    # k = 4, Nc = 1
+    assert schur_cuda.rhs_variant(8, 4, I, 1, P) == "fused1/shared"
+    assert schur_cuda.rhs_variant(8, 4, I + 1, 1, P) == "fused1/global"
+    I = (48 * 1024 // 4 - 4) // 6
+    assert schur_cuda.rhs_variant(20, 4, I, 1, P) == "onepass/shared"
+    assert schur_cuda.rhs_variant(20, 4, I + 1, 1, P) == "onepass/global"
+    # a rank block of 2^31 floats or more: the fused kernel's 32-bit offsets
+    # do not reach
+    big = (2 ** 31) // 30 + 1
+    assert schur_cuda.rhs_variant(8, 4, 13, 3, big) == "onepass/shared"
+    assert schur_cuda.rhs_variant(8, 4, 13, 3, big - 1) == "fused1/shared"
 
 
 def test_k3_rejects_bad_layout(dev):

@@ -26,9 +26,14 @@ def _spd(rng, P, N):
             + 0.5 * np.eye(N, dtype=np.float32)).astype(np.float32)
 
 
-def test_plain_k2_matches_pallas_interpret():
+# N of the CUDA kernel's variant boundaries: 64 (the first case), 112 (the
+# KA main path's 2 x pad8(50)), 128 (the largest the register variant
+# takes), 129 and 132 (the smallest it refuses: past 128, and the first
+# multiple of 4 past it), 51 (odd: the general variant)
+@pytest.mark.parametrize("N", [64, 112, 128, 129, 132, 51])
+def test_plain_k2_matches_pallas_interpret(N):
     rng = np.random.default_rng(0)
-    P, N = 8, 64
+    P = 8
     H = _spd(rng, P, N)
     g = rng.normal(0, 1, (P, N)).astype(np.float32)
     dinv = 1.0 / np.einsum("pii->pi", H)

@@ -165,7 +165,12 @@ def test_k3a_matvec_edge_shapes(shape):
         assert len(np.unique(tc[0, :32].numpy())) > 1
 
 
-@pytest.mark.parametrize("shape", EDGE_SHAPES[:3],
+# K3b's CUDA variants: EDGE_SHAPES reach the fused one with one and two
+# ranks per warp; T = 16 is its last T, T = 20 takes the one-pass kernel.
+RHS_EDGE_SHAPES = EDGE_SHAPES + [dict(T=16, k=4), dict(T=20, k=4)]
+
+
+@pytest.mark.parametrize("shape", RHS_EDGE_SHAPES,
                          ids=lambda s: "-".join(f"{k}{v}" for k, v in
                                                 s.items()))
 def test_k3b_rhs_edge_shapes(shape):
