@@ -61,23 +61,46 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    device-busy time, idle share, the top kernels and the in-situ time per
    launch of K1 and K3a/b/c (a kernel that launched and has no in-situ
    figure fails the run). K3b must show its fused variant only.
+11. The triangulation main path at full width: the body of
+   ``PixSfM.triangulation`` (KA -> triangulation with known poses -> BA,
+   default config, BA capped at ``BA_ITERATIONS``) on 24 rendered
+   1600x1200 views, 8000 points with tracks of 3-8 views, keypoints the
+   true projections plus N(0, 1 px), matches over every view pair within
+   each track (score 1), the true poses and intrinsics as the reference
+   model (written and read back). Counters zeroed just before and read
+   just after: K1 and K2 must have launched, the BA must take the flat CG
+   layout and lower its cost, the points stay finite and at least
+   ``TRI_MIN_SURVIVING`` of the tracks survive. Then the same path under
+   the profiler (BA capped at ``BA_PROFILE_ITERATIONS``), and K1 timed at
+   this path's BA shape.
+12. The dense Schur step: a small rendered scene (12 views of 640x480,
+   1500 points with tracks of 3: 13 500 track pairs, 76 camera unknowns)
+   through ``refine_reconstruction`` (the ``bundle_adjuster`` command's
+   function, geometric strategy) on ``cuda`` and on ``cpu``, with one
+   camera model and with two (half the views on PINHOLE): both must take
+   the dense step and agree within phase 8's limits.
+13. ``refine_colmap``'s ``keypoint_adjuster`` command on a COLMAP database
+   of phase 5's scene (written with the port's ``COLMAPDatabase``): the
+   keypoints it writes agree with ``run_ka`` on the same inputs within
+   ``DB_KP_ATOL``.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-main paths (KA and BA), its error against the plain version, its time per
-launch (CUDA events), the plain version's time and the bound computed from
-this run's inputs (``cold_ms``: K1 on query sets that change from launch to
-launch, so that no tap is left in the L2 cache; ``general_ms`` and
+main paths (KA, BA, triangulation), its error against the plain version, its
+time per launch (CUDA events), the plain version's time and the bound computed
+from this run's inputs (``cold_ms``: K1 on query sets that change from launch
+to launch, so that no tap is left in the L2 cache; ``general_ms`` and
 ``general_cold_ms``: the same two for K1's general variant, forced by a
 misaligned copy of the rows, which is the kernel's earlier design; K2's
 ``variant``, ``cold_ms`` on changing systems and ``general_ms``, its earlier
 design; K3b's ``variant`` and ``onepass_ms``, its earlier design;
 ``in_situ_ms``: the profiler's device time per launch inside the stage;
 ``max_abs_err`` is the error at the shape that was timed, K1's and K2's
-``edge_max_abs_err`` the largest one over the edge shapes, whose
-tolerances are printed with each case); K1, which both paths launch at
-different shapes, has one entry per path (``"path": "KA"`` / ``"BA"``) with
-that path's launches and the figures at its shape; and last
-``{"ok": true, "device": {...}}``.
+``edge_max_abs_err`` the largest one over the edge shapes, whose tolerances are
+printed with each case); K1, which every path launches at different shapes, has
+one entry per path (``"path": "KA"`` / ``"BA"`` / ``"triangulation"``, the last
+timed at that path's BA shape) with that path's launches and the figures at its
+shape; K2's entry sums its launches over the paths and lists them in
+``launches_by_path``; and last ``{"ok": true, "device": {...}}``.
 
 The weights are S2DNet's deterministic random init (no checkpoint ships
 with the repository); the scenes are made from seeds with numpy.
@@ -97,6 +120,12 @@ FP32_FLOP_PER_S = 67e12
 # depth of the full-size BA (the default config allows 100 LM iterations)
 BA_ITERATIONS = 30
 BA_PROFILE_ITERATIONS = 5
+# least share of the triangulation scene's tracks that must survive the
+# acceptance rules (8000 of 8000 on an H100 with 1 px keypoint noise and the
+# default 4 px limit; fixed here with a margin)
+TRI_MIN_SURVIVING = 0.98
+# the database keypoint adjuster against run_ka (float32 storage: ~2e-4 px)
+DB_KP_ATOL = 1e-3
 
 
 def _smi():
@@ -613,14 +642,16 @@ def _look_at(np, eye, target):
 
 
 def make_ba_scene(torch, np, seed, n_views, n_points, W, H, device,
-                  min_track=4, max_track=8, margin=24):
+                  min_track=4, max_track=8, margin=24, noise_px=0.3):
     """A reconstruction of ``n_points`` points on the textured plane z = 0,
     seen by ``n_views`` SIMPLE_RADIAL cameras (1.8-2.4 units away, tilted
-    10-35 degrees); each point's track is a random subset of 4-8 of the
-    views that see it (``margin`` px inside the image). The views are
-    rendered on ``device`` (plane -> image homographies of the true poses).
-    Returns (reconstruction with perturbed poses and points, {name: [H, W,
-    3] uint8}, the true reconstruction)."""
+    10-35 degrees); each point's track is a random subset of
+    ``min_track``-``max_track`` of the views that see it (``margin`` px
+    inside the image), its keypoints the true projections plus
+    N(0, ``noise_px``). The views are rendered on ``device`` (plane ->
+    image homographies of the true poses). Returns (reconstruction with
+    perturbed poses and points, {name: [H, W, 3] uint8}, the true
+    reconstruction, whose images hold the keypoints)."""
     from pixsfm_tpu_torch.base.cameras import Camera
     from pixsfm_tpu_torch.base.geometry import (exp_quat_np, quat_mul,
                                                 quat_normalize,
@@ -698,7 +729,7 @@ def make_ba_scene(torch, np, seed, n_views, n_points, W, H, device,
     tracks = [[] for _ in range(n_points)]
     for v, (R, t) in enumerate(poses):
         pts = np.nonzero(in_track[:, v])[0]
-        xy = proj[pts, v] + rng.normal(0, 0.3, (len(pts), 2))
+        xy = proj[pts, v] + rng.normal(0, noise_px, (len(pts), 2))
         for j, p in enumerate(pts):
             tracks[p].append((v + 1, j))
         truth.add_image(Image(v + 1, f"view{v:03d}.png", 1,
@@ -833,6 +864,131 @@ def _took_variant(kern, key, want, other):
     if not any(want in n for n in names) or any(other in n for n in names):
         raise SystemExit(f"{key}: the main path did not take {want} alone")
     print(f"{key}: the main path launched {want} only")
+
+
+# ---------------------------------------------------------------------------
+# phases 11-13: the triangulation main path, the dense step, the database KA
+# ---------------------------------------------------------------------------
+
+def triangulation_inputs(np, truth):
+    """What an hloc user hands ``PixSfM.triangulation``, from a scene of
+    :func:`make_ba_scene`: keypoints per view (its images' ``xys``),
+    matches over every view pair within each track (score 1) and the
+    reference model (the true poses and intrinsics, no points)."""
+    from pixsfm_tpu_torch.sfm.model import Image, Reconstruction
+    keypoints = {im.name: im.xys.copy() for im in truth.images.values()}
+    n_pts = len(truth.points3D)
+    kp_of = {}                        # view name -> keypoint index per point
+    for im in truth.images.values():
+        idx = np.full(n_pts, -1)
+        idx[im.point3D_ids] = np.arange(len(im.point3D_ids))
+        kp_of[im.name] = idx
+    names = sorted(kp_of)
+    matches, scores = {}, {}
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            both = (kp_of[a] >= 0) & (kp_of[b] >= 0)
+            if both.any():
+                matches[(a, b)] = np.stack([kp_of[a][both], kp_of[b][both]],
+                                           1)
+                scores[(a, b)] = np.ones(int(both.sum()))
+    reference = Reconstruction()
+    for cam in truth.cameras.values():
+        reference.add_camera(cam)
+    for im in truth.images.values():
+        reference.add_image(Image(im.image_id, im.name, im.camera_id,
+                                  im.qvec.copy(), im.tvec.copy()))
+    return keypoints, matches, scores, reference
+
+
+def triangulated_error(np, rec, truth):
+    """Mean distance of triangulated points to the true points they track
+    (a track's first observation names its true point)."""
+    errs = []
+    for p in rec.points3D.values():
+        iid, k = p.track[0]
+        true_id = int(truth.images[iid].point3D_ids[k])
+        errs.append(np.linalg.norm(p.xyz - truth.points3D[true_id].xyz))
+    return float(np.mean(errs))
+
+
+def dlt_stack(torch, np, truth):
+    """The DLT constraint stack ``[tracks, 2 T, 4]`` (``T`` the longest
+    track, zero rows past a track's end) of the keypoints of a scene of
+    :func:`make_ba_scene` (SIMPLE_RADIAL with k = 0: undistortion is the
+    identity), on the card: what ``triangulate_batch`` gets on the
+    triangulation path."""
+    f, cx, cy, _ = truth.cameras[1].params
+    P = {iid: np.hstack([im.rotation_matrix(), im.tvec[:, None]])
+         for iid, im in truth.images.items()}
+    tracks = [p.track for p in truth.points3D.values()]
+    T = max(len(t) for t in tracks)
+    A = np.zeros((len(tracks), T, 2, 4))
+    for i, track in enumerate(tracks):
+        for k, (iid, j) in enumerate(track):
+            u, v = (truth.images[iid].xys[j] - [cx, cy]) / f
+            A[i, k] = [u * P[iid][2] - P[iid][0], v * P[iid][2] - P[iid][1]]
+    return torch.as_tensor(A.reshape(len(tracks), 2 * T, 4),
+                           dtype=torch.float32, device="cuda")
+
+
+def dense_ba(torch, np, rec, views, device, tmp):
+    """``refine_reconstruction`` (the ``bundle_adjuster`` command's function)
+    of ``rec`` written to ``tmp`` on ``device`` with the geometric strategy:
+    (summary of the one level, points, wall s). Geometric, because the
+    featuremetric cost on S2DNet's random features has near-equal minima:
+    two runs whose starts differ by 1e-6 end further apart than phase 8's
+    limits, so a CUDA/CPU comparison there would test the landscape, not
+    the step."""
+    from pixsfm_tpu_torch.refine_hloc import PixSfM
+    src = Path(tmp) / "dense_in"
+    rec.write(src)
+    sfm = PixSfM({"mapping": {"BA": {
+        "strategy": "geometric",
+        "optimizer": {"solver": {"max_num_iterations": BA_ITERATIONS}}}}},
+        device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_rec, out = sfm.refine_reconstruction(Path(tmp) / f"dense_{device}",
+                                             src, views)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    xyz = np.stack([out_rec.points3D[p].xyz for p in sorted(out_rec.points3D)])
+    return {k: v[0] for k, v in out.items()}, xyz, wall
+
+
+def mixed_models(rec):
+    """``rec`` with its odd images moved to a PINHOLE camera of the same
+    intrinsics (the scene's SIMPLE_RADIAL camera has k = 0, so the views
+    and keypoints stay exact): two camera models in one BA."""
+    from pixsfm_tpu_torch.base.cameras import Camera
+    out = rec.copy()
+    cam = out.cameras[1]
+    f, cx, cy, _ = cam.params
+    out.add_camera(Camera(2, "PINHOLE", cam.width, cam.height,
+                          [f, f, cx, cy]))
+    for iid, im in out.images.items():
+        if iid % 2:
+            im.camera_id = 2
+    return out
+
+
+def write_database(np, path, keypoints, matches, W, H):
+    """A COLMAP database of ``keypoints`` (float32, as COLMAP stores them)
+    and ``matches``, written with the port's ``COLMAPDatabase``."""
+    from contextlib import closing
+    from pixsfm_tpu_torch.util.database import COLMAPDatabase
+    with closing(COLMAPDatabase.connect(path)) as db:
+        db.create_tables()
+        cam = db.add_camera(2, W, H, [1.2 * W, W / 2, H / 2, 0.0])
+        ids = {name: db.add_image(name, cam) for name in keypoints}
+        for name, kps in keypoints.items():
+            db.add_keypoints(ids[name], kps)
+        for (a, b), m in matches.items():
+            db.add_matches(ids[a], ids[b], m)
+        db.commit()
 
 
 # ---------------------------------------------------------------------------
@@ -1081,12 +1237,213 @@ def main() -> int:
                      f"references + solve ({BA_PROFILE_ITERATIONS} LM "
                      f"iterations) ==\n{tab_bap}\n")
 
+    # -- phase 11: the triangulation main path at full width -----------------
+    # phase 9's views and patches go first (~16 GB)
+    del rec, views, truth, rec_profile, sfm_ba, sfm_prof
+    torch.cuda.empty_cache()
+    import tempfile
+    from pixsfm_tpu_torch.keypoint_adjustment import build_matching_graph
+    from pixsfm_tpu_torch.ops.schur import BAOptions
+    from pixsfm_tpu_torch.sfm.model import Reconstruction
+    from pixsfm_tpu_torch.sfm.triangulation import triangulate_reconstruction
+    from pixsfm_tpu_torch.util.misc import bucket
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = Path(tmp_dir.name)
+    t0 = time.perf_counter()
+    n_tri_pts = 8000
+    _, views_t, truth_t = make_ba_scene(
+        torch, np, seed=5, n_views=24, n_points=n_tri_pts, W=1600, H=1200,
+        device="cuda", min_track=3, max_track=8, noise_px=1.0)
+    kps_t, matches_t, scores_t, reference = triangulation_inputs(np, truth_t)
+    reference.write(tmp / "reference")
+    reference = Reconstruction.read(tmp / "reference")
+    print(f"phase 11: scene of {len(views_t)} views, {n_tri_pts} points, "
+          f"{sum(len(v) for v in kps_t.values())} keypoints, "
+          f"{len(matches_t)} pairs made in {time.perf_counter() - t0:.1f} s")
+    # the points the unrefined keypoints give (no kernel: not counted)
+    rec_raw = triangulate_reconstruction(
+        reference, build_matching_graph(matches_t, scores_t),
+        {k: v.copy() for k, v in kps_t.items()}, device="cuda")
+    err_raw = triangulated_error(np, rec_raw, truth_t)
+    tri_conf = {"mapping": {"BA": {"optimizer": {"solver": {
+        "max_num_iterations": BA_ITERATIONS}}}}}
+    sfm_tri = PixSfM(tri_conf, device="cuda")
+    torch.cuda.synchronize()
+    interpolate_cuda.launches = 0
+    cg_cuda.launches = 0
+    for name in schur_cuda.launches:
+        schur_cuda.launches[name] = 0
+    t0 = time.perf_counter()
+    rec_t, out_t = sfm_tri._triangulation(
+        tmp / "triangulated", reference, views_t,
+        {k: v.copy() for k, v in kps_t.items()}, matches_t, scores_t)
+    torch.cuda.synchronize()
+    wall_t = time.perf_counter() - t0
+    launches_tri = {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches,
+                    "K3a": schur_cuda.launches["matvec"],
+                    "K3b": schur_cuda.launches["rhs"],
+                    "K3c": schur_cuda.launches["backsub"]}
+    oka = {k: v[0] for k, v in out_t["KA"].items()}
+    oba = {k: v[0] for k, v in out_t["BA"].items()}
+    t_tri = out_t["triangulation"]["time"]
+    n_tri = len(rec_t.points3D)
+    survived = n_tri / n_tri_pts
+    track_lens = np.array([p.track_length for p in rec_t.points3D.values()])
+    n_obs_t = int(track_lens.sum())
+    n_pairs = int((track_lens ** 2).sum())
+    np_pad_chunk = bucket(n_tri, minimum=4) * BAOptions().obs_chunk
+    err_tri = triangulated_error(np, rec_t, truth_t)
+    t_rest = wall_t - oka["time"] - t_tri - oba["references_time"] \
+        - oba["time"]
+    print(f"phase 11: triangulation path {wall_t:.2f} s (graph, extraction "
+          f"and packing {t_rest:.2f} s, KA {oka['time']:.2f} s, "
+          f"triangulation {t_tri:.2f} s, references "
+          f"{oba['references_time']:.2f} s, BA solve {oba['time']:.2f} s); "
+          f"KA {oka['iterations']} LM iterations, cost "
+          f"{oka['initial_cost']:.4f} -> {oka['final_cost']:.4f}; "
+          f"{n_tri} / {n_tri_pts} tracks triangulated ({survived:.4f}), "
+          f"{n_obs_t} observations; BA regime {oba['linear_solver']} with "
+          f"grid T {oba['obs_grid_T']} ({n_pairs} track pairs, Np_pad * "
+          f"obs_chunk = {np_pad_chunk}), {oba['iterations']} LM / "
+          f"{oba['cg_iterations']} CG iterations, cost "
+          f"{oba['initial_cost']:.4f} -> {oba['final_cost']:.4f}; point "
+          f"error to truth {err_raw:.5f} (unrefined keypoints) -> "
+          f"{err_tri:.5f} (after KA and BA); launches {launches_tri}")
+    if not all(np.isfinite(p.xyz).all() for p in rec_t.points3D.values()):
+        raise SystemExit("non-finite points after the triangulation path")
+    if not (oba["linear_solver"] == "cg" and oba["obs_grid_T"] == 0
+            and n_pairs > 20_000 and np_pad_chunk <= 1 << 28):
+        raise SystemExit("the triangulation path's BA did not take the flat "
+                         "CG layout")
+    if not oba["final_cost"] < oba["initial_cost"]:
+        raise SystemExit("BA cost did not fall on the triangulation path")
+    if not survived >= TRI_MIN_SURVIVING:
+        raise SystemExit(f"only {survived:.4f} of the tracks survived "
+                         f"triangulation (limit {TRI_MIN_SURVIVING})")
+    if min(launches_tri["K1"], launches_tri["K2"]) <= 0:
+        raise SystemExit(f"K1 or K2 did not launch on the triangulation "
+                         f"path: {launches_tri}")
+    # where the time goes: the path again under the profiler, BA capped at
+    # BA_PROFILE_ITERATIONS (a second run, not counted)
+    sfm_tri_prof = PixSfM({"mapping": {"BA": {"optimizer": {"solver": {
+        "max_num_iterations": BA_PROFILE_ITERATIONS}}}}}, device="cuda")
+    (_, out_p), t_trp, busy_trp, kern_trp, tab_trp = profile_stage(
+        torch, lambda: sfm_tri_prof._triangulation(
+            tmp / "triangulated_profile", reference, views_t,
+            {k: v.copy() for k, v in kps_t.items()}, matches_t, scores_t))
+    print(f"phase 11 (under the profiler, {BA_PROFILE_ITERATIONS} BA "
+          f"iterations): {t_trp:.3f} s wall, {busy_trp:.3f} s device busy "
+          f"(idle share {1 - busy_trp / t_trp:.2f}); KA "
+          f"{out_p['KA']['time'][0]:.3f} s, triangulation "
+          f"{out_p['triangulation']['time']:.3f} s, references "
+          f"{out_p['BA']['references_time'][0]:.3f} s, BA solve "
+          f"{out_p['BA']['time'][0]:.3f} s")
+    for name, calls, dev_ms in kern_trp[:10]:
+        print(f"  triangulation path: {dev_ms:9.3f} ms in {calls:6d} "
+              f"launches  {name[:90]}")
+    in_situ_tri = _in_situ(kern_trp, {"K1": "interp_kernel",
+                                      "K2": "pcg_kernel"}, launches_tri)
+    print(f"phase 11: in-situ device ms per launch {in_situ_tri}")
+    if args.profile_out:
+        with open(Path(args.profile_out) / "chip_smoke_profile.txt",
+                  "a") as fh:
+            fh.write(f"\n\n== triangulation path ({BA_PROFILE_ITERATIONS} "
+                     f"BA iterations) ==\n{tab_trp}\n")
+    # the triangulation stage's parts: the track labels (host union-find)
+    # and the batched DLT on the card (CUDA events), against the CPU
+    from pixsfm_tpu_torch.base.graph import compute_track_labels
+    from pixsfm_tpu_torch.sfm.triangulation import triangulate_batch
+    graph_t = build_matching_graph(matches_t, scores_t)
+    t0 = time.perf_counter()
+    compute_track_labels(graph_t)
+    t_labels = time.perf_counter() - t0
+    A_t = dlt_stack(torch, np, truth_t)
+    svd_ms = _time_ms(lambda: triangulate_batch(A_t), reps=5, warmup=1)
+    dlt_diff = float((triangulate_batch(A_t).cpu()
+                      - triangulate_batch(A_t.cpu())).abs().max())
+    print(f"phase 11: triangulation stage parts: track labels (host) "
+          f"{t_labels:.3f} s; batched DLT on [{A_t.shape[0]}, "
+          f"{A_t.shape[1]}, 4] {svd_ms:.3f} ms on the card, max |X(cuda) - "
+          f"X(cpu)| = {dlt_diff:.2e} (scene units)")
+    if not dlt_diff <= 1e-4:
+        raise SystemExit("the batched DLT disagrees between cuda and cpu")
+    del views_t, rec_raw, rec_t, A_t
+    torch.cuda.empty_cache()
+    # K1 at the triangulation path's BA shape: one chunk of 8192
+    # observations over one bf16 patch per observation
+    k1_tri = check_k1(torch, interpolate_cuda, n_patches=n_obs_t,
+                      n_queries=8192, dtypes=(torch.bfloat16,))
+
+    # -- phase 12: the dense step, cuda against cpu ----------------------------
+    rec_d, views_d, _ = make_ba_scene(torch, np, seed=13, n_views=12,
+                                      n_points=1500, W=640, H=480,
+                                      device="cuda", min_track=3,
+                                      max_track=3)
+    for label, rec_in in (("one model", rec_d),
+                          ("mixed models", mixed_models(rec_d))):
+        o_dev, x_dev, w_dev = dense_ba(torch, np, rec_in, views_d, "cuda",
+                                       tmp)
+        o_cpu, x_cpu, w_cpu = dense_ba(torch, np, rec_in, views_d, "cpu",
+                                       tmp)
+        dx = float(np.abs(x_dev - x_cpu).max())
+        n_models = len({c.model for c in rec_in.cameras.values()})
+        print(f"phase 12: dense step, {label} ({n_models}), "
+              f"{len(rec_in.images)} views, {len(rec_in.points3D)} points: "
+              f"regime {o_dev['linear_solver']} / {o_cpu['linear_solver']}, "
+              f"{o_dev['iterations']} LM iterations, cost cuda "
+              f"{o_dev['initial_cost']:.6f} -> {o_dev['final_cost']:.6f} / "
+              f"cpu {o_cpu['final_cost']:.6f}, max |xyz(cuda) - xyz(cpu)| = "
+              f"{dx:.2e} (limits: cost rtol 1e-4, xyz 1e-3); "
+              f"refine_reconstruction {w_dev:.2f} s on cuda (BA solve "
+              f"{o_dev['time']:.3f} s), {w_cpu:.2f} s on cpu (BA solve "
+              f"{o_cpu['time']:.3f} s)")
+        if not (o_dev["linear_solver"] == o_cpu["linear_solver"] == "dense"):
+            raise SystemExit("the small scene did not take the dense step")
+        if not (abs(o_dev["final_cost"] - o_cpu["final_cost"])
+                <= 1e-4 * abs(o_cpu["final_cost"]) and dx <= 1e-3):
+            raise SystemExit(f"cuda and cpu dense BA disagree ({label})")
+        if not o_dev["final_cost"] < o_dev["initial_cost"]:
+            raise SystemExit(f"dense BA cost did not fall ({label})")
+    del views_d
+
+    # -- phase 13: keypoint_adjuster on a COLMAP database ----------------------
+    import PIL.Image
+    from pixsfm_tpu_torch import refine_colmap
+    from pixsfm_tpu_torch.util.colmap import read_keypoints_from_db
+    (tmp / "images").mkdir()
+    for name, img in images.items():
+        PIL.Image.fromarray(img).save(tmp / "images" / name)
+    kp32 = {n: v.astype(np.float32) for n, v in kp0.items()}
+    write_database(np, tmp / "db.db", kp32, matches, W=1600, H=1200)
+    interpolate_cuda.launches = 0
+    cg_cuda.launches = 0
+    t0 = time.perf_counter()
+    refine_colmap.main(["keypoint_adjuster", "--database_path",
+                        str(tmp / "db.db"), "--output_path",
+                        str(tmp / "db_out.db"), "--image_dir",
+                        str(tmp / "images")])
+    wall_db = time.perf_counter() - t0
+    launches_db = {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches}
+    kp_db = read_keypoints_from_db(tmp / "db_out.db")
+    kp_ref, _ = sfm.run_ka({n: v.astype(np.float64) for n, v in kp32.items()},
+                           images, matches=matches)
+    diff_db = max(float(np.abs(kp_db[n] - kp_ref[n]).max()) for n in kp_ref)
+    print(f"phase 13: keypoint_adjuster on a COLMAP database of phase 5's "
+          f"scene {wall_db:.2f} s, launches {launches_db}; max |kp(database) "
+          f"- kp(run_ka)| = {diff_db:.2e} px (limit {DB_KP_ATOL} px)")
+    if not diff_db <= DB_KP_ATOL or min(launches_db.values()) <= 0:
+        raise SystemExit("the database keypoint adjuster disagrees with "
+                         "run_ka")
+    tmp_dir.cleanup()
+
     # -- report ----------------------------------------------------------------
     # K1 runs on both paths at different shapes: one entry per path, each
     # with that path's launches and the figures measured at its shape
-    both = {k: launches.get(k, 0) + launches_ba.get(k, 0)
+    paths = {"KA": launches, "BA": launches_ba,
+             "triangulation": launches_tri}
+    both = {k: sum(n.get(k, 0) for n in paths.values())
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
-    print(f"launches on the main paths: KA {launches}, BA {launches_ba}")
+    print(f"launches on the main paths: {paths}")
     kernels_line = {"kernels": [
         dict(name="bicubic_window_interp_l2", path="KA", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
@@ -1098,11 +1455,18 @@ def main() -> int:
              replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
              launches=launches_ba["K1"], library_ms=None,
              in_situ_ms=in_situ["K1"], **k1_ba),
+        dict(name="bicubic_window_interp_l2", path="triangulation",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_tri["K1"], library_ms=None,
+             in_situ_ms=in_situ_tri["K1"], **k1_tri),
         dict(name="batched_jacobi_pcg", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/pcg.cu",
              replaces="pixsfm_tpu/ops/cg_pallas.py:88",
-             launches=both["K2"], library_ms=None,
-             in_situ_ms=in_situ_ka["K2"], **k2),
+             launches=both["K2"],
+             launches_by_path={n: c["K2"] for n, c in paths.items()},
+             library_ms=None, in_situ_ms=in_situ_ka["K2"], **k2),
         dict(name="schur_term_matvec", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",
              replaces="pixsfm_tpu/ops/schur_pallas.py:253",

@@ -1,11 +1,12 @@
 """COLMAP-compatible camera models in torch, with analytic Jacobians.
 
-Port of ``pixsfm_tpu/base/cameras.py`` (the forward direction): each model
-maps normalized camera coordinates ``(u, v) = (x/z, y/z)`` to pixels
-(``img_from_cam``, COLMAP ``WorldToImage``), with closed-form Jacobians for
-the BA residuals. Every function broadcasts over leading axes:
-``params [..., k]``, ``uv [..., 2]``. The inverse (``cam_from_img``) comes
-with the localization and patch-warp slices.
+Port of ``pixsfm_tpu/base/cameras.py``: each model maps normalized camera
+coordinates ``(u, v) = (x/z, y/z)`` to pixels (``img_from_cam``, COLMAP
+``WorldToImage``), with closed-form Jacobians for the BA residuals, and
+back (``cam_from_img``, COLMAP ``ImageToWorld``), where the inverse
+distortion is a fixed number of Newton steps with the closed-form 2x2
+distortion Jacobian. Every function broadcasts over leading axes:
+``params [..., k]``, ``uv [..., 2]``.
 
 ====  ====================  =========================================
  id   name                  params
@@ -29,10 +30,13 @@ import torch
 
 __all__ = [
     "CAMERA_MODELS", "CAMERA_MODEL_IDS", "CameraModelSpec", "Camera",
-    "img_from_cam", "distort_with_jac",
+    "img_from_cam", "cam_from_img", "distort_with_jac",
     "img_from_cam_with_jac", "focal_param_idxs", "principal_point_idxs",
     "extra_param_idxs",
 ]
+
+
+NEWTON_UNDISTORT_ITERS = 25
 
 
 @dataclass(frozen=True)
@@ -157,6 +161,37 @@ def img_from_cam(model: str, params, uv):
     return torch.stack([fx * d[..., 0] + cx, fy * d[..., 1] + cy], dim=-1)
 
 
+def _undistort(model: str, params, uv_dist):
+    """Inverse of the distortion by ``NEWTON_UNDISTORT_ITERS`` Newton steps
+    from the distorted point, each a 2x2 Cramer solve with the determinant
+    kept away from 0 (``pixsfm_tpu/base/cameras.py:118-146``). The step
+    count is fixed, as in the JAX package: a tolerance would move the
+    keypoints that feed the triangulation."""
+    if model in ("SIMPLE_PINHOLE", "PINHOLE"):
+        return uv_dist
+    x = uv_dist
+    for _ in range(NEWTON_UNDISTORT_ITERS):
+        d, J, _ = distort_with_jac(model, params, x)
+        r = d - uv_dist
+        det = J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]
+        det = torch.where(torch.abs(det) < 1e-18,
+                          torch.full_like(det, 1e-18), det)
+        x = x - torch.stack([
+            (J[..., 1, 1] * r[..., 0] - J[..., 0, 1] * r[..., 1]) / det,
+            (J[..., 0, 0] * r[..., 1] - J[..., 1, 0] * r[..., 0]) / det],
+            dim=-1)
+    return x
+
+
+def cam_from_img(model: str, params, xy):
+    """Pixel coords (..., 2) -> normalized camera coords (..., 2). COLMAP
+    ``ImageToWorld``."""
+    fx, fy, cx, cy = _focal_pp(model, params)
+    uv_dist = torch.stack([(xy[..., 0] - cx) / fx, (xy[..., 1] - cy) / fy],
+                          dim=-1)
+    return _undistort(model, params, uv_dist)
+
+
 def img_from_cam_with_jac(model: str, params, uv):
     """``img_from_cam`` with analytic Jacobians: ``(pix [..., 2],
     J_uv [..., 2, 2], J_cam [..., 2, k])``, the columns of all k camera
@@ -203,4 +238,9 @@ class Camera:
     def img_from_cam(self, uv) -> np.ndarray:
         return img_from_cam(self.model, torch.as_tensor(self.params),
                             torch.as_tensor(np.asarray(uv, np.float64))
+                            ).numpy()
+
+    def cam_from_img(self, xy) -> np.ndarray:
+        return cam_from_img(self.model, torch.as_tensor(self.params),
+                            torch.as_tensor(np.asarray(xy, np.float64))
                             ).numpy()

@@ -13,14 +13,23 @@ pixsfm/bundle_adjustment/src/bundle_optimizer.h:114-245). Design:
   ``index_add_`` into pose blocks ``[I, 6, 6]``, intrinsics ``[Nc, k, k]``,
   pose-intrinsics cross terms ``[I, 6, k]``, point blocks ``V [Np, 3, 3]``
   and per-observation W blocks ``B [O, 6+k, 3]``.
-- Linear step: matrix-free preconditioned CG on the Schur complement over
-  points (ITERATIVE_SCHUR + block Jacobi). Two layouts apply the Schur term
-  ``W V^-1 W^T``: the flat one (gathers + ``index_add_`` over the
-  observation axis; the JAX package's flat, ``pt_slot`` and ``img_slot``
-  regimes all reduce to it) and the GRID one (``opts.obs_grid_T > 0``:
-  observations packed point-major, slot ``point * T + rank``), where the
-  Schur term, its right-hand side and the point back-substitution run on
-  the hand-written CUDA kernels K3a/b/c (``ops/schur_cuda.py``).
+- Linear step, DENSE (``opts.linear_solver == "dense"``, DENSE_SCHUR; the
+  small scenes): the reduced camera system ``S = A - W V^-1 W^T`` is
+  assembled on the device, the Schur term from the observation pairs of
+  each track (``obs.pair_o1/pair_o2``, ``make_pair_list``) in chunks of
+  ``opts.pair_chunk`` pairs with ``index_add_`` into the flattened ``S``,
+  and solved by a Jacobi-scaled Cholesky (``cholesky_ex`` + two triangular
+  solves). A failed factorization gives a NaN step, which LM rejects, as
+  in the JAX package.
+- Linear step, CG (``"cg"``, ITERATIVE_SCHUR + block Jacobi): matrix-free
+  preconditioned CG on the Schur complement over points. Two layouts apply
+  the Schur term ``W V^-1 W^T``: the flat one (gathers + ``index_add_``
+  over the observation axis; the JAX package's flat, ``pt_slot`` and
+  ``img_slot`` regimes all reduce to it) and the GRID one
+  (``opts.obs_grid_T > 0``: observations packed point-major, slot
+  ``point * T + rank``), where the Schur term, its right-hand side and the
+  point back-substitution run on the hand-written CUDA kernels K3a/b/c
+  (``ops/schur_cuda.py``).
 - The CG loop copies ``jax.scipy.sparse.linalg.cg``: stop when
   ``r.r <= max(tol^2 b.b, 0)`` (unpreconditioned residual) or after
   ``max_linear_solver_iterations`` steps.
@@ -28,9 +37,9 @@ pixsfm/bundle_adjustment/src/bundle_optimizer.h:114-245). Design:
   optional inner point-only iterations after each accepted step.
 
 The LM loop runs on the host (one device sync per iteration and per CG
-step). Out of scope here, each raising ``NotImplementedError``: the dense
-Schur step, the generic autodiff path (no ``residual_jac_fn``) and a second
-pose block per observation (``src_idx``, patch-warp BA).
+step). Out of scope here, each raising ``NotImplementedError``: the generic
+autodiff path (no ``residual_jac_fn``) and a second pose block per
+observation (``src_idx``, patch-warp BA).
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ from ..base.geometry import exp_quat, quat_mul, quat_normalize
 from . import schur_cuda
 
 __all__ = ["BAOptions", "BAState", "BAObservations", "ba_solve",
-           "make_pair_list", "make_point_major"]
+           "dense_camera_solve", "make_pair_list", "make_point_major"]
 
 # one-hot segment-sum budget of the JAX package (S targets x n items); the
 # BA adjuster compares ``Np_pad * obs_chunk`` against it to pick the
@@ -71,7 +80,10 @@ class BAOptions:
     use_nonmonotonic_steps: bool = False
     nonmonotonic_window: int = 10
     obs_chunk: int = 8192
-    # "dense" (DENSE_SCHUR, not ported yet) or "cg" (ITERATIVE_SCHUR)
+    # dense step: pairs per chunk of the Schur reduction (bounds the
+    # [pair_chunk, 6+k, 6+k] pair blocks that exist at a time)
+    pair_chunk: int = 131072
+    # "dense" (DENSE_SCHUR) or "cg" (ITERATIVE_SCHUR)
     linear_solver: str = "dense"
     max_linear_solver_iterations: int = 100
     # inexact-Newton forcing tolerance of the CG solve (relative residual)
@@ -113,12 +125,15 @@ class BAState(NamedTuple):
 
 
 class BAObservations(NamedTuple):
-    """Flat observation arrays (int64 slots, bool ``valid``)."""
+    """Flat observation arrays (int64 slots, bool ``valid``) and, for the
+    dense step, the ordered same-track observation pairs."""
     img_idx: torch.Tensor    # [O] -> image slot
     cam_idx: torch.Tensor    # [O] -> camera slot
     pt_idx: torch.Tensor     # [O] -> point slot
     obs_data: Tuple          # per-observation tensors [O, ...]
     valid: torch.Tensor      # [O] bool (padding mask)
+    pair_o1: Optional[torch.Tensor] = None   # [Q] observation index
+    pair_o2: Optional[torch.Tensor] = None   # [Q]
     # second pose block per observation (patch-warp source view)
     src_idx: Optional[torch.Tensor] = None
 
@@ -186,6 +201,22 @@ def _inv3x3(A):
                        torch.stack([A21, A22, A23], dim=-1),
                        torch.stack([A31, A32, A33], dim=-1)], dim=-2)
     return adj * inv_det[..., None, None]
+
+
+def dense_camera_solve(S, rhs):
+    """Solve ``S x = rhs`` for the damped reduced camera system by a
+    Jacobi-scaled Cholesky (``pixsfm_tpu/ops/schur.py:1325-1338``): BA
+    camera systems are badly conditioned at pixel scale, and the symmetric
+    diagonal scaling keeps the float32 factorization accurate. A failed
+    factorization (``S`` not positive definite) gives NaNs, as JAX's
+    Cholesky does, with no host sync."""
+    ds = 1.0 / torch.sqrt(torch.clamp(torch.abs(torch.diagonal(S)),
+                                      min=1e-12))
+    L, info = torch.linalg.cholesky_ex(S * ds[:, None] * ds[None, :])
+    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    y = torch.linalg.solve_triangular(L, (ds * rhs)[:, None], upper=False)
+    x = torch.linalg.solve_triangular(L.t(), y, upper=True)[:, 0]
+    return ds * x
 
 
 def _apply_tangent(state: BAState, d_pose, d_cam, d_xyz) -> BAState:
@@ -256,10 +287,14 @@ def ba_solve(residual_fn: Callable,
             "a second pose block per observation (src_idx, patch-warp BA) "
             "is not ported yet; see ROADMAP.md section 1, 'The other BA "
             "strategies'")
-    if opts.linear_solver != "cg":
-        raise NotImplementedError(
-            "the dense Schur step (linear_solver='dense') is not ported yet; "
-            "see ROADMAP.md section 1, 'The dense Schur step'")
+    if opts.linear_solver not in ("dense", "cg"):
+        raise ValueError(f"unknown linear_solver {opts.linear_solver!r}")
+    dense = opts.linear_solver == "dense"
+    if dense and (obs.pair_o1 is None or obs.pair_o2 is None
+                  or opts.obs_grid_T):
+        raise ValueError("the dense step needs the flat layout and the "
+                         "observation pairs (obs.pair_o1/pair_o2, "
+                         "make_pair_list)")
     dev = state0.xyz.device
     I = state0.qvec.shape[0]
     Nc, k = state0.cams.shape
@@ -286,9 +321,11 @@ def ba_solve(residual_fn: Callable,
     xm = point_free.float()[:, None].expand(Np, 3)                 # [Np, 3]
     chunk = int(opts.obs_chunk)
     bounds = [(s, min(s + chunk, O)) for s in range(0, O, chunk)]
-    # camera slot per image (for the pose-intrinsics cross blocks)
+    # camera slot per image (for the pose-intrinsics cross blocks), from
+    # the valid slots: the padding slots point at image 0 and camera 0,
+    # which need not belong together
     cam_of_img = torch.zeros(I, dtype=torch.long, device=dev)
-    cam_of_img[img_idx] = cam_idx
+    cam_of_img[img_idx[valid]] = cam_idx[valid]
 
     def gather(state, s, e):
         return (state.qvec[img_idx[s:e]], state.tvec[img_idx[s:e]],
@@ -475,6 +512,76 @@ def ba_solve(residual_fn: Callable,
         pred = 0.5 * torch.sum(d_all * (lam * Dv * d_all - g_all))
         return d_pose, d_cam, d_xyz, pred, n_cg
 
+    if dense:
+        # global row of each observation's camera-side block in the reduced
+        # camera system: [pose rows of its image | intrinsics rows of its
+        # camera]
+        M = 6 * I + Nc * k
+        r6 = torch.arange(6, device=dev)
+        rk = torch.arange(k, device=dev)
+        pose_rows = torch.arange(I, device=dev)[:, None] * 6 + r6    # [I, 6]
+        cam_rows = 6 * I + torch.arange(Nc, device=dev)[:, None] * k + rk
+        obs_rows = torch.cat([pose_rows[img_idx], cam_rows[cam_idx]], 1)
+        free_rows = torch.cat([pose_mask6.reshape(-1),
+                               cam_mask.reshape(-1)]).float()
+        pair_o1 = obs.pair_o1.to(dev).long()
+        pair_o2 = obs.pair_o2.to(dev).long()
+        pair_ok = valid[pair_o1] & valid[pair_o2]
+        Q = pair_o1.shape[0]
+        pc = max(min(int(opts.pair_chunk), Q), 1)
+
+    def place(S, rows, cols, blocks):
+        """``S[rows[n, a], cols[n, b]] += blocks[n, a, b]`` on the flattened
+        ``[M * M]`` system."""
+        idx = rows[:, :, None] * M + cols[:, None, :]
+        S.index_add_(0, idx.reshape(-1), blocks.reshape(-1))
+
+    def dense_step(sysd: Dict, lam: float):
+        """One damped dense Schur solve (``pixsfm_tpu/ops/schur.py:1253-
+        1354``) -> (d_pose, d_cam, d_xyz, predicted reduction, 0)."""
+        Hpp, Hcc, Hpc = sysd["Hpp"], sysd["Hcc"], sysd["Hpc"]
+        V, gp, gc, gx, B = (sysd["V"], sysd["gp"], sysd["gc"], sysd["gx"],
+                            sysd["B"])
+        Vinv = _inv3x3(damp(V, xm, lam))
+        # the camera-side matrix A from its blocks, placed by index
+        A = torch.zeros(M * M, device=dev)
+        crow_img = cam_rows[cam_of_img]                              # [I, k]
+        place(A, pose_rows, pose_rows, Hpp)
+        place(A, pose_rows, crow_img, Hpc)
+        place(A, crow_img, pose_rows, Hpc.transpose(1, 2))
+        place(A, cam_rows, cam_rows, Hcc)
+        A = A.view(M, M)
+        diagA = clip_diag(A)
+        A = A + torch.diag(lam * diagA + (1.0 - free_rows))
+        # the Schur term B[o1] V^-1 B[o2]^T of every same-track pair, placed
+        # at (rows(o1), rows(o2)); padded pairs point at an invalid slot
+        Ssub = torch.zeros(M * M, device=dev)
+        for s in range(0, Q, pc):
+            p1, p2 = pair_o1[s:s + pc], pair_o2[s:s + pc]
+            T1 = torch.einsum("qab,qbc->qac", B[p1], Vinv[pt_idx[p1]])
+            Cp = torch.einsum("qac,qdc->qad", T1, B[p2])
+            Cp = torch.where(pair_ok[s:s + pc, None, None], Cp, 0.0)
+            place(Ssub, obs_rows[p1], obs_rows[p2], Cp)
+        S = A - Ssub.view(M, M)
+        # rhs: g_cam - sum_obs B_o Vinv_p g_p
+        corr = torch.einsum("oab,ob->oa", torch.einsum(
+            "oab,obc->oac", B, Vinv[pt_idx]), gx[pt_idx])
+        g_cam = torch.cat([gp.reshape(-1), gc.reshape(-1)])
+        rhs = g_cam - torch.zeros(M, device=dev).index_add_(
+            0, obs_rows.reshape(-1), corr.reshape(-1))
+        dc_full = -dense_camera_solve(S, rhs) * free_rows
+        d_pose = dc_full[:6 * I].reshape(I, 6)
+        d_cam = dc_full[6 * I:].reshape(Nc, k)
+        # back-substitute the points: dx = -Vinv (gx + sum_obs B^T dc_obs)
+        t = torch.zeros((Np, 3), device=dev).index_add_(
+            0, pt_idx, torch.einsum("oab,oa->ob", B, dc_full[obs_rows]))
+        d_xyz = -torch.einsum("pab,pb->pa", Vinv, gx + t) * xm
+        g_all = torch.cat([g_cam, gx.reshape(-1)])
+        d_all = torch.cat([dc_full, d_xyz.reshape(-1)])
+        Dv = torch.cat([diagA, clip_diag(V).reshape(-1)])
+        pred = 0.5 * torch.sum(d_all * (lam * Dv * d_all - g_all))
+        return d_pose, d_cam, d_xyz, pred, 0
+
     def inner_point_iterations(state: BAState, lam: float, cur_cost):
         """Point-only refinement with cameras fixed (use_inner_iterations)."""
         for _ in range(int(opts.inner_iteration_count)):
@@ -516,7 +623,8 @@ def ba_solve(residual_fn: Callable,
     while it < iter_cap and not done:
         if not carry_sys:
             sysd = mask_system(eval_chunked(state, with_jac=True))
-        d_pose, d_cam, d_xyz, pred_t, n_cg = schur_step(sysd, float(lam))
+        d_pose, d_cam, d_xyz, pred_t, n_cg = (dense_step if dense else
+                                              schur_step)(sysd, float(lam))
         cg_steps += n_cg
         cand = _apply_tangent(state, d_pose, d_cam, d_xyz)
         if carry_sys:

@@ -7,22 +7,25 @@ Port of ``PixSfM`` of ``pixsfm_tpu/refine_colmap.py``:
 - ``run_ba(reconstruction, image_dir)``: extract features at the
   reprojections of the triangulated observations, run multilevel BA
   (``feature_reference`` by default);
-- ``refine_reconstruction``: the COLMAP model round-trip around ``run_ba``.
+- ``refine_keypoints_from_db`` / ``refine_reconstruction``: the COLMAP
+  database round-trip around ``run_ka`` and the model round-trip around
+  ``run_ba``.
 
 Everything runs on ``device`` (``cuda`` unless ``"cpu"`` is passed). The
-command line::
+command lines::
 
+    python -m pixsfm_tpu_torch.refine_colmap keypoint_adjuster \\
+        --database_path DB --output_path OUT_DB --image_dir IMAGES \\
+        [--config_path CONF] [--device cpu] [a.b=c ...]
     python -m pixsfm_tpu_torch.refine_colmap bundle_adjuster \\
         --input_path MODEL --output_path OUT --image_dir IMAGES \\
         [--config_path CONF] [--device cpu] [a.b=c ...]
-
-The ``keypoint_adjuster`` command needs the COLMAP database IO, which comes
-with a later slice of the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import shutil
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -35,6 +38,8 @@ from .extract import features_from_graph, features_from_reconstruction
 from .features.extractor import FeatureExtractor
 from .keypoint_adjustment import KeypointAdjuster, build_matching_graph
 from .sfm.model import Reconstruction
+from .util.colmap import (read_keypoints_from_db, read_matches_from_db,
+                          write_keypoints_to_db)
 
 __all__ = ["PixSfM"]
 
@@ -126,6 +131,27 @@ class PixSfM:
         return self.bundle_adjuster.refine_multilevel(reconstruction,
                                                       feature_manager)
 
+    # -- DB / model round-trips ---------------------------------------------
+    def refine_keypoints_from_db(self, output_path, database_path, image_dir,
+                                 cache_path=None) -> Dict:
+        """:meth:`run_ka` on the keypoints and matches of a COLMAP database
+        (match scores from its descriptors, when it stores any); the refined
+        keypoints go to a copy of it at ``output_path`` (or back into it when
+        the two paths are the same)."""
+        keypoints = read_keypoints_from_db(database_path)
+        pairs, matches, scores = read_matches_from_db(database_path)
+        match_dict = {tuple(p): m for p, m in zip(pairs, matches)}
+        score_dict = ({tuple(p): s for p, s in zip(pairs, scores)}
+                      if scores is not None else None)
+        keypoints, outputs = self.run_ka(keypoints, image_dir,
+                                         matches=match_dict,
+                                         scores=score_dict,
+                                         cache_path=cache_path)
+        if str(output_path) != str(database_path):
+            shutil.copy(database_path, output_path)
+        write_keypoints_to_db(output_path, keypoints)
+        return outputs
+
     def refine_reconstruction(self, output_path, input_path, image_dir,
                               cache_path=None) -> Tuple[Reconstruction, Dict]:
         """Read a COLMAP model, :meth:`run_ba` it, write it to
@@ -155,16 +181,16 @@ def main(argv=None):
         p.add_argument("--device", type=str, default=None)
         p.add_argument("dotlist", nargs="*")
     args = parser.parse_args(argv)
-    if args.command == "keypoint_adjuster":
-        raise NotImplementedError(
-            "keypoint_adjuster on a COLMAP database needs the database IO "
-            "(util/colmap.py), which is not ported yet; see ROADMAP.md "
-            "section 1, 'Close the main path'")
     conf = load_config(args.config_path, cli=args.dotlist) \
         if args.config_path else OmegaConf.from_dotlist(args.dotlist)
     sfm = PixSfM(conf, device=resolve_device(args.device))
-    sfm.refine_reconstruction(args.output_path, args.input_path,
-                              args.image_dir, cache_path=args.cache_path)
+    if args.command == "keypoint_adjuster":
+        sfm.refine_keypoints_from_db(args.output_path, args.database_path,
+                                     args.image_dir,
+                                     cache_path=args.cache_path)
+    else:
+        sfm.refine_reconstruction(args.output_path, args.input_path,
+                                  args.image_dir, cache_path=args.cache_path)
 
 
 if __name__ == "__main__":

@@ -133,6 +133,28 @@ def test_cameras_match(model):
 
 
 @pytest.mark.parametrize("model", MODELS)
+def test_cam_from_img_matches(model):
+    """The fixed-iteration Newton undistortion, batched in float32 and
+    through the host camera record, against JAX's at atol 1e-5; and back
+    through ``img_from_cam`` to the pixels."""
+    import jax
+    rng = np.random.default_rng(3)
+    params = np.asarray(PARAMS[model], np.float32)
+    xy = rng.uniform([0, 0], [640, 480], (64, 2)).astype(np.float32)
+    xy[0] = params[list(tcam.CAMERA_MODELS[model].pp_idxs)]
+    want = jax.vmap(lambda p: jcam.cam_from_img(model, jnp.asarray(params),
+                                                p))(jnp.asarray(xy))
+    got = tcam.cam_from_img(model, _T(params), _T(xy))
+    assert got.dtype == torch.float32
+    _close(got, want, rtol=0, atol=1e-5)
+    cam_j = jcam.Camera(1, model, 640, 480, params)
+    cam_t = tcam.Camera(1, model, 640, 480, params)
+    _close(cam_t.cam_from_img(xy), cam_j.cam_from_img(xy), rtol=0, atol=1e-5)
+    _close(cam_t.img_from_cam(cam_t.cam_from_img(xy)), xy, rtol=0,
+           atol=1e-3)
+
+
+@pytest.mark.parametrize("model", MODELS)
 def test_project_with_jac_matches(model):
     import jax
     rng = np.random.default_rng(2)
@@ -262,7 +284,12 @@ def test_extract_references_matches():
 # ba_solve, flat and grid CG layouts
 # ---------------------------------------------------------------------------
 
-def _solve_both(grid: bool, **opt_kw):
+def _solve_both(layout, **opt_kw):
+    """``layout``: "flat" / "grid" (CG step) or "dense" (dense step); a
+    bool means "grid" / "flat"."""
+    if isinstance(layout, bool):
+        layout = "grid" if layout else "flat"
+    grid = layout == "grid"
     rng = np.random.default_rng(0)
     rec = j_synth(n_images=5, n_points=80, noise_px=0.4, seed=72)
     perturb(rng=rng, rec=rec, pose_rot=0.003, pose_t=0.02, point_sigma=0.02)
@@ -273,19 +300,23 @@ def _solve_both(grid: bool, **opt_kw):
         pt = np.arange(Np * T_b) // T_b
     else:
         sel, valid, pt = np.arange(O), np.ones(O, bool), packed.obs_pt
-    kw = dict(dict(max_iterations=12, obs_chunk=64, linear_solver="cg",
+    kw = dict(dict(max_iterations=12, obs_chunk=64,
+                   linear_solver="dense" if layout == "dense" else "cg",
                    obs_grid_T=T_b if grid else 0), **opt_kw)
     free = (packed.pose_free, packed.tvec_free, packed.cam_free,
             packed.point_free)
     state = (packed.qvec, packed.tvec, packed.cams, packed.xyz)
     model = packed.cam_model
+    if layout == "dense":
+        pairs = jschur.make_pair_list(packed.obs_pt, Np)
+    else:
+        pairs = (np.zeros(4, np.int32) + len(sel),) * 2
     if not (grid and opt_kw.get("use_inner_iterations")):
-        pairs = jnp.asarray(np.zeros(4, np.int32) + len(sel))
         jobs = jschur.BAObservations(
             jnp.asarray(packed.obs_img[sel]), jnp.asarray(packed.obs_cam[sel]),
             jnp.asarray(pt.astype(np.int32)),
             jnp.asarray(packed.obs_xy[sel], jnp.float32), jnp.asarray(valid),
-            pairs, pairs)
+            *map(jnp.asarray, pairs))
         j_st, j_sum = jschur.ba_solve(
             jba_main._RESIDUAL_BUILDERS["geometric"]((model,)),
             jschur.BAState(*map(jnp.asarray, state)), jobs, JLoss("trivial"),
@@ -298,7 +329,7 @@ def _solve_both(grid: bool, **opt_kw):
     tobs = tschur.BAObservations(
         _T(packed.obs_img[sel]).long(), _T(packed.obs_cam[sel]).long(),
         _T(pt).long(), (_T(packed.obs_xy[sel].astype(np.float32)),),
-        _T(valid))
+        _T(valid), *(_T(p).long() for p in pairs))
     build, build_jac = _RESIDUAL_BUILDERS["geometric"]
     t_st, t_sum = tschur.ba_solve(
         build(model), tschur.BAState(*map(_T, state)), tobs,
@@ -307,10 +338,12 @@ def _solve_both(grid: bool, **opt_kw):
     return j_out, (t_st, t_sum)
 
 
-@pytest.mark.parametrize("grid", [False, True])
-def test_ba_solve_matches(grid):
-    (j_st, j_cost), (t_st, t_sum) = _solve_both(grid)
-    assert t_sum["iterations"] == 12 and t_sum["cg_iterations"] > 0
+@pytest.mark.parametrize("layout", ["flat", "grid", "dense"],
+                         ids=["False", "True", "dense"])
+def test_ba_solve_matches(layout):
+    (j_st, j_cost), (t_st, t_sum) = _solve_both(layout)
+    assert t_sum["iterations"] == 12
+    assert (t_sum["cg_iterations"] == 0) == (layout == "dense")
     np.testing.assert_allclose(t_sum["final_cost"], j_cost, rtol=1e-5)
     for name in ("xyz", "tvec", "qvec"):
         np.testing.assert_allclose(getattr(t_st, name).numpy(),
@@ -343,17 +376,47 @@ def test_ba_solve_inner_iterations():
                          flat_sum["final_cost"])
 
 
+def test_ba_solve_dense_inner_iterations():
+    """The dense step with inner point iterations and non-monotonic steps
+    (the BA defaults) matches JAX's; the point-only iterations run on the
+    flat layout the dense step leaves."""
+    kw = dict(use_nonmonotonic_steps=True, use_inner_iterations=True)
+    (j_st, j_cost), (t_st, t_sum) = _solve_both("dense", **kw)
+    assert t_sum["iterations"] == 12 and t_sum["cg_iterations"] == 0
+    assert t_sum["final_cost"] < t_sum["initial_cost"]
+    _assert_solves_match(t_st, t_sum["final_cost"], j_st, j_cost)
+
+
+def test_dense_camera_solve():
+    """The Jacobi-scaled Cholesky solves an SPD system; a system that is not
+    positive definite gives NaNs (JAX's Cholesky), not a silent zero."""
+    rng = np.random.default_rng(9)
+    A = rng.normal(size=(30, 30))
+    d = 10.0 ** rng.uniform(-3, 3, 30)          # pixel-scale conditioning
+    S = (A @ A.T + 30 * np.eye(30)) * np.outer(d, d)
+    b = rng.normal(size=30)
+    x = tschur.dense_camera_solve(_T(S).float(), _T(b).float()).numpy()
+    np.testing.assert_allclose(x, np.linalg.solve(S, b), rtol=1e-4)
+    S[3, 3] = -S[3, 3]
+    x = tschur.dense_camera_solve(_T(S).float(), _T(b).float())
+    assert torch.isnan(x).all()
+
+
 def test_ba_solve_out_of_scope_raises():
     _, (st, _) = _solve_both(False, max_iterations=0,
                              use_inner_iterations=True)
     obs = tschur.BAObservations(*(torch.zeros(1, dtype=torch.long),) * 3,
                                 (torch.zeros(1, 2),), torch.ones(1, dtype=torch.bool))
     free = (torch.ones(st.qvec.shape[0], dtype=torch.bool),) * 4
-    with pytest.raises(NotImplementedError, match="dense Schur"):
+    with pytest.raises(ValueError, match="observation pairs"):
         tschur.ba_solve(None, st, obs, RobustLoss(), *free,
                         opts=tschur.BAOptions(), residual_jac_fn=lambda: 0)
     with pytest.raises(NotImplementedError, match="autodiff"):
         tschur.ba_solve(None, st, obs, RobustLoss(), *free,
+                        opts=tschur.BAOptions(linear_solver="cg"))
+    with pytest.raises(NotImplementedError, match="src_idx"):
+        tschur.ba_solve(None, st, obs._replace(src_idx=obs.img_idx),
+                        RobustLoss(), *free, residual_jac_fn=lambda: 0,
                         opts=tschur.BAOptions(linear_solver="cg"))
 
 
@@ -425,6 +488,74 @@ def test_feature_reference_refine_matches(monkeypatch, multilevel):
     for iid, im in jrec.images.items():
         np.testing.assert_allclose(trec.images[iid].qvec, im.qvec, atol=1e-3)
         np.testing.assert_allclose(trec.images[iid].tvec, im.tvec, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the adjusters in the dense regime (their default on small scenes), mixed
+# camera models, segmented dispatch
+# ---------------------------------------------------------------------------
+
+def _scene(strategy, mixed):
+    """A small scene for ``strategy`` (JAX's reconstruction, and for the
+    featuremetric strategy its feature set), half the images on a RADIAL
+    camera with k2 = 0 when ``mixed`` (``tests/test_mixed_fm_ba.py``)."""
+    from tests.test_mixed_fm_ba import split_cameras_mixed
+    if strategy == "geometric":
+        rec, fset = j_synth(n_images=5, n_points=60, noise_px=0.3,
+                            seed=31), None
+    else:
+        rec, fset = featuremetric_scene(seed=6, n_images=4, n_points=40)
+    if mixed:
+        split_cameras_mixed(rec)
+    perturb(rec, np.random.default_rng(6), pose_rot=0.002, pose_t=0.01,
+            point_sigma=0.02)
+    return rec, fset
+
+
+@pytest.mark.parametrize("strategy", ["geometric", "feature_reference"])
+@pytest.mark.parametrize("variant", ["dense", "mixed", "segments"])
+def test_adjuster_refine_matches(strategy, variant):
+    """``GeometricBundleAdjuster`` / ``FeatureReferenceBundleAdjuster``
+    ``.refine`` against JAX's on a small scene, which both take to the
+    dense step: with one camera model, with two (SIMPLE_RADIAL and RADIAL),
+    and dispatched in segments of 3 LM iterations. Final cost rtol 1e-4,
+    poses and points atol 1e-3 (the whole solve, as for the grid regime
+    above)."""
+    from pixsfm_tpu.bundle_adjustment import GeometricBundleAdjuster as JGeo
+    from pixsfm_tpu_torch.bundle_adjustment import GeometricBundleAdjuster
+    solver = {"max_num_iterations": 10, "use_inner_iterations": True,
+              "segment_iterations": 3 if variant == "segments" else 0}
+    conf = {"optimizer": {"solver": solver}}
+    if strategy == "feature_reference":
+        conf.update(interpolation={"mode": "BICUBIC", "l2_normalize": False},
+                    references={"loss": {"name": "cauchy",
+                                         "params": [0.25]}, "iters": 20})
+    jrec, jfset = _scene(strategy, variant == "mixed")
+    trec = _to_port(jrec)
+    if strategy == "geometric":
+        j_out = JGeo(conf).refine(jrec)
+        t_out = GeometricBundleAdjuster(conf, device="cpu").refine(trec)
+    else:
+        j_out = JFR(conf).refine(jrec, jfset)
+        t_out = FeatureReferenceBundleAdjuster(conf, device="cpu").refine(
+            trec, _port_fset(jfset, 8, 16))
+    assert t_out["linear_solver"] == "dense" and t_out["cg_iterations"] == 0
+    assert len({c.model for c in trec.cameras.values()}) == (
+        2 if variant == "mixed" else 1)
+    assert t_out.get("interrupted") is (False if variant == "segments"
+                                        else None)
+    assert t_out["iterations"] == j_out["iterations"]
+    assert t_out["final_cost"] < 0.5 * t_out["initial_cost"]
+    for k in ("initial_cost", "final_cost"):
+        np.testing.assert_allclose(t_out[k], j_out[k], rtol=1e-4)
+    for iid, im in jrec.images.items():
+        np.testing.assert_allclose(trec.images[iid].qvec, im.qvec, atol=1e-3)
+        np.testing.assert_allclose(trec.images[iid].tvec, im.tvec, atol=1e-3)
+    for cid, cam in jrec.cameras.items():
+        np.testing.assert_allclose(trec.cameras[cid].params, cam.params,
+                                   rtol=1e-4, atol=1e-4)
+    for pid, p in jrec.points3D.items():
+        np.testing.assert_allclose(trec.points3D[pid].xyz, p.xyz, atol=1e-3)
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,8 @@ def test_every_module_imports_without_jax():
                  "bundle_adjustment.main", "bundle_adjustment.references",
                  "bundle_adjustment.problem", "base.geometry",
                  "base.cameras", "base.projection", "sfm.model",
-                 "sfm.synthetic", "refine_colmap"):
+                 "sfm.synthetic", "sfm.triangulation", "util.database",
+                 "util.colmap", "refine_colmap", "refine_hloc"):
         assert f"pixsfm_tpu_torch.{name}" in _module_names()
 
 
@@ -68,6 +69,20 @@ def test_cuda_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         colmap_main(["bundle_adjuster", "--input_path", "m", "--output_path",
                      "o", "--image_dir", "i"])
+    from pixsfm_tpu_torch.base.graph import Graph
+    from pixsfm_tpu_torch.refine_hloc import main as hloc_main
+    from pixsfm_tpu_torch.sfm import Reconstruction
+    from pixsfm_tpu_torch.sfm.triangulation import triangulate_reconstruction
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hloc_main(["triangulator", "--image_dir", "i",
+                   "--reference_model_path", "r", "--features_path", "f",
+                   "--pairs_path", "p", "--matches_path", "m",
+                   "--output_dir", "o"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        colmap_main(["keypoint_adjuster", "--database_path", "d",
+                     "--output_path", "o", "--image_dir", "i"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        triangulate_reconstruction(Reconstruction(), Graph(), {})
     problems = solver.KAProblems(*[np.zeros((1, 8, 2))] * 15)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solver.solve_ka_problems(problems, np.zeros((1, 16, 16, 8)),

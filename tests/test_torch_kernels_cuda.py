@@ -348,3 +348,89 @@ def test_k3_rejects_bad_layout(dev):
     with pytest.raises(ValueError, match="int32"):
         schur_cuda.schur_backsub(vpT, vcT, Btr, img_r.long(), cam_r, T=4,
                                  I=13, Nc=3, k=4)
+
+
+# ---------------------------------------------------------------------------
+# the dense Schur step and the batched triangulation: library calls on the
+# card (cholesky_ex, solve_triangular, svd) held to the same code on the CPU
+# ---------------------------------------------------------------------------
+
+def _dense_refine(device, mixed):
+    """``GeometricBundleAdjuster.refine`` on a small synthetic scene, which
+    takes the dense step: (summary, points [Np, 3])."""
+    import numpy as np
+    from pixsfm_tpu_torch.base.cameras import Camera
+    from pixsfm_tpu_torch.bundle_adjustment import GeometricBundleAdjuster
+    from pixsfm_tpu_torch.sfm.synthetic import synthetic_reconstruction
+    rec = synthetic_reconstruction(n_images=6, n_points=120, noise_px=0.3,
+                                   seed=21, shared_camera=not mixed)
+    if mixed:          # the even images on a PINHOLE camera of the same K
+        for cid, cam in list(rec.cameras.items()):
+            if cid % 2 == 0:
+                f, cx, cy, _ = cam.params
+                rec.cameras[cid] = Camera(cid, "PINHOLE", cam.width,
+                                          cam.height, [f, f, cx, cy])
+    rng = np.random.default_rng(21)
+    for p in rec.points3D.values():
+        p.xyz = p.xyz + rng.normal(0, 0.02, 3)
+    for iid in sorted(rec.images)[1:]:
+        rec.images[iid].tvec = rec.images[iid].tvec + rng.normal(0, 0.01, 3)
+    out = GeometricBundleAdjuster(
+        {"optimizer": {"solver": {"max_num_iterations": 10}}},
+        device=device).refine(rec)
+    return out, np.stack([rec.points3D[p].xyz for p in sorted(rec.points3D)])
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_dense_step_cuda_matches_cpu(dev, mixed):
+    """Phase 8's limits: final cost rtol 1e-4, points 1e-3."""
+    out_d, x_d = _dense_refine("cuda", mixed)
+    out_c, x_c = _dense_refine("cpu", mixed)
+    assert out_d["linear_solver"] == out_c["linear_solver"] == "dense"
+    assert out_d["final_cost"] < out_d["initial_cost"]
+    assert abs(out_d["final_cost"] - out_c["final_cost"]) \
+        <= 1e-4 * out_c["final_cost"]
+    assert float(abs(x_d - x_c).max()) <= 1e-3
+
+
+def test_dense_camera_solve_cuda_matches_cpu(dev):
+    """The Jacobi-scaled Cholesky on the card against the CPU; a system that
+    is not positive definite gives NaNs there too (no host sync, no zero
+    step)."""
+    from pixsfm_tpu_torch.ops.schur import dense_camera_solve
+    gen = torch.Generator().manual_seed(4)
+    A = torch.randn((60, 60), generator=gen, dtype=torch.float64)
+    d = 10.0 ** (torch.rand(60, generator=gen, dtype=torch.float64) * 6 - 3)
+    S = ((A @ A.T + 60 * torch.eye(60, dtype=torch.float64))
+         * d[:, None] * d[None, :]).float()
+    b = torch.randn(60, generator=gen)
+    x_c = dense_camera_solve(S, b)
+    x_d = dense_camera_solve(S.to(dev), b.to(dev)).cpu()
+    torch.testing.assert_close(x_d, x_c, rtol=1e-4, atol=0)
+    S[5, 5] = -S[5, 5]
+    assert torch.isnan(dense_camera_solve(S.to(dev), b.to(dev))).all()
+
+
+def test_triangulate_batch_cuda_matches_cpu(dev):
+    """The batched DLT (``torch.linalg.svd`` of [N, 2T, 4] stacks) on the
+    card against the CPU, on tracks of 2-8 views with missing rows; points
+    within 1e-4 of each other (scene units) and of the truth."""
+    from pixsfm_tpu_torch.sfm.triangulation import triangulate_batch
+    gen = torch.Generator().manual_seed(5)
+    N, T = 4000, 8
+    X = torch.rand((N, 3), generator=gen, dtype=torch.float64) * 2 - 1
+    X[:, 2] += 6.0
+    C = torch.rand((N, T, 3), generator=gen, dtype=torch.float64) * 2 - 1
+    uv = (X[:, None, :2] - C[..., :2]) / (X[:, None, 2:] - C[..., 2:])
+    # [I | -c] rows: u * P[2] - P[0], v * P[2] - P[1]
+    P = torch.cat([torch.eye(3, dtype=torch.float64).expand(N, T, 3, 3),
+                   -C[..., None]], -1)
+    A = torch.stack([uv[..., 0:1] * P[..., 2, :] - P[..., 0, :],
+                     uv[..., 1:2] * P[..., 2, :] - P[..., 1, :]], 2)
+    L = torch.randint(2, T + 1, (N,), generator=gen)
+    A[torch.arange(T)[None, :].expand(N, T) >= L[:, None]] = 0.0
+    A = A.reshape(N, 2 * T, 4).float()
+    x_c = triangulate_batch(A)
+    x_d = triangulate_batch(A.to(dev)).cpu()
+    torch.testing.assert_close(x_d, x_c, atol=1e-4, rtol=0)
+    torch.testing.assert_close(x_d, X.float(), atol=1e-3, rtol=0)
