@@ -83,6 +83,37 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    of phase 5's scene (written with the port's ``COLMAPDatabase``): the
    keypoints it writes agree with ``run_ka`` on the same inputs within
    ``DB_KP_ATOL``.
+14. PnP (``localization/pnp.py``): ``PNP_QUERIES`` queries of 30-2000
+   correspondences (general and planar scenes, 0-60 % outliers,
+   SIMPLE_RADIAL and PINHOLE) through ``absolute_pose_estimation_batch`` on
+   ``cuda`` and on ``cpu``, unpolished and polished: the same success,
+   inlier counts within 1, each pose explains all but one of the other's
+   inliers, poses within ``PNP_UNPOLISHED_TOL`` / ``PNP_POLISHED_TOL``
+   (tied hypotheses; see the constants). Then one stage-1 program and one stage-2 program
+   timed, with their kernel launches counted under the profiler.
+15. The incremental mapper (``sfm/mapper.py``) on the ring of
+   ``tests/test_mapper_scale.py`` at 12 views and 300 points (unknown
+   intrinsics) on ``cuda`` and on ``cpu``: the same registered images and
+   initial pair, point counts within 2 %, and after a similarity alignment
+   rotations within 0.05 degrees and centres within 1e-3 of the extent.
+16. The reconstruction main path at full width: the body of
+   ``PixSfM.reconstruction`` (KA -> incremental mapper with unknown
+   intrinsics -> BA, default config, BA capped at ``BA_ITERATIONS``, the
+   mapper at its defaults) on 24 ray-cast 1600x1200 views of a valley of two
+   textured planes, ``RECON_POINTS`` points with tracks of 3-8 views,
+   keypoints the true projections plus N(0, ``RECON_NOISE_PX``), matches
+   over every view pair within each track. Counters zeroed just before and
+   read just after: at least 23 of the 24 views register, after a
+   similarity to the truth rotations within 0.5 degrees and centres within
+   1 % of the extent, the BA cost falls, K1 and K2 launched. Then the KA
+   and the final BA (capped at ``BA_PROFILE_ITERATIONS``) under the
+   profiler, and one call of each of the mapper's device stages (PnP, the
+   retriangulation, a geometric BA) on the final map, from which the
+   mapper's device-idle share is estimated; and K1 timed at this path's BA
+   shape.
+17. Phase 11's triangulation path again with ``configs/dsift.yaml`` (dense
+   SIFT, no weights): the point error to the truth before and after KA and
+   BA beside S2DNet's; costs fall, points stay finite.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA, BA, triangulation), its error against the plain version, its
@@ -97,9 +128,9 @@ design; K3b's ``variant`` and ``onepass_ms``, its earlier design;
 ``max_abs_err`` is the error at the shape that was timed, K1's and K2's
 ``edge_max_abs_err`` the largest one over the edge shapes, whose tolerances are
 printed with each case); K1, which every path launches at different shapes, has
-one entry per path (``"path": "KA"`` / ``"BA"`` / ``"triangulation"``, the last
-timed at that path's BA shape) with that path's launches and the figures at its
-shape; K2's entry sums its launches over the paths and lists them in
+one entry per path (``"path": "KA"`` / ``"BA"`` / ``"triangulation"`` /
+``"reconstruction"``, the last two timed at their path's BA shape) with that
+path's launches and the figures at its shape; K2's entry sums its launches over the paths and lists them in
 ``launches_by_path``; and last ``{"ok": true, "device": {...}}``.
 
 The weights are S2DNet's deterministic random init (no checkpoint ships
@@ -119,13 +150,29 @@ FP32_FLOP_PER_S = 67e12
 
 # depth of the full-size BA (the default config allows 100 LM iterations)
 BA_ITERATIONS = 30
-BA_PROFILE_ITERATIONS = 5
+BA_PROFILE_ITERATIONS = 2
 # least share of the triangulation scene's tracks that must survive the
 # acceptance rules (8000 of 8000 on an H100 with 1 px keypoint noise and the
 # default 4 px limit; fixed here with a margin)
 TRI_MIN_SURVIVING = 0.98
 # the database keypoint adjuster against run_ka (float32 storage: ~2e-4 px)
 DB_KP_ATOL = 1e-3
+# phase 14: PnP queries, and the limits of cuda against cpu on the poses.
+# Unpolished, a pose is the first of the minimal-sample hypotheses with the
+# largest consensus; float32 rounding (P3P's near-double roots, points at the
+# threshold) can change which of several tied hypotheses comes first, and
+# two such poses differ by up to 4.4e-2 rad on these queries (two sample
+# seeds on one device). The polish starts its Cauchy scale from the
+# unpolished pose's residuals, so it narrows that spread (to 6.9e-3 rad) but
+# does not close it. Both results must hold the same consensus: inlier
+# counts within 1, and each pose explains all but one of the other's
+# inliers.
+PNP_QUERIES = 64
+PNP_UNPOLISHED_TOL = 5e-2
+PNP_POLISHED_TOL = 1e-2
+# phase 16: the reconstruction scene
+RECON_POINTS = 4000
+RECON_NOISE_PX = 0.5
 
 
 def _smi():
@@ -992,6 +1039,250 @@ def write_database(np, path, keypoints, matches, W, H):
 
 
 # ---------------------------------------------------------------------------
+# phases 14-17: PnP, the incremental mapper, the reconstruction path, dsift
+# ---------------------------------------------------------------------------
+
+def _rot(np, phi):
+    th = max(float(np.linalg.norm(phi)), 1e-300)
+    K = np.array([[0, -phi[2], phi[1]], [phi[2], 0, -phi[0]],
+                  [-phi[1], phi[0], 0]]) / th
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def pnp_queries(np, seed, n_queries, n=None):
+    """PnP queries of 30-2000 correspondences (log-uniform; ``n`` each when
+    given): half of them on a plane, 0-60 % outliers, SIMPLE_RADIAL and
+    PINHOLE cameras in turn, keypoints the true projections plus
+    N(0, 0.5 px)."""
+    from pixsfm_tpu_torch.base.cameras import Camera
+    from pixsfm_tpu_torch.localization.pnp import (_rotmat_to_quat_np,
+                                                   project_np)
+    rng = np.random.default_rng(seed)
+    queries = []
+    for i in range(n_queries):
+        n_i = int(np.exp(rng.uniform(np.log(30), np.log(2000))))
+        n_i = n_i if n is None else n
+        W, H = 1600, 1200
+        cam = (Camera(1, "SIMPLE_RADIAL", W, H, [1700.0, W / 2, H / 2, 0.02])
+               if i % 2 else Camera(1, "PINHOLE", W, H,
+                                    [1650.0, 1700.0, W / 2, H / 2]))
+        X = np.stack([rng.uniform(-2.5, 2.5, n_i), rng.uniform(-2, 2, n_i),
+                      rng.uniform(-1.5, 1.5, n_i)], 1)
+        if i % 4 < 2:
+            X[:, 2] = 0.3 * X[:, 0] - 0.1 * X[:, 1]
+        R = _rot(np, rng.normal(0, 0.3, 3))
+        t = np.array([rng.uniform(-0.3, 0.3), rng.uniform(-0.3, 0.3), 8.0])
+        xy, _ = project_np(cam, _rotmat_to_quat_np(R), t, X)
+        xy = xy + rng.normal(0, 0.5, xy.shape)
+        k = int(rng.uniform(0, 0.6) * n_i)
+        xy[:k] = rng.uniform(0, [W, H], (k, 2))
+        queries.append(dict(points2D=xy, points3D=X, camera=cam))
+    return queries
+
+
+def pose_agreement(np, a, b, X):
+    """(rotation angle between two PnP results, translation difference
+    relative to max(|t|, median distance of the points to the camera))."""
+    from pixsfm_tpu_torch.localization.pnp import _quat_to_rotmat_np
+    dot = abs(float(np.dot(a["qvec"], b["qvec"])))
+    ang = 2 * np.arccos(min(dot, 1.0))
+    C = -_quat_to_rotmat_np(b["qvec"]).T @ b["tvec"]
+    scale = max(np.linalg.norm(b["tvec"]),
+                float(np.median(np.linalg.norm(X - C, axis=1))))
+    return ang, float(np.linalg.norm(a["tvec"] - b["tvec"]) / scale)
+
+
+def unexplained(np, a, b, q, max_error_px=12.0):
+    """How many of result ``b``'s inliers the pose of result ``a`` leaves
+    above the inlier threshold."""
+    from pixsfm_tpu_torch.localization.pnp import _reproj_errors
+    err = _reproj_errors(q["camera"], a["qvec"], a["tvec"], q["points3D"],
+                         q["points2D"])
+    return int((b["inliers"] & ~(err < max_error_px)).sum())
+
+
+def ring_scene(np, n_views=12, n_points=300, W=1024, H=768, seed=42):
+    """The ring of ``tests/test_mapper_scale.py`` at ``n_views`` views and
+    ``n_points`` points: SIMPLE_RADIAL f = 1000, k = 0.02, keypoints with
+    N(0, 0.3 px) noise, exhaustive matches of score 1. Returns (graph,
+    keypoints, {name: blank image} for the image sizes)."""
+    from pixsfm_tpu_torch.base.graph import Graph
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-1, 1, (n_points, 3))
+    xyz[:, 2] *= 0.6
+    names = [f"im{i:02d}.png" for i in range(n_views)]
+    keypoints, kp_of = {}, {}
+    for i, a in enumerate(np.linspace(0, 2 * np.pi, n_views, endpoint=False)):
+        c = np.array([3.5 * np.cos(a), 0.5 * np.sin(2 * a), 3.5 * np.sin(a)])
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0, 1.0, 0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        xc = (xyz - c) @ R.T
+        uv = xc[:, :2] / xc[:, 2:]
+        xy = 1000.0 * uv * (1 + 0.02 * (uv ** 2).sum(1))[:, None] \
+            + [W / 2, H / 2]
+        vis = (xc[:, 2] > 0.5) & (xy > 10).all(1) & (xy < [W - 10, H - 10]
+                                                      ).all(1)
+        idx = np.nonzero(vis)[0]
+        keypoints[names[i]] = xy[idx] + rng.normal(0, 0.3, (len(idx), 2))
+        kp_of[names[i]] = {int(p): j for j, p in enumerate(idx)}
+    graph = Graph()
+    for a in range(n_views):
+        for b in range(a + 1, n_views):
+            na, nb = names[a], names[b]
+            shared = sorted(set(kp_of[na]) & set(kp_of[nb]))
+            if len(shared) >= 30:
+                m = np.asarray([[kp_of[na][p], kp_of[nb][p]] for p in shared])
+                graph.register_matches(na, nb, m, np.ones(len(m)))
+    sizes = {n: np.zeros((H, W, 3), np.uint8) for n in names}
+    return graph, keypoints, sizes
+
+
+def aligned_errors(np, rec, ref, ids=None):
+    """Rotation errors (degrees) and camera-centre errors (fractions of the
+    extent of ``ref``'s centres) of ``rec``'s images ``ids`` after the
+    similarity (Umeyama) that maps their centres onto ``ref``'s."""
+    ids = sorted(ids if ids is not None else
+                 (i for i, im in rec.images.items() if im.registered))
+    C = [np.stack([r.images[i].projection_center() for i in ids])
+         for r in (rec, ref)]
+    ma, mb = C[0].mean(0), C[1].mean(0)
+    U, S, Vt = np.linalg.svd((C[1] - mb).T @ (C[0] - ma) / len(ids))
+    D = np.eye(3)
+    D[2, 2] = np.sign(np.linalg.det(U @ Vt))
+    R = U @ D @ Vt
+    s = np.trace(np.diag(S) @ D) / ((C[0] - ma) ** 2).sum(1).mean()
+    t = mb - s * R @ ma
+    ext = np.linalg.norm(C[1] - mb, axis=1).max()
+    rot = [np.degrees(np.arccos(np.clip((np.trace(
+        ref.images[i].rotation_matrix()
+        @ (rec.images[i].rotation_matrix() @ R.T).T) - 1) / 2, -1, 1)))
+        for i in ids]
+    cen = np.linalg.norm((s * C[0] @ R.T + t) - C[1], axis=1) / ext
+    return np.asarray(rot), cen
+
+
+FOLD_SLOPE = 0.5
+
+
+def make_fold_scene(torch, np, seed, n_views, n_points, W, H, device,
+                    min_track=3, max_track=8, margin=24, noise_px=0.5):
+    """A non-planar scene: the valley z = -FOLD_SLOPE |x| (two planes meeting
+    at x = 0), textured by 3-D position (8 plane waves of 20-100 cycles per
+    unit), seen by ``n_views`` SIMPLE_RADIAL cameras of focal W (1.8-2.4
+    units away on a ring, tilted 10-35 degrees). The views are ray-cast on
+    ``device``; each point's track is a random subset of ``min_track``-
+    ``max_track`` of the views that see it unoccluded (``margin`` px inside
+    the image), its keypoints the true projections plus N(0, ``noise_px``).
+    Returns ({name: [H, W, 3] uint8}, the true reconstruction, whose images
+    hold the keypoints)."""
+    from pixsfm_tpu_torch.base.cameras import Camera
+    from pixsfm_tpu_torch.base.geometry import rotmat_to_quat_np
+    from pixsfm_tpu_torch.base.projection import project_np
+    from pixsfm_tpu_torch.sfm.model import Image, Point3D, Reconstruction
+    rng = np.random.default_rng(seed)
+    f = float(W)
+    cam = Camera(1, "SIMPLE_RADIAL", W, H, [f, W / 2, H / 2, 0.0])
+    poses = []
+    for v in range(n_views):
+        ang = 2 * np.pi * v / n_views + rng.uniform(-0.2, 0.2)
+        tilt = rng.uniform(0.17, 0.61)
+        target = np.array([rng.uniform(-0.3, 0.3), rng.uniform(-0.3, 0.3),
+                           -0.2])
+        eye = target + rng.uniform(1.8, 2.4) * np.array(
+            [np.sin(tilt) * np.cos(ang), np.sin(tilt) * np.sin(ang),
+             np.cos(tilt)])
+        R = _look_at(np, eye, target)
+        poses.append((R, -R @ eye))
+
+    n_waves = 8
+    kdir = rng.normal(0, 1, (n_waves, 3))
+    kvec = kdir / np.linalg.norm(kdir, axis=1, keepdims=True) \
+        * rng.uniform(20, 100, (n_waves, 1))
+    phase = rng.uniform(0, 2 * np.pi, n_waves)
+    mix = rng.normal(0, 1, (n_waves, 3))
+    mix *= 55.0 / np.sqrt((mix ** 2).sum(0))
+    dev = torch.device(device)
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float64),
+                            torch.arange(W, device=dev, dtype=torch.float64),
+                            indexing="ij")
+    d_cam = torch.stack([(xs + 0.5 - W / 2) / f, (ys + 0.5 - H / 2) / f,
+                         torch.ones_like(xs)], -1)
+    kv = torch.as_tensor(kvec, device=dev)
+    images = {}
+    for v, (R, t) in enumerate(poses):
+        d = d_cam @ torch.as_tensor(R, device=dev)     # world rays R^T d_cam
+        C = torch.as_tensor(-R.T @ t, device=dev)
+        best = torch.full((H, W), float("inf"), dtype=torch.float64,
+                          device=dev)
+        P = torch.zeros((H, W, 3), dtype=torch.float64, device=dev)
+        for sgn in (-1.0, 1.0):                 # planes z + slope sgn x = 0
+            n = torch.tensor([FOLD_SLOPE * sgn, 0.0, 1.0], dtype=torch.float64,
+                             device=dev)
+            s = -(C @ n) / (d @ n)
+            p = C + s[..., None] * d
+            ok = (s > 0) & (sgn * p[..., 0] >= 0) & (s < best)
+            best = torch.where(ok, s, best)
+            P = torch.where(ok[..., None], p, P)
+        img = torch.full((H, W, 3), 127.5, dtype=torch.float64, device=dev)
+        for k in range(n_waves):
+            wave = torch.sin(2 * np.pi * (P @ kv[k]) + phase[k])
+            img += wave[..., None] * torch.as_tensor(mix[k], device=dev)
+        images[f"view{v:03d}.png"] = img.clamp(0, 255).to(torch.uint8) \
+            .cpu().numpy()
+
+    n_cand = 3 * n_points
+    x = rng.uniform(-0.8, 0.8, n_cand)
+    P3 = np.stack([x, rng.uniform(-0.8, 0.8, n_cand),
+                   -FOLD_SLOPE * np.abs(x)], 1)
+    vis = np.zeros((n_cand, n_views), bool)
+    proj = np.zeros((n_cand, n_views, 2))
+    for v, (R, t) in enumerate(poses):
+        xy, z = project_np(cam, rotmat_to_quat_np(R), t, P3)
+        # occluded when the segment camera -> point meets the other plane
+        C = -R.T @ t
+        seg = P3 - C
+        sgn = -np.sign(P3[:, 0])
+        n = np.stack([FOLD_SLOPE * sgn, np.zeros(n_cand), np.ones(n_cand)], 1)
+        den = (seg * n).sum(1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            s = -(n @ C) / den
+        hit = C + s[:, None] * seg
+        occl = (s > 0) & (s < 1 - 1e-9) & (sgn * hit[:, 0] >= 0)
+        proj[:, v] = xy
+        vis[:, v] = (z > 0) & ~occl & (xy[:, 0] >= margin) \
+            & (xy[:, 0] < W - margin) & (xy[:, 1] >= margin) \
+            & (xy[:, 1] < H - margin)
+    keep = np.nonzero(vis.sum(1) >= min_track)[0][:n_points]
+    if len(keep) < n_points:
+        raise SystemExit(f"fold scene: only {len(keep)} points seen by "
+                         f"{min_track} views")
+    P3, vis, proj = P3[keep], vis[keep], proj[keep]
+    L = np.minimum(rng.integers(min_track, max_track + 1, n_points),
+                   vis.sum(1))
+    keys = np.where(vis, rng.random(vis.shape), np.inf)
+    chosen = np.argsort(keys, axis=1)
+    in_track = np.zeros_like(vis)
+    rows = np.repeat(np.arange(n_points), L)
+    in_track[rows, chosen[rows, np.concatenate([np.arange(k) for k in L])]] \
+        = True
+    truth = Reconstruction()
+    truth.add_camera(cam)
+    tracks = [[] for _ in range(n_points)]
+    for v, (R, t) in enumerate(poses):
+        pts = np.nonzero(in_track[:, v])[0]
+        xy = proj[pts, v] + rng.normal(0, noise_px, (len(pts), 2))
+        for j, p in enumerate(pts):
+            tracks[p].append((v + 1, j))
+        truth.add_image(Image(v + 1, f"view{v:03d}.png", 1,
+                              rotmat_to_quat_np(R), t, xy, pts))
+    for p in range(n_points):
+        truth.add_point3D(Point3D(p, P3[p], track=tracks[p]))
+    return images, truth
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1367,7 +1658,7 @@ def main() -> int:
           f"X(cpu)| = {dlt_diff:.2e} (scene units)")
     if not dlt_diff <= 1e-4:
         raise SystemExit("the batched DLT disagrees between cuda and cpu")
-    del views_t, rec_raw, rec_t, A_t
+    del rec_raw, rec_t, A_t
     torch.cuda.empty_cache()
     # K1 at the triangulation path's BA shape: one chunk of 8192
     # observations over one bf16 patch per observation
@@ -1434,13 +1725,287 @@ def main() -> int:
     if not diff_db <= DB_KP_ATOL or min(launches_db.values()) <= 0:
         raise SystemExit("the database keypoint adjuster disagrees with "
                          "run_ka")
+
+    # -- phase 14: PnP on the card against the CPU -----------------------------
+    from pixsfm_tpu_torch.localization import (absolute_pose_estimation,
+                                               absolute_pose_estimation_batch)
+    queries = pnp_queries(np, seed=14, n_queries=PNP_QUERIES)
+    sizes_q = [len(q["points2D"]) for q in queries]
+    for polish in (False, True):
+        t0 = time.perf_counter()
+        o_dev = absolute_pose_estimation_batch(queries, polish=polish,
+                                               device="cuda")
+        torch.cuda.synchronize()
+        w_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        o_cpu = absolute_pose_estimation_batch(queries, polish=polish,
+                                               device="cpu")
+        w_cpu = time.perf_counter() - t0
+        tol = PNP_POLISHED_TOL if polish else PNP_UNPOLISHED_TOL
+        rots, trans = [], []
+        worst_n = worst_c = 0
+        for a, b, q in zip(o_dev, o_cpu, queries):
+            if a["success"] != b["success"]:
+                raise SystemExit("PnP success differs between cuda and cpu")
+            if not b["success"]:
+                continue
+            ang, dt = pose_agreement(np, a, b, q["points3D"])
+            rots.append(ang)
+            trans.append(dt)
+            worst_n = max(worst_n, abs(a["num_inliers"] - b["num_inliers"]))
+            worst_c = max(worst_c, unexplained(np, a, b, q),
+                          unexplained(np, b, a, q))
+        rots, trans = np.asarray(rots), np.asarray(trans)
+        n_ok = len(rots)
+        print(f"phase 14: PnP of {len(queries)} queries ({min(sizes_q)}-"
+              f"{max(sizes_q)} correspondences), polish={polish}: "
+              f"{n_ok} succeed; cuda {w_dev:.2f} s, cpu {w_cpu:.2f} s; "
+              f"largest |inliers(cuda) - inliers(cpu)| {worst_n}, largest "
+              f"count of one device's inliers the other's pose leaves out "
+              f"{worst_c}; rotation median {np.median(rots):.2e} / largest "
+              f"{rots.max():.2e} rad, translation median "
+              f"{np.median(trans):.2e} / largest {trans.max():.2e} relative; "
+              f"{int((rots <= 1e-6).sum())} of {n_ok} within 1e-6 rad "
+              f"(limits 1, 1, {tol:g}, {tol:g})")
+        if not (worst_n <= 1 and worst_c <= 1 and rots.max() <= tol
+                and trans.max() <= tol):
+            raise SystemExit(f"PnP disagrees between cuda and cpu "
+                             f"(polish={polish})")
+    # one stage-1 program (P3P, 256 samples) and one stage-2 program (the
+    # full families, 512 samples) on one query of 500 correspondences, each
+    # timed and its launches counted under the profiler
+    from pixsfm_tpu_torch.localization import pnp
+    q = pnp_queries(np, seed=140, n_queries=1, n=500)[0]
+    xy_q = np.asarray(q["points2D"], np.float64)
+    group = {(q["camera"].model, 512): [(0, xy_q, q["points3D"],
+                                         q["camera"])]}
+    pnp_calls = {}
+    for label, H, fam in (("stage 1", 256, "p3p"), ("stage 2", 512, "full")):
+        def one(H=H, fam=fam):
+            return pnp._run_pnp_groups(group, H, 12.0,
+                                       np.random.default_rng(0), "cuda", fam)
+        one()
+        _, t_call, busy_call, kern_call, _ = profile_stage(torch, one)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            one()
+        torch.cuda.synchronize()
+        wall_call = (time.perf_counter() - t0) / 3
+        n_launch = sum(c for _, c, _ in kern_call)
+        pnp_calls[label] = dict(wall_s=wall_call, launches=n_launch,
+                                device_busy_s=busy_call)
+        print(f"phase 14: one {label} PnP program ({fam}, {H} samples, "
+              f"{len(xy_q)} correspondences): {wall_call * 1e3:.1f} ms wall, "
+              f"{n_launch} kernel launches, {busy_call * 1e3:.1f} ms device "
+              f"busy (idle share {1 - busy_call / t_call:.2f} under the "
+              f"profiler)")
+
+    # -- phase 15: the incremental mapper on the card against the CPU ---------
+    from pixsfm_tpu_torch.sfm.mapper import incremental_mapping
+    graph_r, kps_r, sizes_r = ring_scene(np, n_views=12, n_points=300)
+    maps = {}
+    for device in ("cuda", "cpu"):
+        st = {}
+        t0 = time.perf_counter()
+        rec_m = incremental_mapping(graph_r, {k: v.copy() for k, v in
+                                              kps_r.items()}, sizes_r,
+                                    device=device, stats=st)
+        maps[device] = (rec_m, st, time.perf_counter() - t0)
+    (r_d, s_d, w_d), (r_c, s_c, w_c) = maps["cuda"], maps["cpu"]
+    reg_d = {i for i, im in r_d.images.items() if im.registered}
+    reg_c = {i for i, im in r_c.images.items() if im.registered}
+    init_d = s_d["init_pairs"][s_d["best_attempt"]]
+    init_c = s_c["init_pairs"][s_c["best_attempt"]]
+    rot_m, cen_m = aligned_errors(np, r_d, r_c, reg_c & reg_d)
+    n_pd, n_pc = len(r_d.points3D), len(r_c.points3D)
+    print(f"phase 15: mapper on a ring of {len(kps_r)} views / 300 points: "
+          f"cuda {w_d:.2f} s ({s_d['attempts']} attempts, "
+          f"{s_d['registrations']} registrations, {s_d['pnp_calls']} PnP "
+          f"calls {s_d['pnp_time']:.2f} s, {s_d['ba_calls']} BA calls "
+          f"{s_d['ba_time']:.2f} s), cpu {w_c:.2f} s ({s_c['attempts']} "
+          f"attempts); registered {len(reg_d)} / {len(reg_c)}, initial pair "
+          f"{init_d} / {init_c}, points {n_pd} / {n_pc}; after alignment "
+          f"rotations within {rot_m.max():.2e} deg, centres within "
+          f"{cen_m.max():.2e} of the extent (limits 0.05 deg, 1e-3)")
+    if not (reg_d == reg_c and init_d == init_c
+            and abs(n_pd - n_pc) <= 0.02 * n_pc
+            and rot_m.max() < 0.05 and cen_m.max() < 1e-3):
+        raise SystemExit("the mapper disagrees between cuda and cpu")
+
+    # -- phase 16: the reconstruction main path at full width -----------------
+    t0 = time.perf_counter()
+    views_r, truth_r = make_fold_scene(
+        torch, np, seed=16, n_views=24, n_points=RECON_POINTS, W=1600,
+        H=1200, device="cuda", noise_px=RECON_NOISE_PX)
+    kps_rc, matches_rc, scores_rc, _ = triangulation_inputs(np, truth_r)
+    print(f"phase 16: fold scene of {len(views_r)} views, {RECON_POINTS} "
+          f"points, {sum(len(v) for v in kps_rc.values())} keypoints, "
+          f"{len(matches_rc)} pairs, keypoint noise {RECON_NOISE_PX} px, "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    sfm_rc = PixSfM(tri_conf, device="cuda")
+    torch.cuda.synchronize()
+    interpolate_cuda.launches = 0
+    cg_cuda.launches = 0
+    for name in schur_cuda.launches:
+        schur_cuda.launches[name] = 0
+    t0 = time.perf_counter()
+    rec_r, out_r = sfm_rc._reconstruction(
+        tmp / "reconstruction", views_r,
+        {k: v.copy() for k, v in kps_rc.items()}, matches_rc, scores_rc)
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    launches_rc = {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches,
+                   "K3a": schur_cuda.launches["matvec"],
+                   "K3b": schur_cuda.launches["rhs"],
+                   "K3c": schur_cuda.launches["backsub"]}
+    oka_r = {k: v[0] for k, v in out_r["KA"].items()}
+    oba_r = {k: v[0] for k, v in out_r["BA"].items()}
+    osfm = out_r["SfM"]
+    reg_r = [i for i, im in rec_r.images.items() if im.registered]
+    rot_r, cen_r = aligned_errors(np, rec_r, truth_r, reg_r)
+    n_obs_r = sum(p.track_length for p in rec_r.points3D.values())
+    t_rest = wall_r - oka_r["time"] - osfm["time"] \
+        - oba_r["references_time"] - oba_r["time"]
+    print(f"phase 16: reconstruction path {wall_r:.2f} s (graph, extraction "
+          f"and packing {t_rest:.2f} s, KA {oka_r['time']:.2f} s, mapper "
+          f"{osfm['time']:.2f} s, references {oba_r['references_time']:.2f} "
+          f"s, BA solve {oba_r['time']:.2f} s); KA {oka_r['iterations']} LM "
+          f"iterations, cost {oka_r['initial_cost']:.4f} -> "
+          f"{oka_r['final_cost']:.4f}; mapper: {osfm['attempts']} attempts "
+          f"(winner {osfm['best_attempt']}), {osfm['registrations']} "
+          f"registrations, {osfm['pnp_calls']} PnP calls "
+          f"{osfm['pnp_time']:.2f} s, {osfm['ba_calls']} geometric-BA calls "
+          f"{osfm['ba_time']:.2f} s, {osfm['triangulations']} "
+          f"triangulations {osfm['triangulation_time']:.2f} s; "
+          f"{len(reg_r)} / {len(views_r)} views registered, "
+          f"{len(rec_r.points3D)} points, {n_obs_r} observations; BA "
+          f"regime {oba_r['linear_solver']}, {oba_r['iterations']} LM / "
+          f"{oba_r['cg_iterations']} CG iterations, cost "
+          f"{oba_r['initial_cost']:.4f} -> {oba_r['final_cost']:.4f}; after "
+          f"a similarity to the truth rotations within {rot_r.max():.3f} "
+          f"deg, centres within {cen_r.max():.2e} of the extent (limits "
+          f"0.5 deg, 1e-2); launches {launches_rc}")
+    if len(reg_r) < len(views_r) - 1:
+        raise SystemExit(f"only {len(reg_r)} of {len(views_r)} views "
+                         f"registered")
+    if not (rot_r.max() < 0.5 and cen_r.max() < 1e-2):
+        raise SystemExit("the reconstruction is off the truth")
+    if not oba_r["final_cost"] < oba_r["initial_cost"]:
+        raise SystemExit("BA cost did not fall on the reconstruction path")
+    if min(launches_rc["K1"], launches_rc["K2"]) <= 0:
+        raise SystemExit(f"K1 or K2 did not launch on the reconstruction "
+                         f"path: {launches_rc}")
+    # where the time goes, under the profiler (not counted): the KA and the
+    # final BA again (BA capped at BA_PROFILE_ITERATIONS), and one call of
+    # each of the mapper's device stages on the final map (PnP of a view,
+    # the retriangulation, a geometric BA). The whole path under the
+    # profiler is ~2.4 million launches, whose tables take ~20 minutes to
+    # build; the mapper's device-busy time is estimated from the single
+    # calls times their counts (calls on the final map are the largest, so
+    # the estimate is an upper bound on busy time).
+    from pixsfm_tpu_torch.bundle_adjustment import GeometricBundleAdjuster
+    from pixsfm_tpu_torch.sfm.mapper import mapper_ba_conf
+    from pixsfm_tpu_torch.sfm.triangulation import triangulate_tracks
+    sfm_rc_prof = PixSfM({"mapping": {"BA": {"optimizer": {"solver": {
+        "max_num_iterations": BA_PROFILE_ITERATIONS}}}}}, device="cuda")
+    graph_rc = build_matching_graph(matches_rc, scores_rc)
+    kps_p = {k: v.copy() for k, v in kps_rc.items()}
+    fm_rc = features_from_graph(sfm_rc_prof.extractor, views_r, graph_rc,
+                                kps_p)
+    prof_rc = {}
+    prof_rc["KA"] = profile_stage(torch, lambda: sfm_rc_prof.keypoint_adjuster
+                                  .refine_multilevel(kps_p, fm_rc, graph_rc))
+    del fm_rc
+    rec_p = rec_r.copy()
+    prof_rc["references + BA"] = profile_stage(
+        torch, lambda: sfm_rc_prof.run_ba(rec_p, views_r))
+    im0 = rec_r.images[reg_r[len(reg_r) // 2]]
+    sel = np.nonzero(im0.point3D_ids >= 0)[0]
+    X0 = np.stack([rec_r.points3D[int(p)].xyz for p in im0.point3D_ids[sel]])
+    cam0 = rec_r.cameras[im0.camera_id]
+    prof_rc["PnP"] = profile_stage(torch, lambda: absolute_pose_estimation(
+        rec_r.images[im0.image_id].xys[sel], X0, cam0, polish=False,
+        device="cuda"))
+    rec_t2 = rec_r.copy()
+    rec_t2.points3D.clear()
+    for im in rec_t2.images.values():
+        im.point3D_ids[:] = -1
+    labels_rc = compute_track_labels(graph_rc)
+    prof_rc["triangulation"] = profile_stage(torch, lambda: triangulate_tracks(
+        rec_t2, graph_rc, {im.name: im.xys for im in rec_r.images.values()},
+        track_labels=labels_rc, device="cuda"))
+    ba_geo = GeometricBundleAdjuster(mapper_ba_conf(False), device="cuda")
+    rec_g = rec_r.copy()
+    prof_rc["geometric BA"] = profile_stage(torch,
+                                            lambda: ba_geo.refine(rec_g))
+    kern_rcp = {}
+    for stage, (_, t_p, busy_p, kern_p, tab_p) in prof_rc.items():
+        n_p = sum(c for _, c, _ in kern_p)
+        print(f"phase 16 (under the profiler): {stage} {t_p:.3f} s wall, "
+              f"{busy_p:.3f} s device busy (idle share "
+              f"{1 - busy_p / t_p:.2f}), {n_p} kernel launches")
+        for name, calls, dev_ms in kern_p:
+            c0, ms0 = kern_rcp.get(name, (0, 0.0))
+            kern_rcp[name] = (c0 + calls, ms0 + dev_ms)
+    busy_map = sum(prof_rc[stage][2] * osfm[key] for stage, key in (
+        ("PnP", "pnp_calls"), ("triangulation", "triangulations"),
+        ("geometric BA", "ba_calls")))
+    print(f"phase 16: the mapper's device busy time, estimated from the "
+          f"single calls times their counts: {busy_map:.2f} s of "
+          f"{osfm['time']:.2f} s (idle share at least "
+          f"{1 - busy_map / osfm['time']:.2f})")
+    kern_rcp = sorted(((n, c, ms) for n, (c, ms) in kern_rcp.items()),
+                      key=lambda k: -k[2])
+    for name, calls, dev_ms in kern_rcp[:12]:
+        print(f"  reconstruction path: {dev_ms:9.3f} ms in {calls:7d} "
+              f"launches  {name[:90]}")
+    in_situ_rc = _in_situ(kern_rcp, {"K1": "interp_kernel",
+                                     "K2": "pcg_kernel"}, launches_rc)
+    print(f"phase 16: in-situ device ms per launch {in_situ_rc}")
+    if args.profile_out:
+        with open(Path(args.profile_out) / "chip_smoke_profile.txt",
+                  "a") as fh:
+            for stage, res in prof_rc.items():
+                fh.write(f"\n\n== reconstruction path: {stage} ==\n"
+                         f"{res[4]}\n")
+    n_obs_rc = n_obs_r
+    del views_r, rec_r, sfm_rc, sfm_rc_prof, prof_rc, rec_p, rec_g, rec_t2
+    torch.cuda.empty_cache()
+    k1_rc = check_k1(torch, interpolate_cuda, n_patches=n_obs_rc,
+                     n_queries=8192, dtypes=(torch.bfloat16,))
+
+    # -- phase 17: dsift on the triangulation path -----------------------------
+    from pixsfm_tpu_torch.config import load_config
+    sfm_ds = PixSfM(load_config("dsift"), device="cuda")
+    t0 = time.perf_counter()
+    rec_ds, out_ds = sfm_ds._triangulation(
+        tmp / "triangulated_dsift", reference, views_t,
+        {k: v.copy() for k, v in kps_t.items()}, matches_t, scores_t)
+    torch.cuda.synchronize()
+    wall_ds = time.perf_counter() - t0
+    err_ds = triangulated_error(np, rec_ds, truth_t)
+    oka_ds = {k: v[0] for k, v in out_ds["KA"].items()}
+    oba_ds = {k: v[0] for k, v in out_ds["BA"].items()}
+    print(f"phase 17: the triangulation path with configs/dsift.yaml "
+          f"{wall_ds:.2f} s (KA {oka_ds['time']:.2f} s, {oka_ds['iterations']} "
+          f"LM iterations, cost {oka_ds['initial_cost']:.4f} -> "
+          f"{oka_ds['final_cost']:.4f}; BA {oba_ds['iterations']} LM "
+          f"iterations, cost {oba_ds['initial_cost']:.4f} -> "
+          f"{oba_ds['final_cost']:.4f}); {len(rec_ds.points3D)} points; "
+          f"point error to truth {err_raw:.5f} (unrefined keypoints) -> "
+          f"{err_ds:.5f} with dsift, -> {err_tri:.5f} with S2DNet (phase 11)")
+    if not all(np.isfinite(p.xyz).all() for p in rec_ds.points3D.values()):
+        raise SystemExit("non-finite points on the dsift triangulation path")
+    if not (oka_ds["final_cost"] < oka_ds["initial_cost"]
+            and oba_ds["final_cost"] <= oba_ds["initial_cost"]):
+        raise SystemExit("dsift: a cost did not fall")
     tmp_dir.cleanup()
 
     # -- report ----------------------------------------------------------------
     # K1 runs on both paths at different shapes: one entry per path, each
     # with that path's launches and the figures measured at its shape
     paths = {"KA": launches, "BA": launches_ba,
-             "triangulation": launches_tri}
+             "triangulation": launches_tri, "reconstruction": launches_rc}
     both = {k: sum(n.get(k, 0) for n in paths.values())
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
     print(f"launches on the main paths: {paths}")
@@ -1461,6 +2026,12 @@ def main() -> int:
              replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
              launches=launches_tri["K1"], library_ms=None,
              in_situ_ms=in_situ_tri["K1"], **k1_tri),
+        dict(name="bicubic_window_interp_l2", path="reconstruction",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_rc["K1"], library_ms=None,
+             in_situ_ms=in_situ_rc["K1"], **k1_rc),
         dict(name="batched_jacobi_pcg", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/pcg.cu",
              replaces="pixsfm_tpu/ops/cg_pallas.py:88",

@@ -14,8 +14,8 @@ import torch
 from .cameras import CAMERA_MODELS, Camera, img_from_cam, img_from_cam_with_jac
 from .geometry import apply_pose, quat_to_rotmat_np
 
-__all__ = ["project_with_jac", "world_to_pixel", "project_np",
-           "reproj_errors_np"]
+__all__ = ["project_with_jac", "world_to_pixel", "calculate_depth",
+           "project_np", "reproj_errors_np"]
 
 
 def project_with_jac(model: str, cam_params, qvec, tvec, X, z_eps=1e-8):
@@ -68,6 +68,11 @@ def world_to_pixel(model: str, cam_params, qvec, tvec, X):
     """Project world point(s) to pixel coords (projection.h:60-75)."""
     x_cam = apply_pose(qvec, tvec, X)
     return img_from_cam(model, cam_params, x_cam[..., :2] / x_cam[..., 2:3])
+
+
+def calculate_depth(qvec, tvec, X):
+    """Depth of world point(s) in the camera frame (projection.h:20-38)."""
+    return apply_pose(qvec, tvec, X)[..., 2]
 
 
 def project_np(camera: Camera, qvec, tvec, X):

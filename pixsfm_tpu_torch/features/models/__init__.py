@@ -1,17 +1,21 @@
 """Feature CNN registry (port of ``pixsfm_tpu/features/models/__init__.py``).
 
-Only S2DNet, the default model, is ported; the other models come with a
-later slice of the port.
+S2DNet (the default model), dense SIFT and the identity ``image`` model are
+ported; the other models come with a later slice of the port.
 """
 
 from .base_model import BaseModel  # noqa: F401
+from .dsift import DSIFT
+from .image import ImageModel
 from .s2dnet import S2DNet
 
 MODELS = {
     "s2dnet": S2DNet,
+    "dsift": DSIFT,
+    "image": ImageModel,
 }
 
-_LATER = ("vggnet", "dsift", "image", "superpoint", "r2d2", "d2net")
+_LATER = ("vggnet", "superpoint", "r2d2", "d2net")
 
 
 def get_model(name: str):

@@ -7,6 +7,7 @@ expose ``output_dims`` / ``scales`` per returned level.
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional
 
 import numpy as np
@@ -38,7 +39,9 @@ class BaseModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return next(self.parameters()).device
+        """The device of the model's weights, or of its buffers when it has
+        no weights (dense SIFT, the identity model)."""
+        return next(itertools.chain(self.parameters(), self.buffers())).device
 
     # -- to be implemented --------------------------------------------------
     def _init(self, conf, seed: int):

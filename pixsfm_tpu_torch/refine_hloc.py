@@ -7,10 +7,13 @@ Port of ``PixSfM`` of ``pixsfm_tpu/refine_hloc.py``, on top of
   coordinate shift;
 - ``triangulation``: KA -> triangulation with the known poses of a
   reference model -> BA (the reference shells out to hloc/COLMAP; the
-  built-in triangulator of ``sfm/triangulation.py`` is used). Its hloc-file
-  head reads pairs, keypoints and matches; the body, ``_triangulation``,
-  takes them in memory with the reference model, so a machine without
-  ``h5py`` can drive the same path on decoded arrays.
+  built-in triangulator of ``sfm/triangulation.py`` is used);
+- ``reconstruction`` (``run``): KA -> incremental SfM with unknown
+  intrinsics (the built-in mapper of ``sfm/mapper.py``) -> BA.
+
+Each flow's hloc-file head reads pairs, keypoints and matches; its body
+(``_triangulation``, ``_reconstruction``) takes them in memory, so a
+machine without ``h5py`` can drive the same path on decoded arrays.
 
 The command lines (``--device cpu`` runs the plain PyTorch versions)::
 
@@ -21,12 +24,12 @@ The command lines (``--device cpu`` runs the plain PyTorch versions)::
         --image_dir IMAGES --reference_model_path REF --features_path F.h5 \\
         --pairs_path PAIRS.txt --matches_path M.h5 --output_dir OUT \\
         [--device cpu] [a.b=c ...]
+    python -m pixsfm_tpu_torch.refine_hloc reconstructor \\
+        --image_dir IMAGES --features_path F.h5 --pairs_path PAIRS.txt \\
+        --matches_path M.h5 --output_dir OUT [--device cpu] [a.b=c ...]
     python -m pixsfm_tpu_torch.refine_hloc bundle_adjuster \\
         --image_dir IMAGES --input_path MODEL --output_path OUT \\
         [--device cpu] [a.b=c ...]
-
-``reconstruction`` (KA -> incremental SfM -> BA) and the ``reconstructor``
-command need the incremental mapper, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -120,14 +123,49 @@ class PixSfM(PixSfMBase):
         reconstruction.write(output_dir)
         return reconstruction, outputs
 
-    def reconstruction(self, *args, **kwargs):
-        """KA -> incremental SfM -> BA: not ported yet."""
-        raise NotImplementedError(
-            "PixSfM.reconstruction needs the incremental mapper "
-            "(sfm/two_view.py, sfm/mapper.py), which is not ported yet; see "
-            "ROADMAP.md section 1, 'The incremental mapper'")
+    def reconstruction(self, output_dir, image_dir, pairs_path,
+                       features_path, matches_path, cache_path=None,
+                       camera_model: str = "SIMPLE_RADIAL",
+                       cameras=None) -> Tuple[Reconstruction, Dict]:
+        """KA -> incremental SfM -> BA (reference: refine_hloc.py:26-70)."""
+        output_dir = Path(output_dir)
+        output_dir.mkdir(parents=True, exist_ok=True)
+        keypoints, matches, scores = _read_hloc(pairs_path, features_path,
+                                                matches_path)
+        return self._reconstruction(output_dir, image_dir, keypoints,
+                                    matches, scores, cache_path=cache_path,
+                                    camera_model=camera_model,
+                                    cameras=cameras)
 
     run = reconstruction
+
+    def _reconstruction(self, output_dir, image_dir,
+                        keypoints: Dict[str, np.ndarray], matches, scores,
+                        cache_path=None, camera_model: str = "SIMPLE_RADIAL",
+                        cameras=None) -> Tuple[Reconstruction, Dict]:
+        """The body of :meth:`reconstruction` on in-memory inputs, as
+        :meth:`_triangulation`. Returns the refined reconstruction, also
+        written to ``output_dir``, and ``{"KA", "SfM", "BA"}`` summaries;
+        ``SfM`` holds the mapper's counts and wall time (``time``)."""
+        from .sfm.mapper import incremental_mapping
+
+        graph = build_matching_graph(matches, scores)
+        outputs: Dict = {}
+        keypoints, outputs["KA"] = self.run_ka(
+            keypoints, image_dir, graph=graph, cache_path=cache_path)
+        t0 = time.time()
+        stats: Dict = {}
+        reconstruction = incremental_mapping(
+            graph, keypoints, image_dir, camera_model=camera_model,
+            cameras=cameras, device=self.device, stats=stats)
+        outputs["SfM"] = {
+            "num_reg_images": reconstruction.num_reg_images,
+            "num_points3D": len(reconstruction.points3D),
+            "time": time.time() - t0, **stats}
+        outputs["BA"] = self.run_ba(reconstruction, image_dir,
+                                    cache_path=cache_path)
+        reconstruction.write(output_dir)
+        return reconstruction, outputs
 
 
 def main(argv=None):

@@ -4,7 +4,10 @@
   corners/scales/index as the JAX package (exact).
 - ``FeatureExtractor._to_fmap`` cuts the same keypoint windows from one
   feature map, L2-normalizes and casts them: float32 storage within 1e-6,
-  bfloat16 storage within one bf16 rounding step (4e-3 at unit norm)."""
+  bfloat16 storage within one bf16 rounding step (4e-3 at unit norm).
+- The weight-free models on a small random image: dense SIFT (RootSIFT on
+  and off, bin sizes 4 and 3) and the identity model (RGB and grayscale)
+  give JAX's maps within 1e-5."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -73,3 +76,23 @@ def test_window_cut_matches_jax(dtype, atol):
     np.testing.assert_array_equal(
         tm.corners, np.stack([jm.get_patch(i).corner for i in ids]))
     np.testing.assert_allclose(tm.scale, jm.get_patch(ids[0]).scale)
+
+
+@pytest.mark.parametrize("model,conf", [
+    ("dsift", {"rootsift": True, "spatial_bin_size": 4}),
+    ("dsift", {"rootsift": False, "spatial_bin_size": 4}),
+    ("dsift", {"rootsift": True, "spatial_bin_size": 3}),
+    ("dsift", {"rootsift": False, "spatial_bin_size": 3}),
+    ("image", {"grayscale": False}),
+    ("image", {"grayscale": True}),
+])
+def test_weight_free_models_match_jax(model, conf):
+    from pixsfm_tpu.features.models import get_model as jget
+    from pixsfm_tpu_torch.features.models import get_model as tget
+    img = np.random.default_rng(2).integers(0, 256, (37, 52, 3)).astype(
+        np.uint8)
+    jm, tm = jget(model)(conf), tget(model)(conf, device="cpu")
+    a = np.asarray(jm(jm.preprocess(img))[0])[0]
+    b = tm(tm.preprocess(img))[0][0].permute(1, 2, 0).numpy()
+    assert b.shape == a.shape == (37, 52, tm.output_dims[0])
+    np.testing.assert_allclose(b, a, atol=1e-5)

@@ -41,7 +41,9 @@ def test_every_module_imports_without_jax():
                  "bundle_adjustment.problem", "base.geometry",
                  "base.cameras", "base.projection", "sfm.model",
                  "sfm.synthetic", "sfm.triangulation", "util.database",
-                 "util.colmap", "refine_colmap", "refine_hloc"):
+                 "util.colmap", "refine_colmap", "refine_hloc",
+                 "localization.pnp", "sfm.two_view", "sfm.mapper",
+                 "features.models.dsift", "features.models.image"):
         assert f"pixsfm_tpu_torch.{name}" in _module_names()
 
 
@@ -83,8 +85,54 @@ def test_cuda_entry_points_raise_without_gpu():
                      "--output_path", "o", "--image_dir", "i"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         triangulate_reconstruction(Reconstruction(), Graph(), {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hloc_main(["reconstructor", "--image_dir", "i", "--features_path",
+                   "f", "--pairs_path", "p", "--matches_path", "m",
+                   "--output_dir", "o"])
+    from pixsfm_tpu_torch.base.cameras import Camera
+    from pixsfm_tpu_torch.localization import absolute_pose_estimation
+    from pixsfm_tpu_torch.sfm.mapper import incremental_mapping
+    cam = Camera(1, "PINHOLE", 64, 48, [50.0, 50.0, 32.0, 24.0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        absolute_pose_estimation(np.zeros((8, 2)), np.ones((8, 3)), cam)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        incremental_mapping(Graph(), {}, ".")
     problems = solver.KAProblems(*[np.zeros((1, 8, 2))] * 15)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solver.solve_ka_problems(problems, np.zeros((1, 16, 16, 8)),
                                  solver.InterpolationConfig(),
                                  solver.RobustLoss(), solver.LMOptions())
+
+
+def test_reconstruction_is_ported():
+    """``PixSfM.reconstruction`` (and ``run``) is the mapper flow, no longer
+    a stub; a device mesh passed to the PnP driver names the roadmap item
+    that will bring it."""
+    import inspect
+
+    from pixsfm_tpu_torch.base.cameras import Camera
+    from pixsfm_tpu_torch.localization import absolute_pose_estimation_batch
+    from pixsfm_tpu_torch.refine_hloc import PixSfM
+    assert PixSfM.run is PixSfM.reconstruction
+    for fn in (PixSfM.reconstruction, PixSfM._reconstruction):
+        assert "NotImplementedError" not in inspect.getsource(fn)
+    cam = Camera(1, "PINHOLE", 64, 48, [50.0, 50.0, 32.0, 24.0])
+    q = dict(points2D=np.zeros((8, 2)), points3D=np.ones((8, 3)), camera=cam)
+    with pytest.raises(NotImplementedError, match="'Sharding'"):
+        absolute_pose_estimation_batch([q], mesh=object(), device="cpu")
+
+
+def test_weight_free_presets_load():
+    """The dsift, norefine and photometric presets load; dsift and norefine
+    build a pipeline on the CPU with their weight-free models."""
+    from pixsfm_tpu_torch.config import load_config
+    from pixsfm_tpu_torch.refine_hloc import PixSfM
+    confs = {n: load_config(n) for n in ("dsift", "norefine", "photometric")}
+    assert confs["dsift"].dense_features.model.name == "dsift"
+    assert confs["photometric"].mapping.BA.strategy == "patch_warp"
+    sfm = PixSfM(confs["dsift"], device="cpu")
+    assert sfm.extractor.model.output_dims == [128]
+    assert sfm.extractor.model.device.type == "cpu"
+    sfm = PixSfM(confs["norefine"], device="cpu")
+    assert sfm.extractor.model.output_dims == [3]
+    assert not sfm.keypoint_adjuster.conf.apply

@@ -434,3 +434,113 @@ def test_triangulate_batch_cuda_matches_cpu(dev):
     x_d = triangulate_batch(A.to(dev)).cpu()
     torch.testing.assert_close(x_d, x_c, atol=1e-4, rtol=0)
     torch.testing.assert_close(x_d, X.float(), atol=1e-3, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# PnP (localization/pnp.py) and dense SIFT: the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _pnp_queries(seed=0):
+    """PnP queries of 30-600 correspondences, general and planar scenes,
+    0-60 % outliers, SIMPLE_RADIAL and PINHOLE cameras (numpy)."""
+    import numpy as np
+
+    from pixsfm_tpu_torch.base.cameras import Camera
+    from pixsfm_tpu_torch.localization.pnp import (_rotmat_to_quat_np,
+                                                   project_np)
+    rng = np.random.default_rng(seed)
+    queries = []
+    for i, (n, out, planar) in enumerate([(30, 0.0, False), (80, 0.3, True),
+                                          (200, 0.6, False), (600, 0.1, True),
+                                          (45, 0.5, False), (300, 0.0, True)]):
+        cam = (Camera(1, "SIMPLE_RADIAL", 1024, 768, [900.0, 512, 384, 0.03])
+               if i % 2 else Camera(1, "PINHOLE", 800, 600,
+                                    [700.0, 720.0, 400, 300]))
+        X = rng.uniform(-2, 2, (n, 3))
+        if planar:
+            X[:, 2] = 0.2 * X[:, 0]
+        a = rng.normal(0, 0.3, 3)
+        K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        th = np.linalg.norm(a)
+        R = np.eye(3) + np.sin(th) / th * K + (1 - np.cos(th)) / th ** 2 * K @ K
+        t = np.array([0.1, -0.2, 7.0])
+        xy, _ = project_np(cam, _rotmat_to_quat_np(R), t, X)
+        xy = xy + rng.normal(0, 0.5, xy.shape)
+        k = int(out * n)
+        xy[:k] = rng.uniform(0, [cam.width, cam.height], (k, 2))
+        queries.append(dict(points2D=xy, points3D=X, camera=cam))
+    return queries
+
+
+@pytest.mark.parametrize("polish", [False, True])
+def test_pnp_batch_cuda_matches_cpu(dev, polish):
+    """``absolute_pose_estimation_batch`` (staged: P3P, then the full
+    program for queries below the bar) on the card against the CPU: the same
+    success, inlier counts within 1, each pose explains all but one of the
+    other's inliers, and rotations / translations within 5e-2 (unpolished)
+    and 1e-2 (polished): a pose is the first of several tied minimal-sample
+    hypotheses, float32 rounding can change which comes first, and the
+    polish's Cauchy scale comes from the pose it starts at (the limits of
+    ``chip_smoke.py`` phase 14)."""
+    import numpy as np
+
+    from pixsfm_tpu_torch.localization import absolute_pose_estimation_batch
+    from pixsfm_tpu_torch.localization.pnp import _reproj_errors
+    queries = _pnp_queries()
+    o_d = absolute_pose_estimation_batch(queries, polish=polish,
+                                         device="cuda")
+    o_c = absolute_pose_estimation_batch(queries, polish=polish, device="cpu")
+    tol = 1e-2 if polish else 5e-2
+    for a, b, q in zip(o_d, o_c, queries):
+        assert a["success"] == b["success"]
+        if not b["success"]:
+            continue
+        assert abs(a["num_inliers"] - b["num_inliers"]) <= 1
+        for x, y in ((a, b), (b, a)):
+            err = _reproj_errors(q["camera"], x["qvec"], x["tvec"],
+                                 q["points3D"], q["points2D"])
+            assert int((y["inliers"] & ~(err < 12.0)).sum()) <= 1
+        dot = abs(float(np.dot(a["qvec"], b["qvec"])))
+        assert 2 * np.arccos(min(dot, 1.0)) <= tol
+        assert np.linalg.norm(a["tvec"] - b["tvec"]) <= tol * max(
+            np.linalg.norm(b["tvec"]), 1.0)
+
+
+def test_minimal_solvers_degenerate_samples_cuda(dev):
+    """P3P, the DLT and the homography on degenerate samples (coincident
+    points, collinear points, points behind the camera) on the card: every
+    hypothesis flagged ok is finite, and coincident samples are never ok."""
+    from pixsfm_tpu_torch.localization import pnp
+    gen = torch.Generator().manual_seed(3)
+    B = 64
+    X = torch.rand((B, 6, 3), generator=gen) * 2 - 1
+    X[..., 2] += 5.0
+    coinc = X.clone()
+    coinc[:, 1] = coinc[:, 0]
+    coinc[:, 2] = coinc[:, 0]
+    lam = torch.rand((B, 6, 1), generator=gen)
+    collin = X[:, :1] + lam * (X[:, 1:2] - X[:, :1])
+    behind = X.clone()
+    behind[..., 2] = -behind[..., 2]
+    for Xs in (coinc, collin, behind):
+        su = Xs[..., :2] / Xs[..., 2:]
+        for solver in (pnp._p3p_batch, pnp._dlt_batch, pnp._homography_batch):
+            R, t, ok = solver(su.to(dev), Xs.to(dev))
+            fin = torch.isfinite(R).all(-1).all(-1) & torch.isfinite(t).all(-1)
+            assert bool((fin | ~ok).all()), solver.__name__
+            if Xs is coinc and solver is pnp._p3p_batch:
+                assert not bool(ok.any())
+
+
+@pytest.mark.parametrize("rootsift,bs", [(True, 4), (False, 3)])
+def test_dsift_cuda_matches_cpu(dev, rootsift, bs):
+    """Dense SIFT on the card (cuDNN depthwise convolutions, TF32 off)
+    against the CPU on a 240x320 image: within 1e-4 (RootSIFT's square root
+    lifts differences of 1e-8 near zero to 1e-4)."""
+    from pixsfm_tpu_torch.features.models.dsift import DSIFT
+    gen = torch.Generator().manual_seed(1)
+    img = torch.rand((1, 3, 240, 320), generator=gen)
+    conf = {"rootsift": rootsift, "spatial_bin_size": bs}
+    a = DSIFT(conf, device="cpu")(img)[0]
+    b = DSIFT(conf, device="cuda")(img.to(dev))[0].cpu()
+    torch.testing.assert_close(b, a, atol=1e-4, rtol=0)

@@ -51,6 +51,18 @@ from pixsfm_tpu_torch.util.database import COLMAPDatabase
 from tests.test_torch_ka import _pipelines, _write_scene
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's side: the flows here run many
+    small ops (the mapper of the ``reconstructor`` command most of all), and
+    among the fast lane's parallel workers more threads only contend for
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # triangulation with known poses
 # ---------------------------------------------------------------------------
@@ -325,7 +337,8 @@ def test_triangulation_hloc_matches_jax(tmp_path):
 def test_triangulator_cli_on_cpu(tmp_path):
     """The ``triangulator`` command of ``refine_hloc`` on the CPU writes a
     refined model of every track (the port's own S2DNet weights); the
-    ``reconstructor`` command names the mapper it still lacks."""
+    ``reconstructor`` command, on the same files, runs the mapper and writes
+    a model too."""
     from pixsfm_tpu_torch.refine_hloc import main as hloc_main
     keypoints, P3, (pairs, feats, matches) = _write_plane_scene(tmp_path)
     common = ["--image_dir", str(tmp_path), "--features_path", str(feats),
@@ -338,6 +351,8 @@ def test_triangulator_cli_on_cpu(tmp_path):
     assert len(rec.points3D) == len(P3)
     assert all(np.isfinite(p.xyz).all() and p.track_length == 4
                for p in rec.points3D.values())
-    with pytest.raises(NotImplementedError, match="incremental mapper"):
-        hloc_main(["reconstructor", "--output_dir", str(tmp_path / "sfm"),
-                   *common])
+    hloc_main(["reconstructor", "--output_dir", str(tmp_path / "sfm"),
+               *common, "mapping.BA.optimizer.solver.max_num_iterations=3"])
+    rec = Reconstruction.read(tmp_path / "sfm")
+    assert rec.num_reg_images >= 2 and len(rec.points3D) > 0
+    assert all(np.isfinite(p.xyz).all() for p in rec.points3D.values())
