@@ -114,6 +114,33 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 17. Phase 11's triangulation path again with ``configs/dsift.yaml`` (dense
    SIFT, no weights): the point error to the truth before and after KA and
    BA beside S2DNet's; costs fall, points stay finite.
+18. Query localization at full width: phase 16's valley seen by 32 ray-cast
+   1600x1200 views; 24 at their true poses form the model (``RECON_POINTS``
+   points, keypoints N(0, 0.5 px)), 8 are held-out queries (keypoints
+   N(0, 1 px)) matched to their ``LOC_PAIRS`` nearest model views, with
+   ``LOC_WRONG`` of the matches pointed at wrong points; the default
+   ``localization`` config (S2DNet, bf16 patches of 16 px, ``nearest``
+   references with ``keep_observations``, QKA and QBA). First
+   ``localize_queries`` over a ``QueryLocalizer`` built from the decoded
+   model views on ``cuda`` and then the serial path of the ``localize``
+   CLI, K1's counter zeroed just before the localizer is built (reference
+   extraction launches K1 too) and read just after, the stages timed:
+   K1 launched, at least 7 of 8 queries localize, each within 0.5 degrees
+   and 1 % of the extent of the truth after QBA, QBA costs do not rise.
+   Then ``localize_batch`` on the same queries (the same successes,
+   inlier counts within 2, poses within phase 14's polished limit; the
+   limits of
+   ``tests/test_localization.py::test_localize_batch_matches_serial``
+   scaled to the scene are printed as a count), two queries on ``cuda``
+   and on ``cpu`` with QBA capped at ``LOC_CPU_QBA_STEPS`` steps, held as
+   phase 14 holds PnP (the same successes, inlier counts within 1, each
+   device's PnP pose explains all but one of the other's inliers, PnP and
+   final poses within ``PNP_POLISHED_TOL`` where both devices kept the f64
+   polish, else ``PNP_UNPOLISHED_TOL``), each stage also from identical
+   inputs (nearest references equal, QKA keypoints within 0.05 px, 100
+   QBA steps within 1e-4), the launches and device-idle share of one QKA
+   and one 10-step QBA call under the profiler, and K1 timed at this
+   path's QKA shape.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA, BA, triangulation), its error against the plain version, its
@@ -129,7 +156,8 @@ design; K3b's ``variant`` and ``onepass_ms``, its earlier design;
 ``edge_max_abs_err`` the largest one over the edge shapes, whose tolerances are
 printed with each case); K1, which every path launches at different shapes, has
 one entry per path (``"path": "KA"`` / ``"BA"`` / ``"triangulation"`` /
-``"reconstruction"``, the last two timed at their path's BA shape) with that
+``"reconstruction"`` / ``"localization"``, the middle two timed at their
+path's BA shape, the last at its QKA shape) with that
 path's launches and the figures at its shape; K2's entry sums its launches over the paths and lists them in
 ``launches_by_path``; and last ``{"ok": true, "device": {...}}``.
 
@@ -1082,10 +1110,16 @@ def pnp_queries(np, seed, n_queries, n=None):
 
 def pose_agreement(np, a, b, X):
     """(rotation angle between two PnP results, translation difference
-    relative to max(|t|, median distance of the points to the camera))."""
-    from pixsfm_tpu_torch.localization.pnp import _quat_to_rotmat_np
-    dot = abs(float(np.dot(a["qvec"], b["qvec"])))
-    ang = 2 * np.arccos(min(dot, 1.0))
+    relative to max(|t|, median distance of the points to the camera)).
+    The angle is 2 atan2(|v|, |w|) of the relative quaternion (w, v), in
+    float64 after renormalizing both: arccos of the quaternions' dot
+    product cannot resolve angles below ~1e-3 rad from float32 inputs."""
+    from pixsfm_tpu_torch.localization.pnp import (_quat_mul_np,
+                                                   _quat_to_rotmat_np)
+    qa, qb = (np.asarray(r["qvec"], np.float64) for r in (a, b))
+    rel = _quat_mul_np(qa / np.linalg.norm(qa),
+                       (qb / np.linalg.norm(qb)) * [1, -1, -1, -1])
+    ang = 2 * np.arctan2(np.linalg.norm(rel[1:]), abs(rel[0]))
     C = -_quat_to_rotmat_np(b["qvec"]).T @ b["tvec"]
     scale = max(np.linalg.norm(b["tvec"]),
                 float(np.median(np.linalg.norm(X - C, axis=1))))
@@ -1280,6 +1314,429 @@ def make_fold_scene(torch, np, seed, n_views, n_points, W, H, device,
     for p in range(n_points):
         truth.add_point3D(Point3D(p, P3[p], track=tracks[p]))
     return images, truth
+
+
+# ---------------------------------------------------------------------------
+# phase 18: query localization
+# ---------------------------------------------------------------------------
+
+LOC_VIEWS, LOC_QUERIES = 32, 8
+LOC_PAIRS = 10             # retrieval pairs per query
+LOC_WRONG = 0.2            # share of each query's matches to a wrong point
+# cuda against cpu: two queries with QBA capped at this many steps on both
+# devices (100 Newton steps on the card machine's CPU take ~1.5 min a query)
+LOC_CPU_QBA_STEPS = 10
+# Two runs of the localizer that draw different RANSAC samples (the serial
+# path draws per query, localize_batch per size group; cuda and cpu round
+# differently) may return different tied minimal-sample poses: with 1 px
+# noise and the 12 px threshold hundreds of hypotheses tie at the full
+# consensus, and the f64 polish is dropped when it loses one inlier (0.58
+# against 0.69 degrees off the truth on one query, NVIDIA H100 80GB HBM3,
+# 700 W). QBA pulls both in but does not merge them in 100 steps. So the
+# two are held to consensus and to phase 14's polished-pose limits, and the
+# tighter limits of the tests (the JAX package's batch test scaled to the
+# scene, the CPU parity tests' 1e-4) are printed as counts of queries that
+# meet them.
+LOC_BATCH_LIMITS = (1e-3, 1.3e-3)    # rad, centre / extent
+
+
+def localization_scene(torch, np, seed):
+    """Phase 16's valley seen by ``LOC_VIEWS`` 1600x1200 views; every 4th
+    view is a held-out query. Returns (decoded views, the reference model
+    of the other views at their true poses, queries [(name, camera)], the
+    queries' keypoints (true projections plus N(0, 1 px); the model's carry
+    N(0, 0.5 px)), retrieval pairs and matches, the true poses of the
+    queries, the scene's extent)."""
+    views, truth = make_fold_scene(
+        torch, np, seed=seed, n_views=LOC_VIEWS, n_points=RECON_POINTS,
+        W=1600, H=1200, device="cuda", noise_px=0.5)
+    rng = np.random.default_rng(seed + 1)
+    qids = [i for i in sorted(truth.images) if i % 4 == 0]
+    rec = truth.copy()
+    for iid in qids:
+        del rec.images[iid]
+    for pid in list(rec.points3D):
+        p = rec.points3D[pid]
+        p.track = [(i, j) for (i, j) in p.track if i not in qids]
+        if len(p.track) < 2:
+            del rec.points3D[pid]
+    for im in rec.images.values():
+        keep = np.isin(im.point3D_ids, list(rec.points3D))
+        im.point3D_ids = np.where(keep, im.point3D_ids, -1)
+    centre = {i: im.projection_center() for i, im in truth.images.items()}
+    queries, keypoints, pairs, matches, gt = [], {}, [], {}, {}
+    for qid in qids:
+        q = truth.images[qid]
+        keypoints[q.name] = q.xys + rng.normal(0, np.sqrt(1.0 - 0.25),
+                                               q.xys.shape)
+        queries.append((q.name, truth.cameras[q.camera_id]))
+        gt[q.name] = (q.qvec, q.tvec)
+        near = sorted(rec.images, key=lambda i: np.linalg.norm(
+            centre[i] - centre[qid]))[:LOC_PAIRS]
+        for rid in near:
+            r = rec.images[rid]
+            slot = {int(p): j for j, p in enumerate(r.point3D_ids) if p >= 0}
+            m = np.asarray([(j, slot[int(p)])
+                            for j, p in enumerate(q.point3D_ids)
+                            if int(p) in slot], np.int64).reshape(-1, 2)
+            wrong = rng.random(len(m)) < LOC_WRONG
+            m[wrong, 1] = rng.integers(0, len(r.xys), int(wrong.sum()))
+            pairs.append((q.name, r.name))
+            matches[(q.name, r.name)] = m
+    P3 = np.stack([p.xyz for p in truth.points3D.values()])
+    ref_views = {rec.images[i].name: views[rec.images[i].name]
+                 for i in rec.images}
+    return (views, ref_views, rec, queries, keypoints, pairs, matches, gt,
+            float(np.ptp(P3, 0).max()))
+
+
+def pose_error(np, qvec, tvec, gt):
+    """(rotation error in degrees, camera-centre distance) to a true pose."""
+    from pixsfm_tpu_torch.base.geometry import quat_to_rotmat_np
+    R, Rg = quat_to_rotmat_np(qvec), quat_to_rotmat_np(gt[0])
+    ang = np.degrees(np.arccos(np.clip((np.trace(R @ Rg.T) - 1) / 2, -1, 1)))
+    return float(ang), float(np.linalg.norm(-R.T @ tvec + Rg.T @ gt[1]))
+
+
+def compare_localizations(np, a, b, points3D, extent, tight):
+    """Two runs over the same queries: the same successes, inlier counts
+    within 2, poses within phase 14's polished limits (``pose_agreement``,
+    ``PNP_POLISHED_TOL``); also how many poses meet ``tight`` (rotation in
+    rad, centre distance over ``extent``)."""
+    worst_n, worst_r, worst_t, n, n_tight = 0, 0.0, 0.0, 0, 0
+    same = True
+    for ra, rb, X in zip(a, b, points3D):
+        if bool(ra.get("success")) != bool(rb.get("success")):
+            same = False
+            continue
+        if not ra.get("success"):
+            continue
+        n += 1
+        worst_n = max(worst_n, abs(ra["num_inliers"] - rb["num_inliers"]))
+        ang, dt = pose_agreement(np, ra, rb, np.asarray(X))
+        worst_r, worst_t = max(worst_r, ang), max(worst_t, dt)
+        _, cen = pose_error(np, ra["qvec"], ra["tvec"],
+                            (rb["qvec"], rb["tvec"]))
+        n_tight += int(ang <= tight[0] and cen / extent <= tight[1])
+    ok = same and worst_n <= 2 and max(worst_r, worst_t) <= PNP_POLISHED_TOL
+    text = (f"the same successes: {same}; inlier counts within {worst_n}, "
+            f"rotations within {worst_r:.2e} rad, translations within "
+            f"{worst_t:.2e} relative (limits 2, {PNP_POLISHED_TOL:g}, "
+            f"{PNP_POLISHED_TOL:g})")
+    return dict(ok=ok, same=same, worst_n=worst_n, n=n, tight=n_tight,
+                text=text)
+
+
+def _stage_timers(sync, loc, main_mod):
+    """Wrap the stages of ``QueryLocalizer.localize`` in wall-clock timers
+    that end with ``sync()``; returns (times, the PnP results in call
+    order, restore)."""
+    times = {k: 0.0 for k in ("query extraction", "nearest references",
+                              "QKA", "PnP", "QBA")}
+    pnp_poses = []              # the PnP result of each query, in order
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            times[key] += time.perf_counter() - t0
+            if fn.__name__ == "finalize_device_pose":
+                pnp_poses.append(dict(out))
+            elif fn.__name__ == "absolute_pose_estimation_batch":
+                pnp_poses.append(dict(out[0]))
+            return out
+        return run
+
+    saved = {n: getattr(main_mod, n) for n in (
+        "_run_target_chunk", "_pnp_core", "absolute_pose_estimation_batch",
+        "finalize_device_pose")}
+    saved_loc = {n: getattr(loc, n) for n in ("extract_query_fmaps",
+                                              "get_query_references")}
+    saved_qba = loc.qba.refine_multilevel
+    main_mod._run_target_chunk = timed("QKA", saved["_run_target_chunk"])
+    for n in ("_pnp_core", "absolute_pose_estimation_batch",
+              "finalize_device_pose"):
+        setattr(main_mod, n, timed("PnP", saved[n]))
+    loc.extract_query_fmaps = timed("query extraction",
+                                    saved_loc["extract_query_fmaps"])
+    loc.get_query_references = timed("nearest references",
+                                     saved_loc["get_query_references"])
+    loc.qba.refine_multilevel = timed("QBA", saved_qba)
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(main_mod, n, fn)
+        for n, fn in saved_loc.items():
+            setattr(loc, n, fn)
+        loc.qba.refine_multilevel = saved_qba
+    return times, pnp_poses, restore
+
+
+def _pnp_hook(np, modules):
+    """Record each ``finalize_device_pose`` call of ``modules`` (the fused
+    path's and the staged RANSAC's): the correspondences it was given,
+    its result, and whether that result kept the f64 polish (else it is
+    the RANSAC pose, normalized). Returns (records, restore)."""
+    calls = []
+    saved = [(m, m.finalize_device_pose) for m in modules]
+    fn = saved[0][1]
+
+    def run(cam, qvec, tvec, inliers, num_inliers, xy, X, *a, **kw):
+        out = fn(cam, qvec, tvec, inliers, num_inliers, xy, X, *a, **kw)
+        q0 = np.asarray(qvec, np.float64)
+        q0 = q0 / np.linalg.norm(q0)
+        calls.append(dict(out, points2D=np.asarray(xy), points3D=X,
+                          camera=cam, polished=bool(out["success"]) and not
+                          np.array_equal(out["qvec"], q0)))
+        return out
+    for m, _ in saved:
+        m.finalize_device_pose = run
+
+    def restore():
+        for m, f in saved:
+            m.finalize_device_pose = f
+    return calls, restore
+
+
+def localization_phase(torch, np, interpolate_cuda, profile_out=None):
+    """Phase 18 (see the module docstring). Returns the K1 entry's
+    launches, its figures at the QKA shape and its in-situ time."""
+    from pixsfm_tpu_torch.config import load_config
+    from pixsfm_tpu_torch.features.featuremaps import FeatureMap
+    from pixsfm_tpu_torch.localization import QueryLocalizer
+    from pixsfm_tpu_torch.localization import main as loc_main
+    from pixsfm_tpu_torch.localization import pnp as pnp_mod
+    from pixsfm_tpu_torch.localize import (build_query_correspondences,
+                                           localize_queries)
+    t0 = time.perf_counter()
+    (views, ref_views, rec, queries, keypoints, pairs, matches, gt,
+     extent) = localization_scene(torch, np, seed=18)
+    sync = torch.cuda.synchronize
+    n_corr = {q: len(build_query_correspondences(rec, q, pairs, matches)[0])
+              for q, _ in queries}
+    print(f"phase 18: scene of {len(ref_views)} model views + "
+          f"{len(queries)} queries, {len(rec.points3D)} points in the "
+          f"model, {min(n_corr.values())}-{max(n_corr.values())} "
+          f"correspondences per query ({LOC_PAIRS} pairs, "
+          f"{LOC_WRONG:.0%} wrong), made in {time.perf_counter() - t0:.1f} s")
+    conf = load_config("default")
+
+    # -- the localizer and the serial path the CLI takes, counted ------------
+    sync()
+    interpolate_cuda.launches = 0
+    t0 = time.perf_counter()
+    loc = QueryLocalizer(rec, conf, image_dir=ref_views, device="cuda")
+    sync()
+    t_refs = time.perf_counter() - t0
+    times, pnp_poses, restore = _stage_timers(sync, loc, loc_main)
+    t0 = time.perf_counter()
+    serial = localize_queries(loc, queries, keypoints, pairs, matches,
+                              image_dir=views)
+    sync()
+    wall_s = time.perf_counter() - t0
+    launches = {"K1": interpolate_cuda.launches}
+    restore()
+    n_ok = sum(bool(r.get("success")) for r in serial.values())
+    errs = {q: pose_error(np, r["qvec"], r["tvec"], gt[q])
+            for q, r in serial.items() if r.get("success")}
+    rot = max(e[0] for e in errs.values())
+    cen = max(e[1] for e in errs.values()) / extent
+    pnp_errs = [pose_error(np, r["qvec"], r["tvec"], gt[q])
+                for (q, _), r in zip(queries, pnp_poses)
+                if r.get("success")]
+    qba_up = [q for q, r in serial.items() if r.get("success")
+              and not r["QBA"]["final_cost"] <= r["QBA"]["initial_cost"]]
+    rest = wall_s - sum(v for k, v in times.items()
+                        if k != "query extraction")
+    print(f"phase 18: localize_queries (serial, prefetch 2) {wall_s:.2f} s "
+          f"for {len(queries)} queries ({len(queries) / wall_s:.3f} "
+          f"queries/s); reference extraction {t_refs:.2f} s; stages "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
+          + f", the rest of the main thread {rest:.2f} s (query extraction "
+          f"runs on the prefetch thread beside it); {n_ok} of {len(queries)} "
+          f"localized, inliers "
+          f"{sorted(r.get('num_inliers', 0) for r in serial.values())}; "
+          f"after PnP rotations within "
+          f"{max(e[0] for e in pnp_errs):.3f} deg, centres within "
+          f"{max(e[1] for e in pnp_errs) / extent:.2e} of the extent; "
+          f"after QBA rotations within {rot:.3f} deg, centres within "
+          f"{cen:.2e} of the extent (limits 0.5 deg, 1e-2); QBA costs "
+          + ", ".join(f"{r['QBA']['initial_cost']:.3f} -> "
+                      f"{r['QBA']['final_cost']:.3f}"
+                      for r in serial.values() if r.get("success"))
+          + f"; launches (references and localize_queries) {launches}")
+    if n_ok < len(queries) - 1:
+        raise SystemExit(f"only {n_ok} of {len(queries)} queries localized")
+    if not (rot < 0.5 and cen < 1e-2):
+        raise SystemExit("a localized query is off the truth")
+    if qba_up:
+        raise SystemExit(f"QBA raised the cost of {qba_up}")
+    if launches["K1"] <= 0:
+        raise SystemExit("K1 did not launch on the localization path")
+
+    # -- localize_batch against the serial path ------------------------------
+    batch_in = []
+    for qname, cam in queries:
+        p2D, p3D = build_query_correspondences(rec, qname, pairs, matches)
+        batch_in.append(dict(keypoints=keypoints[qname], pnp_point2D_idxs=p2D,
+                             pnp_points3D_id=p3D, query_camera=cam,
+                             image_path=views[qname]))
+    sync()
+    t0 = time.perf_counter()
+    batched = loc.localize_batch(batch_in)
+    sync()
+    wall_b = time.perf_counter() - t0
+    agree = compare_localizations(
+        np, [serial[q] for q, _ in queries], batched,
+        [[rec.points3D[p].xyz for p in b["pnp_points3D_id"]]
+         for b in batch_in], extent, LOC_BATCH_LIMITS)
+    print(f"phase 18: localize_batch {wall_b:.2f} s "
+          f"({len(queries) / wall_b:.3f} queries/s); against the serial "
+          f"path: {agree['text']}; the limits of the JAX package's batch "
+          f"test scaled to the scene ({LOC_BATCH_LIMITS[0]:g} rad, "
+          f"{LOC_BATCH_LIMITS[1]:g} of the extent) met by "
+          f"{agree['tight']} of {agree['n']}")
+    if not agree["ok"]:
+        raise SystemExit("localize_batch disagrees with the serial path")
+
+    # -- cuda against cpu on two queries -------------------------------------
+    # The whole flow (QBA capped) on both devices, held as phase 14 holds
+    # PnP: the two may return different tied RANSAC poses
+    # (LOC_BATCH_LIMITS), so each device's PnP pose must explain all but
+    # one of the other's inliers, and the PnP and final poses must agree
+    # within PNP_POLISHED_TOL where both kept the f64 polish, else within
+    # PNP_UNPOLISHED_TOL. The stages' numbers are held from identical
+    # inputs: the nearest references and QKA from the same keypoints, QBA
+    # (100 steps) from the serial run's PnP pose and inliers.
+    from pixsfm_tpu_torch.localization import QueryBundleAdjuster
+    short = load_config("default")
+    short.localization.QBA.optimizer.solver.max_num_iterations = \
+        LOC_CPU_QBA_STEPS
+    devs = ("cuda", "cpu")
+    locs = {d: QueryLocalizer(rec, short, references=loc.references,
+                              device=d) for d in devs}
+    qba_cpu = QueryBundleAdjuster(loc.qba.conf, device="cpu")
+    walls = {d: 0.0 for d in devs}
+    d_ref, d_kp, d_rot, d_t, qba_costs, lines = 0, 0.0, 0.0, 0.0, [], []
+    bad = []
+    for qi, (qname, cam) in enumerate(queries[:2]):
+        p2D, p3D = build_query_correspondences(rec, qname, pairs, matches)
+        X = np.asarray([rec.points3D[p].xyz for p in p3D])
+        pts2D = keypoints[qname][np.asarray(p2D)]
+        fm = loc.extract_query_fmaps(keypoints[qname], p2D, views[qname])
+        maps = {"cuda": fm, "cpu": [FeatureMap(f.patches.cpu(),
+                                               f.keypoint_ids(), f.corners,
+                                               f.scale) for f in fm]}
+        refs, kp, qba, out, pnp = {}, {}, {}, {}, {}
+        for d in devs:
+            calls, restore = _pnp_hook(np, (loc_main, pnp_mod))
+            t0 = time.perf_counter()
+            try:
+                out[d] = locs[d].localize(keypoints[qname], p2D, p3D, cam,
+                                          query_fmaps=maps[d])
+                sync()
+            finally:
+                restore()
+            walls[d] += time.perf_counter() - t0
+            pnp[d] = calls[-1]
+            refs[d] = locs[d].get_query_references(p3D, maps[d], pts2D, p2D)
+            kp[d] = pts2D.copy()
+            locs[d].qka.refine_multilevel(kp[d], maps[d], refs["cuda"], p2D)
+            start = pnp_poses[qi]
+            qba[d] = (loc.qba if d == "cuda" else qba_cpu).refine(
+                start["qvec"], start["tvec"], cam, X, maps[d][0],
+                refs["cuda"][0], inliers=start["inliers"], point2D_idxs=p2D)
+        qba_costs.append(" / ".join(
+            f"{qba[d]['initial_cost']:.3f} -> {qba[d]['final_cost']:.3f}"
+            for d in devs))
+        d_ref += sum(int(not np.array_equal(a, b)) for a, b in
+                     zip(refs["cuda"][0], refs["cpu"][0]))
+        d_kp = max(d_kp, float(np.abs(kp["cuda"] - kp["cpu"]).max()))
+        ang, dt = pose_agreement(np, qba["cuda"], qba["cpu"], X)
+        d_rot, d_t = max(d_rot, ang), max(d_t, dt)
+        # the whole flow, held as phase 14 holds PnP
+        a, b = pnp["cuda"], pnp["cpu"]
+        same = (bool(a["success"]) == bool(b["success"])
+                == bool(out["cuda"].get("success"))
+                == bool(out["cpu"].get("success")))
+        if not same:
+            bad.append(f"{qname}: successes differ")
+            continue
+        if not a["success"]:
+            lines.append(f"{qname}: fails on both")
+            continue
+        tol = (PNP_POLISHED_TOL if a["polished"] and b["polished"]
+               else PNP_UNPOLISHED_TOL)
+        n_pnp = abs(a["num_inliers"] - b["num_inliers"])
+        n_fin = abs(out["cuda"]["num_inliers"] - out["cpu"]["num_inliers"])
+        left = max(unexplained(np, a, b, b), unexplained(np, b, a, a))
+        pnp_r, pnp_t = pose_agreement(np, a, b, X)
+        fin_r, fin_t = pose_agreement(np, out["cuda"], out["cpu"], X)
+        truth = {d: pose_error(np, r["qvec"], r["tvec"], gt[qname])
+                 for d, r in pnp.items()}
+        lines.append(
+            f"{qname}: PnP inliers {a['num_inliers']} / {b['num_inliers']}, "
+            f"polish kept {a['polished']} / {b['polished']}, off the truth "
+            + " / ".join(f"{truth[d][0]:.3f} deg, {truth[d][1] / extent:.2e}"
+                         f" of the extent" for d in devs)
+            + f"; inliers one pose leaves out of the other's {left}; PnP "
+            f"poses within {pnp_r:.2e} rad, {pnp_t:.2e} relative; final "
+            f"inliers within {n_fin}, poses within {fin_r:.2e} rad, "
+            f"{fin_t:.2e} relative (limits 1, 1, {tol:g}, {tol:g}, 2, "
+            f"{tol:g}, {tol:g})")
+        if not (n_pnp <= 1 and left <= 1 and n_fin <= 2
+                and max(pnp_r, pnp_t, fin_r, fin_t) <= tol):
+            bad.append(f"{qname}: PnP or final poses disagree")
+    print(f"phase 18: two queries on cuda and cpu, the whole flow (QBA "
+          f"capped at {LOC_CPU_QBA_STEPS} steps) {walls['cuda']:.2f} s / "
+          f"{walls['cpu']:.2f} s (cuda / cpu): " + "; ".join(lines)
+          + f"; from identical inputs: {d_ref} nearest references "
+          f"differ (limit 0), QKA keypoints within {d_kp:.2e} px (limit "
+          f"0.05, phase 4's: the LM's step test is 1e-5 of |kp|, 1e-2 px "
+          f"here), QBA (100 steps; costs {', '.join(qba_costs)}) rotations "
+          f"within {d_rot:.2e} rad, translations within {d_t:.2e} relative "
+          f"(limits 1e-4, 1e-4)")
+    if bad or not (d_ref == 0 and d_kp <= 0.05 and d_rot <= 1e-4
+                   and d_t <= 1e-4):
+        raise SystemExit(f"localization disagrees between cuda and cpu: "
+                         f"{bad}")
+
+    # -- launches of one QKA and one QBA call, under the profiler -------------
+    qname, cam = queries[0]
+    p2D, p3D = build_query_correspondences(rec, qname, pairs, matches)
+    fm = loc.extract_query_fmaps(keypoints[qname], p2D, views[qname])
+    pts2D = keypoints[qname][np.asarray(p2D)]
+    refs = loc.get_query_references(p3D, fm, pts2D, p2D)
+    prof = {"QKA": profile_stage(torch, lambda: loc.qka.refine_multilevel(
+        pts2D.copy(), fm, refs, p2D))}
+    qba10 = QueryBundleAdjuster({"optimizer": {"solver": {
+        "max_num_iterations": 10}}}, device="cuda")
+    res = serial[qname]
+    X = [rec.points3D[p].xyz for p in p3D]
+    prof["QBA (10 steps)"] = profile_stage(torch, lambda: qba10.refine(
+        res["qvec"], res["tvec"], cam, X, fm[0], refs[0],
+        inliers=res["inliers"], point2D_idxs=p2D))
+    for stage, (_, t_p, busy_p, kern_p, tab_p) in prof.items():
+        n_p = sum(c for _, c, _ in kern_p)
+        print(f"phase 18 (under the profiler): one {stage} call on "
+              f"{len(p2D)} correspondences {t_p:.3f} s wall, {busy_p:.4f} s "
+              f"device busy (idle share {1 - busy_p / t_p:.3f}), {n_p} "
+              f"kernel launches")
+        if profile_out:
+            with open(Path(profile_out) / "chip_smoke_profile.txt",
+                      "a") as fh:
+                fh.write(f"\n\n== localization: {stage} ==\n{tab_p}\n")
+    in_situ = _in_situ(prof["QKA"][3], {"K1": "interp_kernel"}, launches)
+    print(f"phase 18: in-situ device ms per launch {in_situ}")
+    n_kp = len(fm[0])
+    del views, ref_views, loc, locs, fm
+    torch.cuda.empty_cache()
+    # K1 at this path's QKA shape: one query's correspondences over its
+    # bf16 patches
+    k1 = check_k1(torch, interpolate_cuda, n_patches=n_kp,
+                  n_queries=len(p2D), dtypes=(torch.bfloat16,))
+    return launches, k1, in_situ
 
 
 # ---------------------------------------------------------------------------
@@ -2001,11 +2458,20 @@ def main() -> int:
         raise SystemExit("dsift: a cost did not fall")
     tmp_dir.cleanup()
 
+    # -- phase 18: query localization at full width ----------------------------
+    del views_t, sfm_ds
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches_loc, k1_loc, in_situ_loc = localization_phase(
+        torch, np, interpolate_cuda, profile_out=args.profile_out)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
     # -- report ----------------------------------------------------------------
     # K1 runs on both paths at different shapes: one entry per path, each
     # with that path's launches and the figures measured at its shape
     paths = {"KA": launches, "BA": launches_ba,
-             "triangulation": launches_tri, "reconstruction": launches_rc}
+             "triangulation": launches_tri, "reconstruction": launches_rc,
+             "localization": launches_loc}
     both = {k: sum(n.get(k, 0) for n in paths.values())
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
     print(f"launches on the main paths: {paths}")
@@ -2032,11 +2498,18 @@ def main() -> int:
              replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
              launches=launches_rc["K1"], library_ms=None,
              in_situ_ms=in_situ_rc["K1"], **k1_rc),
+        dict(name="bicubic_window_interp_l2", path="localization",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_loc["K1"], library_ms=None,
+             in_situ_ms=in_situ_loc["K1"], **k1_loc),
         dict(name="batched_jacobi_pcg", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/pcg.cu",
              replaces="pixsfm_tpu/ops/cg_pallas.py:88",
              launches=both["K2"],
-             launches_by_path={n: c["K2"] for n, c in paths.items()},
+             launches_by_path={n: c.get("K2", 0)
+                               for n, c in paths.items()},
              library_ms=None, in_situ_ms=in_situ_ka["K2"], **k2),
         dict(name="schur_term_matvec", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",

@@ -8,9 +8,13 @@ chain rule. :func:`bicubic_window_eval_rows` followed by
 kernel in ``ops/interpolate_cuda.py``; it runs on the CPU and is what the
 kernel is checked against on the card.
 
+:func:`bicubic_window_eval_rows_d2` adds the second derivatives, from
+which query bundle adjustment builds its exact Newton Hessian;
+:func:`bounds_violation` is the ``check_bounds`` hinge.
+
 Only BICUBIC / CERES_BICUBIC with one node and without NCC are ported; the
 other modes (bilinear, nearest, gradient fields), node windows and NCC come
-with the bundle-adjustment and localization slices of the port and raise
+with ROADMAP.md item 'The other BA strategies' and raise
 ``NotImplementedError`` here.
 """
 
@@ -24,7 +28,8 @@ import torch
 __all__ = [
     "InterpolationConfig", "INTERPOLATOR_TYPES", "catmull_rom_weights",
     "bicubic_window_eval_rows", "l2_normalize_with_grad",
-    "check_window_config",
+    "bicubic_window_eval_rows_d2", "check_window_config",
+    "bounds_violation",
 ]
 
 INTERPOLATOR_TYPES = (
@@ -74,13 +79,12 @@ def check_window_config(interp: InterpolationConfig) -> None:
     """Raise for configs outside the ported bicubic window path."""
     if interp.mode not in ("BICUBIC", "CERES_BICUBIC"):
         raise NotImplementedError(
-            f"interpolation mode {interp.mode} is not ported yet; it comes "
-            "with the bundle-adjustment slice of pixsfm_tpu_torch")
+            f"interpolation mode {interp.mode} is not ported yet; see "
+            "ROADMAP.md section 1, 'The other BA strategies'")
     if interp.ncc_normalize or interp.n_nodes != 1:
         raise NotImplementedError(
             "NCC normalization and multi-node interpolation are not ported "
-            "yet; they come with the bundle-adjustment slice of "
-            "pixsfm_tpu_torch")
+            "yet; see ROADMAP.md section 1, 'The other BA strategies'")
 
 
 def catmull_rom_weights(t):
@@ -138,6 +142,38 @@ def bicubic_window_eval_rows(rows, H: int, W: int, C: int, row_base, r, c):
     return f, dfdr, dfdc
 
 
+def bicubic_window_eval_rows_d2(rows, H: int, W: int, C: int, row_base, r,
+                                c):
+    """:func:`bicubic_window_eval_rows` with the second derivatives: ``(f,
+    f_r, f_c, f_rr, f_rc, f_cc)``, each ``[N, C]`` float32. They are the
+    derivatives of the Catmull-Rom window within a cell (the tap indices
+    come from ``floor``), the ones that differentiating the JAX package's
+    analytic ``(dfdr, dfdc)`` once more gives. Query bundle adjustment
+    builds its exact Hessian from them."""
+    taps = torch.arange(-1, 3, device=r.device)
+    fr, fc = torch.floor(r), torch.floor(c)
+    wr, dwr = catmull_rom_weights(r - fr)
+    wc, dwc = catmull_rom_weights(c - fc)
+    rw = torch.stack([wr, dwr, _catmull_rom_second(r - fr)], dim=1)
+    cw = torch.stack([wc, dwc, _catmull_rom_second(c - fc)], dim=1)
+    ci = torch.clamp(fc.to(torch.int64)[:, None] + taps, 0, W - 1)
+    onehot = (ci[..., None] == torch.arange(W, device=c.device)).to(
+        cw.dtype)                                           # [N, 4, W]
+    cw = torch.einsum("nkt,ntw->nkw", cw, onehot)           # [N, 3, W]
+    ri = torch.clamp(fr.to(torch.int64)[:, None] + taps, 0, H - 1)
+    win = rows[row_base.to(torch.int64)[:, None] + ri].to(torch.float32)
+    colmix = torch.einsum("nawc,nkw->nkac", win, cw)        # [N, 3, 4, C]
+    m = torch.einsum("nkac,nja->nkjc", colmix, rw)          # [N, 3, 3, C]
+    return m[:, 0, 0], m[:, 0, 1], m[:, 1, 0], m[:, 0, 2], m[:, 1, 1], \
+        m[:, 2, 0]
+
+
+def _catmull_rom_second(t):
+    """d^2/dt^2 of the Catmull-Rom tap weights."""
+    return torch.stack([-3.0 * t + 2.0, 9.0 * t - 5.0, -9.0 * t + 4.0,
+                        3.0 * t - 1.0], dim=-1)
+
+
 def l2_normalize_with_grad(f, derivs):
     """L2-normalize f and apply the chain rule to each derivative array.
 
@@ -157,3 +193,14 @@ def l2_normalize_with_grad(f, derivs):
         dn = dn - torch.sum(fn * dn, dim=-1, keepdim=True) * fn
         out.append(dn)
     return fn, out
+
+
+def bounds_violation(r, c, H: int, W: int):
+    """Hinge distance (in patch pixels) outside the extent [0, H-1] x
+    [0, W-1]; 0 inside (``base/interpolation.py:556`` of the JAX package).
+    Solvers with ``check_bounds`` add its square to a residual's squared
+    norm, so a step that pushes a reprojection out of its patch raises the
+    cost and is rejected, where the reference's cost functor fails."""
+    zero = torch.zeros_like(r)
+    return (torch.maximum(r - (H - 1.0), zero) + torch.maximum(-r, zero)
+            + torch.maximum(c - (W - 1.0), zero) + torch.maximum(-c, zero))

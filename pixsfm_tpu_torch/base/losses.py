@@ -66,6 +66,31 @@ def _drho(name: str, s, params: Sequence[float]):
     raise ValueError(f"unknown loss {name!r}")
 
 
+def _d2rho(name: str, s, params: Sequence[float]):
+    """rho''(s): query bundle adjustment's exact Hessian needs it."""
+    name = name.lower()
+    if name in ("trivial", "scaled"):
+        return torch.zeros_like(s)
+    if name == "huber":
+        a = params[0]
+        return torch.where(s <= a * a, torch.zeros_like(s),
+                           -0.5 * a * torch.clamp(s, min=1e-20) ** -1.5)
+    if name in ("soft_l1", "softlone", "softl1"):
+        a2 = params[0] * params[0]
+        return -0.5 / a2 * (1.0 + s / a2) ** -1.5
+    if name == "cauchy":
+        a2 = params[0] * params[0]
+        return -1.0 / (a2 * (1.0 + s / a2) ** 2)
+    if name == "arctan":
+        a2 = params[0] * params[0]
+        return -2.0 * a2 * s / (a2 + s * s) ** 2
+    if name == "tukey":
+        a2 = params[0] * params[0]
+        return torch.where(s <= a2, -2.0 / a2 * (1.0 - s / a2),
+                           torch.zeros_like(s))
+    raise ValueError(f"unknown loss {name!r}")
+
+
 class RobustLoss:
     """rho(s) on squared norms; ``weight`` is rho'(s) for IRLS reweighting."""
 
@@ -81,6 +106,10 @@ class RobustLoss:
 
     def weight(self, s):
         return self.scale * _drho(self.name, s, self.params)
+
+    def weight_derivative(self, s):
+        """rho''(s), scaled like :meth:`weight`."""
+        return self.scale * _d2rho(self.name, s, self.params)
 
     def __repr__(self):
         return f"RobustLoss({self.name}, {self.params}, scale={self.scale})"

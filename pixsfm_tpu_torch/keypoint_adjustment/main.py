@@ -1,11 +1,17 @@
 """Keypoint adjustment orchestration (reference: pixsfm/keypoint_adjustment/main.py).
 
-Port of the ``featuremetric`` strategy of
-``pixsfm_tpu/keypoint_adjustment/main.py``: minimize featuremetric error
-along every intra-track match edge with the track roots fixed. Subproblems
-are first-fit-decreasing bins of tracks (``find_problem_labels``), solved
-as one batched LM per chunk on the device. The ``topological_reference``
-strategy and multi-device sharding come with later slices of the port.
+Port of ``pixsfm_tpu/keypoint_adjustment/main.py``:
+
+- ``featuremetric``: minimize featuremetric error along every intra-track
+  match edge with the track roots fixed. Subproblems are first-fit-decreasing
+  bins of tracks (``find_problem_labels``), solved as one batched LM per
+  chunk on the device.
+- ``topological_reference`` (the ``low_memory`` preset's KA): a star toward
+  each track root with the root constant, so every keypoint is an
+  independent 2-DoF problem against its root's descriptor
+  (``solver.solve_target_problems``).
+
+Multi-device sharding comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -27,10 +33,12 @@ from ..base.losses import make_loss
 from ..config import merge
 from ..features.featuremaps import FeatureView
 from ..ops.lm import LMOptions
-from .solver import build_ka_problems, solve_ka_problems
+from .solver import (build_ka_problems, evaluate_descriptors,
+                     solve_ka_problems, solve_target_problems)
 
 __all__ = [
     "KeypointAdjuster", "FeatureMetricKeypointAdjuster",
+    "TopologicalReferenceKeypointAdjuster",
     "KeypointAdjustmentSetup", "find_problem_labels", "build_matching_graph",
     "extract_patchdata_from_graph",
 ]
@@ -152,11 +160,10 @@ class KeypointAdjuster:
         strategy = cls.default_conf["strategy"]
         if conf is not None and "strategy" in conf:
             strategy = conf["strategy"]
-        if strategy == "topological_reference":
-            raise NotImplementedError(
-                "topological_reference KA is not ported yet; it comes with "
-                "a later slice of pixsfm_tpu_torch")
-        strategy_to_solver = {"featuremetric": FeatureMetricKeypointAdjuster}
+        strategy_to_solver = {
+            "featuremetric": FeatureMetricKeypointAdjuster,
+            "topological_reference": TopologicalReferenceKeypointAdjuster,
+        }
         return strategy_to_solver[strategy](conf, device=device)
 
     # -- API ----------------------------------------------------------------
@@ -306,6 +313,119 @@ class FeatureMetricKeypointAdjuster(KeypointAdjuster):
                          bool(opt.get("weight_by_sim", True)),
                          bool(opt.get("root_edges_only", False)),
                          problem_setup)
+
+
+class TopologicalReferenceKeypointAdjuster(KeypointAdjuster):
+    """Star-graph KA toward track roots: linear in track size and, with the
+    root constant, fully decoupled per keypoint — each keypoint becomes an
+    independent 2-DoF problem in the batch (reference preset:
+    topological_reference_keypoint_optimizer.h:5-28)."""
+
+    default_conf = deepcopy(KeypointAdjuster.default_conf)
+    default_conf["max_kps_per_problem"] = 1000
+    default_conf["optimizer"].update({
+        "root_regularize_weight": 1.0,
+        "weight_by_sim": False,
+        "root_edges_only": True,
+    })
+
+    def refine(self, keypoints_dict, feature_set, graph, track_labels,
+               root_labels, problem_setup=None) -> dict:
+        t0 = time.time()
+        track_labels = np.asarray(track_labels)
+        root_labels = np.asarray(root_labels, bool)
+        opt = self.conf.optimizer
+        rrw = float(opt.get("root_regularize_weight", 1.0))
+        weight_by_sim = bool(opt.get("weight_by_sim", False))
+
+        image_ids, feature_idxs = graph.nodes_array()
+        src, dst, sim = graph.edges_array()
+
+        n_tracks = int(track_labels.max()) + 1 if graph.num_nodes else 0
+        root_of_track = np.full(n_tracks, -1, np.int64)
+        root_idx = np.nonzero(root_labels)[0]
+        root_of_track[track_labels[root_idx]] = root_idx
+
+        # per-node accumulated weight of edges toward its root; nodes with
+        # no root edge get the regularization weight (star augmentation)
+        wsum = np.zeros(graph.num_nodes)
+        same = track_labels[src] == track_labels[dst]
+        for a, b in ((src, dst), (dst, src)):
+            m = same & root_labels[b] & ~root_labels[a]
+            np.add.at(wsum, a[m], sim[m] if weight_by_sim else 1.0)
+        has_root = root_of_track[track_labels] >= 0
+        nodes = np.nonzero(~root_labels & has_root)[0]
+        const_mask = (problem_setup.constant_node_mask(graph)
+                      if problem_setup is not None
+                      else np.zeros(graph.num_nodes, bool))
+        nodes = nodes[~const_mask[nodes]]
+        w = wsum[nodes]
+        w[w == 0] = max(rrw, 0.0)
+        keep = w > 0
+        nodes, w = nodes[keep], w[keep]
+
+        if len(nodes) == 0:
+            # no non-root node with a root to pull toward: no-op success
+            logger.info("KA (topological_reference): empty problem; "
+                        "skipping.")
+            return dict(initial_cost=0.0, final_cost=0.0, num_problems=0,
+                        time=time.time() - t0)
+
+        view = FeatureView.from_graph(
+            feature_set, graph,
+            np.concatenate([nodes, root_of_track[track_labels[nodes]]]),
+            keypoints=keypoints_dict)
+        packed = view.packed
+
+        def node_data(nids):
+            names = [graph.image_id_to_name[int(image_ids[n])] for n in nids]
+            rows = np.asarray([packed.index[(name, int(feature_idxs[n]))]
+                               for name, n in zip(names, nids)], np.int64)
+            kps = np.asarray([keypoints_dict[name][int(feature_idxs[n])]
+                              for name, n in zip(names, nids)], np.float64)
+            return rows, kps
+
+        interp = InterpolationConfig.from_conf(self.conf.get("interpolation"))
+        roots = root_of_track[track_labels[nodes]]
+        r_rows, r_kps = node_data(roots)
+        targets = evaluate_descriptors(
+            packed.patches, r_rows, r_kps, packed.corners[r_rows],
+            packed.scales[r_rows], packed.upsampling[r_rows], interp,
+            device=self.device)
+
+        n_rows, n_kps = node_data(nodes)
+        corner = packed.corners[n_rows]
+        scale = packed.scales[n_rows]
+        ups = packed.upsampling[n_rows]
+        # patch extent per axis: keypoints are (x, y), so the box is (W, H)
+        ext = np.array([packed.patches.shape[2], packed.patches.shape[1]],
+                       np.float64)
+        bound = float(opt.get("bound", 4.0))
+        lo = (corner + 0.5) / scale
+        hi = lo + ext / scale
+        if bound > 0:
+            lo = np.maximum(lo, n_kps - bound / scale)
+            hi = np.minimum(hi, n_kps + bound / scale)
+
+        loss = make_loss(opt.get("loss"))
+        lm_opts = LMOptions.from_solver_conf(opt.get("solver"))
+        kp_new, summary = solve_target_problems(
+            n_kps, n_rows.astype(np.int32), corner.astype(np.float32),
+            scale.astype(np.float32), ups.astype(np.float32),
+            targets[:, None, :], w[:, None].astype(np.float32),
+            lo, hi, packed.patches, interp, loss, lm_opts,
+            device=self.device)
+
+        for i, nid in enumerate(nodes):
+            name = graph.image_id_to_name[int(image_ids[nid])]
+            keypoints_dict[name][int(feature_idxs[nid])] = kp_new[i]
+
+        summary["time"] = time.time() - t0
+        logger.info("KA (topological_reference) Time: %.3fs, cost: %.4f -> "
+                    "%.4f (%d keypoints)", summary["time"],
+                    summary["initial_cost"], summary["final_cost"],
+                    summary["num_problems"])
+        return summary
 
 
 def _augment_root_edges(graph: Graph, track_labels: np.ndarray,

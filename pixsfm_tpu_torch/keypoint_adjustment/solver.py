@@ -14,10 +14,15 @@ subproblems (FFD bins of tracks) are solved lock-stepped per chunk:
   LM of ``ops/lm.py`` (Jacobi CG, kernel K2 on CUDA);
 - bounds: patch extent intersected with ``kp0 +- bound/scale``.
 
-Root keypoints are frozen (SetMaskedNodesConstant). Only the bicubic window
-path of the JAX solver is ported; the fixed-target solver
-(``topological_reference``), convergence compaction and mesh sharding come
-with later slices of the port.
+Root keypoints are frozen (SetMaskedNodesConstant).
+
+The fixed-target solver (:func:`solve_target_problems`): one 2-DoF keypoint
+per problem against constant reference descriptors —
+``topological_reference`` KA (the root descriptor is the target) and query
+keypoint adjustment (QKA, the references of the matched 3D points). Its system is built from K1's
+``(f, dfdr, dfdc)``, and :func:`evaluate_descriptors` reads descriptors
+through K1 too. Only the bicubic window path of the JAX solver is ported;
+convergence compaction and mesh sharding come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -33,9 +38,11 @@ from ..base.interpolation import InterpolationConfig, check_window_config
 from ..base.losses import RobustLoss
 from ..ops.interpolate_cuda import interpolate_rows
 from ..ops.lm import LMOptions, lm_solve
+from ..util.misc import bucket
 
 __all__ = ["KAProblems", "build_ka_problems", "make_ka_system",
-           "solve_ka_problems"]
+           "solve_ka_problems", "evaluate_descriptors", "make_target_system",
+           "solve_target_problems"]
 
 
 @dataclass
@@ -386,3 +393,163 @@ def solve_ka_problems(problems: KAProblems, packed_patches,
     if interrupted:
         tot["interrupted"] = True
     return x_cur.reshape(P, K, 2), tot
+
+
+# ---------------------------------------------------------------------------
+# fixed-target problems (topological_reference KA, QKA)
+# ---------------------------------------------------------------------------
+
+def _patch_tensor(packed_patches, device):
+    """The packed patches on ``device``; a tensor stays where it is unless a
+    device is named."""
+    if isinstance(packed_patches, torch.Tensor) and device is None:
+        return packed_patches
+    return torch.as_tensor(packed_patches, device=resolve_device(device))
+
+
+def evaluate_descriptors(packed_patches, rows, kps, corners, scales, ups,
+                         interp: InterpolationConfig,
+                         query_chunk: int = 1024, device=None) -> np.ndarray:
+    """Descriptors at image coordinates (no gradients): ``[N, C]`` float32,
+    used to freeze root and reference descriptors. One K1 launch per chunk
+    of ``query_chunk`` queries, reading the flat row view of the packed
+    patches (``solver.py:406`` of the JAX package, whose chunks pad to
+    power-of-two buckets that eager torch does not need)."""
+    check_window_config(interp)
+    patches = _patch_tensor(packed_patches, device)
+    dev = patches.device
+    rows = np.asarray(rows, np.int64)
+    n = len(rows)
+    kps = np.asarray(kps, np.float32).reshape(-1, 2)
+    corners = np.asarray(corners, np.float32).reshape(-1, 2)
+    scales = np.asarray(scales, np.float32).reshape(-1, 2)
+    ups = np.asarray(ups, np.float32).reshape(-1)
+    uv = (kps * scales - 0.5 - corners) * ups[..., None]
+
+    N, H, W, C = patches.shape
+    rows_view = patches.reshape(N * H, W, C)
+    out = np.empty((n, C), np.float32)
+    for s in range(0, n, query_chunk):
+        e = min(s + query_chunk, n)
+        f, _, _ = interpolate_rows(
+            rows_view, H, W, C,
+            torch.as_tensor(rows[s:e] * H, dtype=torch.int32, device=dev),
+            torch.as_tensor(uv[s:e, 1], device=dev),
+            torch.as_tensor(uv[s:e, 0], device=dev), interp.l2_normalize)
+        out[s:e] = f.cpu().numpy()
+    return out
+
+
+def make_target_system(rows_spec, interp: InterpolationConfig,
+                       loss: RobustLoss):
+    """Fixed-target system: per problem one 2-DoF keypoint against constant
+    reference descriptors (reference residuals/src/feature_reference.h:23-66).
+
+    ``rows_spec = (rows, H, W, C)`` is the flat row view of the packed patch
+    tensor. Problem data: ``patch_row [P]``, ``corner/scale [P, 2]``, ``ups
+    [P]``, ``targets [P, T, C]``, ``target_w [P, T]`` (0 = padding). One J
+    per problem serves all T targets: ``H = sum_t w_t J^T J``, ``g = sum_t
+    w_t r_t^T J``.
+    """
+    rows, H, W, C = rows_spec
+
+    def _eval(x, data):
+        patch_row, corner, scale, ups, targets, _ = data
+        uv = (x * scale - 0.5 - corner) * ups[..., None]
+        f, dfdr, dfdc = interpolate_rows(
+            rows, H, W, C, patch_row.to(torch.int32) * H, uv[..., 1],
+            uv[..., 0], interp.l2_normalize)
+        su = scale * ups[..., None]
+        dfdx = dfdc * su[..., 0:1]
+        dfdy = dfdr * su[..., 1:2]
+        r = f[:, None, :] - targets                 # [P, T, C]
+        s = torch.sum(r * r, dim=-1)                # [P, T]
+        return dfdx, dfdy, r, s
+
+    def cost_fn(x, data):
+        *_, s = _eval(x, data)
+        return 0.5 * torch.sum(data[-1] * loss(s), dim=1)
+
+    def system_fn(x, data):
+        target_w = data[-1]
+        dfdx, dfdy, r, s = _eval(x, data)
+        cost = 0.5 * torch.sum(target_w * loss(s), dim=1)
+        w = target_w * loss.weight(s)               # [P, T]
+        J = torch.stack([dfdx, dfdy], dim=-1)       # [P, C, 2]
+        JtJ = torch.einsum("pca,pcb->pab", J, J)
+        Hs = torch.sum(w, dim=1)[:, None, None] * JtJ
+        g = torch.einsum("pt,ptc,pca->pa", w, r, J)
+        return cost, Hs, g
+
+    return system_fn, cost_fn
+
+
+def _run_target_chunk(rows_spec, interp, loss, lm_opts: LMOptions, x0, data,
+                      lower, upper, pmask, fmask):
+    """One lock-stepped LM solve over a chunk of fixed-target problems
+    (``_target_chunk_core`` of the JAX package)."""
+    system_fn, cost_fn = make_target_system(rows_spec, interp, loss)
+    return lm_solve(lambda x: system_fn(x, data), lambda x: cost_fn(x, data),
+                    x0, param_mask=fmask, problem_mask=pmask, lower=lower,
+                    upper=upper, opts=lm_opts)
+
+
+def solve_target_problems(kp0, patch_row, corner, scale, ups, targets,
+                          target_w, lower, upper, packed_patches,
+                          interp: InterpolationConfig, loss: RobustLoss,
+                          lm_opts: LMOptions, chunk: int = 8192,
+                          free_mask: Optional[np.ndarray] = None,
+                          mesh=None, device=None):
+    """Batched fixed-target LM over P independent keypoints. Returns
+    ``(kp [P, 2], summary)``.
+
+    The chunk size is the JAX package's power-of-two rule (at most
+    ``chunk``, at least 8), so the problems that share one LM solve are the
+    same; a chunk is not padded to its size, which eager torch does not
+    need. ``packed_patches`` is moved to ``device`` when one is named (a
+    tensor otherwise stays where it is; an array goes to ``cuda``)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharding the fixed-target problems over a device mesh is not "
+            "ported yet; see ROADMAP.md section 1, 'Sharding'")
+    check_window_config(interp)
+    patches = _patch_tensor(packed_patches, device)
+    dev = patches.device
+    n_p, H, W, C = patches.shape
+    rows_spec = (patches.reshape(n_p * H, W, C), H, W, C)
+
+    P = kp0.shape[0]
+    out = np.array(kp0, np.float32, copy=True)
+    tot = dict(initial_cost=0.0, final_cost=0.0, num_problems=P,
+               iterations=0)
+    if free_mask is None:
+        free_mask = np.ones(P, bool)
+    chunk = min(chunk, bucket(P)) if P else 8
+
+    def put(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    for s in range(0, P, chunk):
+        sl = slice(s, min(s + chunk, P))
+        data = (put(patch_row[sl], torch.int64), put(corner[sl]),
+                put(scale[sl]), put(ups[sl]), put(targets[sl]),
+                put(target_w[sl]))
+        lo = np.nan_to_num(np.asarray(lower[sl], np.float64), neginf=-1e30)
+        hi = np.nan_to_num(np.asarray(upper[sl], np.float64), posinf=1e30)
+        pmask = put(free_mask[sl], torch.bool)
+        fmask = pmask[:, None].expand(-1, 2)
+        x, summary = _run_target_chunk(
+            rows_spec, interp, loss, lm_opts, put(kp0[sl]), data, put(lo),
+            put(hi), pmask, fmask)
+        packed = torch.cat([x.reshape(-1), summary.initial_cost.sum()[None],
+                            summary.final_cost.sum()[None],
+                            summary.iterations.max()[None].to(x.dtype)])
+        packed = packed.cpu().numpy()             # one fetch per chunk
+        n = sl.stop - sl.start
+        out[sl] = np.where(free_mask[sl][:, None],
+                           packed[:2 * n].reshape(n, 2), out[sl])
+        tot["initial_cost"] += float(packed[2 * n])
+        tot["final_cost"] += float(packed[2 * n + 1])
+        tot["iterations"] = max(tot["iterations"], int(packed[2 * n + 2]))
+    return out, tot

@@ -31,9 +31,12 @@ ridge-shifted normal matrix of an exact minimal sample is indefinite in
 float32 rounding, where LAPACK's factorization stops) and solve with
 ``torch.cholesky_solve``; the 6x6 Gauss-Newton systems factor with
 ``torch.linalg.cholesky_ex``, a failed factorization giving a rejected step.
-Not ported: ``pose_refinement`` and the mesh fan-out over devices (both
-wait for localization and sharding), and ``_dlt_pose``, which nothing
-calls.
+:func:`pose_refinement` is the pose-only damped Gauss-Newton of the JAX
+package (``pnp.py:361``) as a fixed-length batched torch loop: a
+``torch.func`` forward-mode Jacobian and an LU solve per step, acceptance by
+``torch.where``, one fetch at the end.
+Not ported: the mesh fan-out over devices (it waits for sharding), and
+``_dlt_pose``, which nothing calls.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from ..base.projection import calculate_depth, project_with_jac, \
 from ..util.misc import bucket
 
 __all__ = ["absolute_pose_estimation", "absolute_pose_estimation_batch",
-           "finalize_device_pose"]
+           "finalize_device_pose", "pose_refinement"]
 
 
 # ---------------------------------------------------------------------------
@@ -802,6 +805,77 @@ def _pnp_core(model: str, X, xy, valid, params, samples, max_err: float,
         bcnt = torch.maximum(cnt2, bcnt)
         q, tt, inl_m = q2, t2, inl2
     return bq, bt, binl, bcnt
+
+
+def _jacfwd_per_query(fn, D):
+    """``(fn(D), J)`` for a function of ``D [B, NP]`` whose row b depends
+    on ``D[b]`` alone: ``J [B, ..., NP]`` holds each query's own Jacobian.
+    Forward mode with the NP unit tangents shared by all queries (one
+    ``jvp`` per parameter, vmapped), where a plain ``jacfwd`` over the
+    stacked ``D`` would push B * NP tangents."""
+    NP = D.shape[-1]
+    basis = torch.eye(NP, dtype=D.dtype, device=D.device)[:, None, :] \
+        .expand(NP, *D.shape)
+    out, cols = torch.func.vmap(
+        lambda t: torch.func.jvp(fn, (D,), (t,)), out_dims=(None, 0))(basis)
+    return out, cols.movedim(0, -1)
+
+
+def _pose_refine_batch(model: str, params, q0, t0, X, xy, w, iters: int):
+    """``iters`` damped Gauss-Newton steps on the weighted reprojection
+    residuals of ``B`` queries (``_compiled_pose_refine`` of the JAX
+    package): ``params [B, k]``, ``q0 [B, 4]``, ``t0 [B, 3]``, ``X [B, n,
+    3]``, ``xy [B, n, 2]``, ``w [B, n]``. Returns ``(q, t, cost)``."""
+    P = params[:, None, :]
+
+    def residuals(D, q, t):
+        qq = quat_normalize(quat_mul(exp_quat(D[:, :3]), q))
+        tt = t + D[:, 3:]
+        proj = world_to_pixel(model, P, qq[:, None], tt[:, None], X)
+        return ((proj - xy) * w[..., None]).flatten(1)      # [B, 2n]
+
+    B = q0.shape[0]
+    zero = q0.new_zeros((B, 6))
+    q, t = q0, t0
+    lam = q0.new_full((B,), 1e-3)
+    cost = 0.5 * (residuals(zero, q, t) ** 2).sum(-1)
+    for _ in range(iters):
+        r, J = _jacfwd_per_query(lambda D: residuals(D, q, t), zero)
+        Hm = J.transpose(1, 2) @ J
+        g = (J.transpose(1, 2) @ r[..., None])[..., 0]
+        D = torch.clamp(torch.diagonal(Hm, dim1=-2, dim2=-1), 1e-8, 1e32)
+        d = -torch.linalg.solve_ex(Hm + lam[:, None, None]
+                                   * torch.diag_embed(D), g)[0]
+        q_new = quat_normalize(quat_mul(exp_quat(d[:, :3]), q))
+        t_new = t + d[:, 3:]
+        new_cost = 0.5 * (residuals(zero, q_new, t_new) ** 2).sum(-1)
+        accept = new_cost < cost
+        q = torch.where(accept[:, None], q_new, q)
+        t = torch.where(accept[:, None], t_new, t)
+        lam = torch.where(accept, lam * 0.33, lam * 4.0)
+        cost = torch.where(accept, new_cost, cost)
+    return q, t, cost
+
+
+def pose_refinement(camera: Camera, qvec, tvec, X, xy, iters: int = 30,
+                    device=None) -> Dict:
+    """Pose-only damped Gauss-Newton on reprojection error (the refinement
+    stage of ``pycolmap.absolute_pose_estimation``), float32 on ``device``
+    (``cuda`` unless ``"cpu"`` is passed). The JAX package pads the points
+    to a power-of-two bucket with weight-0 rows; eager torch needs no
+    padding, so every weight is 1."""
+    dev = resolve_device(device)
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)[None]
+
+    X = np.asarray(X, np.float64).reshape(-1, 3)
+    q, t, cost = _pose_refine_batch(
+        camera.model, put(camera.params), put(qvec), put(tvec), put(X),
+        put(np.asarray(xy).reshape(-1, 2)),
+        torch.ones((1, len(X)), device=dev), iters)
+    out = torch.cat([q[0], t[0], cost]).cpu().numpy().astype(np.float64)
+    return dict(qvec=out[:4], tvec=out[4:7], cost=float(out[7]))
 
 
 # ---------------------------------------------------------------------------

@@ -73,9 +73,12 @@ def test_default_configs_match_jax():
 
 
 def test_unported_strategies_raise():
-    with pytest.raises(NotImplementedError):
-        tmain.KeypointAdjuster.create({"strategy": "topological_reference"},
-                                      device="cpu")
+    """Multi-device KA is not ported and raises; ``topological_reference``
+    is ported and dispatches to its adjuster, as in the JAX package."""
+    ka = tmain.KeypointAdjuster.create({"strategy": "topological_reference"},
+                                       device="cpu")
+    assert type(ka).__name__ == type(jmain.KeypointAdjuster.create(
+        {"strategy": "topological_reference"})).__name__
     with pytest.raises(NotImplementedError):
         tmain.KeypointAdjuster({"parallel": {"enabled": True}},
                                device="cpu")

@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax():
                  "sfm.synthetic", "sfm.triangulation", "util.database",
                  "util.colmap", "refine_colmap", "refine_hloc",
                  "localization.pnp", "sfm.two_view", "sfm.mapper",
-                 "features.models.dsift", "features.models.image"):
+                 "features.models.dsift", "features.models.image",
+                 "localization.main", "localize"):
         assert f"pixsfm_tpu_torch.{name}" in _module_names()
 
 
@@ -102,6 +103,40 @@ def test_cuda_entry_points_raise_without_gpu():
         solver.solve_ka_problems(problems, np.zeros((1, 16, 16, 8)),
                                  solver.InterpolationConfig(),
                                  solver.RobustLoss(), solver.LMOptions())
+    from pixsfm_tpu_torch.localization import (QueryBundleAdjuster,
+                                               QueryKeypointAdjuster,
+                                               QueryLocalizer,
+                                               pose_refinement)
+    from pixsfm_tpu_torch.localize import main as localize_main
+    for cls in (QueryKeypointAdjuster, QueryBundleAdjuster):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        QueryLocalizer(Reconstruction(), references=[{}])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pose_refinement(cam, [1.0, 0, 0, 0], np.zeros(3), np.ones((8, 3)),
+                        np.zeros((8, 2)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solver.evaluate_descriptors(np.zeros((1, 16, 16, 8)), [0],
+                                    np.zeros((1, 2)), np.zeros((1, 2)),
+                                    np.ones((1, 2)), np.ones(1),
+                                    solver.InterpolationConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solver.solve_target_problems(
+            np.zeros((1, 2)), [0], np.zeros((1, 2)), np.ones((1, 2)),
+            np.ones(1), np.zeros((1, 1, 8)), np.ones((1, 1)),
+            np.zeros((1, 2)), np.ones((1, 2)), np.zeros((1, 16, 16, 8)),
+            solver.InterpolationConfig(), solver.RobustLoss(),
+            solver.LMOptions())
+    tmain = __import__("pixsfm_tpu_torch.keypoint_adjustment.main",
+                       fromlist=["KeypointAdjuster"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmain.KeypointAdjuster.create({"strategy": "topological_reference"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        localize_main(["--reference_sfm", "m", "--queries", "q",
+                       "--features_path", "f", "--pairs_path", "p",
+                       "--matches_path", "m", "--image_dir", "i",
+                       "--output_path", "o"])
 
 
 def test_reconstruction_is_ported():

@@ -544,3 +544,159 @@ def test_dsift_cuda_matches_cpu(dev, rootsift, bs):
     a = DSIFT(conf, device="cpu")(img)[0]
     b = DSIFT(conf, device="cuda")(img.to(dev))[0].cpu()
     torch.testing.assert_close(b, a, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# localization: the fixed-target solver (K1), QKA, QBA, the localizer
+# ---------------------------------------------------------------------------
+
+def test_evaluate_descriptors_through_k1_matches_plain(dev):
+    """``evaluate_descriptors`` launches K1 once per chunk of 1024 queries
+    and agrees with the plain version on the CPU (float32, 2e-5)."""
+    import numpy as np
+    from pixsfm_tpu_torch.base.interpolation import InterpolationConfig
+    from pixsfm_tpu_torch.keypoint_adjustment.solver import \
+        evaluate_descriptors
+    rng = np.random.default_rng(2)
+    patches = rng.normal(size=(300, 16, 16, 128)).astype(np.float32)
+    n = 2500
+    rows = rng.integers(0, 300, n)
+    corners = rng.integers(0, 1500, (300, 2)).astype(np.float32)
+    kps = corners[rows] + 0.5 + rng.uniform(-1, 17, (n, 2))
+    args = (rows, kps, corners[rows], np.ones((n, 2), np.float32),
+            np.ones(n, np.float32), InterpolationConfig())
+    before = interpolate_cuda.launches
+    got = evaluate_descriptors(torch.as_tensor(patches, device=dev), *args)
+    assert interpolate_cuda.launches == before + 3
+    want = evaluate_descriptors(patches, *args, device="cpu")
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def _loc_scene(seed=31, n_images=6, n_points=60, C=16, ps=16, qid=6):
+    """A featuremetric scene in the port's data model alone (the card has
+    no JAX): linear descriptor fields anchored at each point's true
+    projection; image ``qid`` held out as the query. Returns (the model
+    without it, its feature manager, the query's (camera, true pose,
+    correspondences, keypoints moved by U(-1, 1) px, featuremap))."""
+    import numpy as np
+    from pixsfm_tpu_torch.features.featuremaps import FeatureMap, FeatureSet
+    from pixsfm_tpu_torch.sfm.synthetic import synthetic_reconstruction
+    rec = synthetic_reconstruction(n_images=n_images, n_points=n_points,
+                                   noise_px=0.0, seed=seed)
+    rng = np.random.default_rng(seed)
+    sig = {p: rng.normal(0, 1, C) for p in rec.points3D}
+    grad = {p: rng.normal(0, 0.1, (C, 2)) for p in rec.points3D}
+    fset = FeatureSet(C, ps, "float32")
+    rr, cc = np.meshgrid(np.arange(ps), np.arange(ps), indexing="ij")
+    for im in rec.images.values():
+        ids, patches, corners = [], [], []
+        for idx, pid in enumerate(im.point3D_ids):
+            if pid < 0:
+                continue
+            xy = im.xys[idx]
+            corner = np.floor(xy - ps / 2).astype(np.int64)
+            dx = corner[0] + cc + 0.5 - xy[0]
+            dy = corner[1] + rr + 0.5 - xy[1]
+            patches.append(sig[pid] + grad[pid][:, 0] * dx[..., None]
+                           + grad[pid][:, 1] * dy[..., None])
+            ids.append(idx)
+            corners.append(corner)
+        fset.emplace(im.name, FeatureMap.from_arrays(
+            np.stack(patches).astype(np.float32), ids, np.stack(corners),
+            np.ones(2)))
+    query = rec.images[qid]
+    model = rec.copy()
+    for p in model.points3D.values():
+        p.track = [(i, j) for (i, j) in p.track if i != qid]
+    del model.images[qid]
+    model.points3D = {p: v for p, v in model.points3D.items()
+                      if v.track_length >= 2}
+    p2D = [i for i, p in enumerate(query.point3D_ids)
+           if p >= 0 and p in model.points3D]
+    p3D = [int(query.point3D_ids[i]) for i in p2D]
+    kps = query.xys.copy()
+    kps[p2D] += rng.uniform(-1, 1, (len(p2D), 2))
+
+    class _Manager:
+        num_levels = 1
+
+        def fset(self, level):
+            return fset
+
+    return model, _Manager(), (rec.cameras[query.camera_id],
+                               (query.qvec, query.tvec), p2D, p3D, kps,
+                               fset.get_map(query.name))
+
+
+def _loc_conf(qba_steps=10):
+    return {"interpolation": {"mode": "BICUBIC", "l2_normalize": True},
+            "references": {"iters": 20, "keep_observations": True},
+            "QKA": {"optimizer": {"solver": {"max_num_iterations": 20}}},
+            "QBA": {"optimizer": {"solver": {
+                "max_num_iterations": qba_steps}}}}
+
+
+def test_qka_and_qba_cuda_match_cpu(dev):
+    """QKA (fixed-target LM through K1) and QBA (exact Newton steps) on the
+    card against the CPU on the same query: keypoints within 1e-3 px,
+    poses within 1e-4, costs rtol 1e-4."""
+    import numpy as np
+    from pixsfm_tpu_torch.features.featuremaps import FeatureMap
+    from pixsfm_tpu_torch.localization import (QueryBundleAdjuster,
+                                               QueryKeypointAdjuster,
+                                               QueryLocalizer)
+    model, mgr, (cam, (qv, tv), p2D, p3D, kps, fmap) = _loc_scene()
+    loc = QueryLocalizer(model, _loc_conf(), dense_features=mgr,
+                         device="cpu")
+    refs = [loc.references[0][p].descriptor for p in p3D]
+    X = [model.points3D[p].xyz for p in p3D]
+    card = dev.type
+    fmaps = {"cpu": fmap, card: FeatureMap(fmap.patches.to(dev),
+                                           fmap.keypoint_ids(),
+                                           fmap.corners, fmap.scale)}
+    kp, qka_out, qba_out = {}, {}, {}
+    for d in ("cpu", card):
+        kp[d] = kps[p2D].copy()
+        before = interpolate_cuda.launches
+        qka_out[d] = QueryKeypointAdjuster(_loc_conf()["QKA"], device=d) \
+            .refine(kp[d], fmaps[d], refs, p2D)
+        if d == "cuda":
+            assert interpolate_cuda.launches > before
+        qba_out[d] = QueryBundleAdjuster(_loc_conf()["QBA"], device=d) \
+            .refine(qv + 1e-3, tv + 5e-3, cam, X, fmaps[d], refs,
+                    point2D_idxs=p2D)
+    np.testing.assert_allclose(kp[card], kp["cpu"], atol=1e-3)
+    for key in ("initial_cost", "final_cost"):
+        np.testing.assert_allclose(qka_out[card][key], qka_out["cpu"][key],
+                                   rtol=1e-4, atol=1e-8)
+        np.testing.assert_allclose(qba_out[card][key], qba_out["cpu"][key],
+                                   rtol=1e-4, atol=1e-8)
+    for key in ("qvec", "tvec"):
+        np.testing.assert_allclose(qba_out[card][key], qba_out["cpu"][key],
+                                   atol=1e-4)
+
+
+def test_localize_cuda_matches_cpu(dev):
+    """``QueryLocalizer.localize`` and ``localize_batch`` on the card
+    against the CPU: the same success and inliers, poses within 1e-4."""
+    import numpy as np
+    from pixsfm_tpu_torch.features.featuremaps import FeatureMap
+    from pixsfm_tpu_torch.localization import QueryLocalizer
+    model, mgr, (cam, gt, p2D, p3D, kps, fmap) = _loc_scene()
+    out = {}
+    for d in ("cpu", dev.type):
+        loc = QueryLocalizer(model, _loc_conf(), dense_features=mgr,
+                             device=d)
+        fm = FeatureMap(fmap.patches.to(d), fmap.keypoint_ids(),
+                        fmap.corners, fmap.scale)
+        out[d] = [loc.localize(kps, p2D, p3D, cam, query_fmaps=[fm])] \
+            + loc.localize_batch([dict(keypoints=kps, pnp_point2D_idxs=p2D,
+                                       pnp_points3D_id=p3D,
+                                       query_camera=cam,
+                                       query_fmaps=[fm])])
+    for a, b in zip(out[dev.type], out["cpu"]):
+        assert a["success"] and b["success"]
+        assert a["inliers"] == b["inliers"]
+        np.testing.assert_allclose(a["qvec"], b["qvec"], atol=1e-4)
+        np.testing.assert_allclose(a["tvec"], b["tvec"], atol=1e-4)
+        np.testing.assert_allclose(a["tvec"], gt[1], atol=0.05)
