@@ -141,6 +141,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    QBA steps within 1e-4), the launches and device-idle share of one QKA
    and one 10-step QBA call under the profiler, and K1 timed at this
    path's QKA shape.
+19. The ``low_memory`` preset (topological_reference KA, 8 px bf16
+   patches, costmap BA). (b) Phase 12's small scene (4500 observations):
+   the cost patches of ``extract_costmaps`` on ``cuda`` and on ``cpu``,
+   each device extracting its own references, within 1e-5 of the largest
+   value; then the preset's points-only costmap BA
+   (``LOWMEM_CPU_BA_ITERATIONS`` LM iterations) on each device from the
+   same cost patches: without inner iterations final cost rtol 1e-4,
+   points 1e-3; as shipped (inner iterations on) beside two witnesses on
+   each device, the same solve with another ``obs_chunk`` and from
+   starting points one float32 step away: the median point within 1e-4,
+   and cost rtol 1e-3 with at most 1 % of the points beyond 1e-3 or no
+   further apart than twice the farthest witness. (c) Phase 9's scene
+   (56 views of 1600x1200, 40 000 points, its starting state) through
+   ``run_ba`` with the ``costmaps`` strategy, 8 px patches, poses free,
+   ``LOWMEM_BA_ITERATIONS`` LM iterations: the stages, grid T,
+   iterations, costs, the point error to the truth (mean, median and the
+   points that end over 10x the starting mean), the launches
+   (counters zeroed just before, read just after: K1 and K3a/b/c must
+   launch, the grid regime must be chosen, the cost must fall) and the
+   peak device memory beside phase 9's ``feature_reference`` run; then
+   the same under the profiler (``LOWMEM_PROFILE_ITERATIONS``), and the
+   chunked costmap extraction timed at that size beside its bound.
+   (a) K1 at the preset's shape: one query per observation of (c) over
+   one bf16 8x8x128 patch each (the references' launch), as phase 2
+   checks it. (d) The body of ``PixSfM("low_memory").triangulation`` on
+   phase 11's scene: stage times, the keypoint error to the true
+   projections and the point error to the truth, K1 launches (counters
+   zeroed just before, read just after).
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA, BA, triangulation), its error against the plain version, its
@@ -158,8 +186,11 @@ printed with each case); K1, which every path launches at different shapes, has
 one entry per path (``"path": "KA"`` / ``"BA"`` / ``"triangulation"`` /
 ``"reconstruction"`` / ``"localization"``, the middle two timed at their
 path's BA shape, the last at its QKA shape) with that
-path's launches and the figures at its shape; K2's entry sums its launches over the paths and lists them in
-``launches_by_path``; and last ``{"ok": true, "device": {...}}``.
+path's launches and the figures at its shape (``"low_memory"``: the
+launches of 19(c) and 19(d), split in ``launches_by_run``, and K1 timed
+at 19(a)); K2's and K3a/b/c's entries sum their launches over the paths
+and list them in ``launches_by_path`` (K3's ``in_situ_low_memory_ms``
+from 19(c)); and last ``{"ok": true, "device": {...}}``.
 
 The weights are S2DNet's deterministic random init (no checkpoint ships
 with the repository); the scenes are made from seeds with numpy.
@@ -1741,6 +1772,376 @@ def localization_phase(torch, np, interpolate_cuda, profile_out=None):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 19: the low_memory preset
+# ---------------------------------------------------------------------------
+
+# (b): the preset's points-only BA, LM iterations on each device
+LOWMEM_CPU_BA_ITERATIONS = 10
+# (b): the observation chunk of the same-device witness (8192 otherwise)
+LOWMEM_WITNESS_CHUNK = 1024
+# (c): LM iterations of costmap BA on phase 9's scene, cut from
+# BA_ITERATIONS to keep phase 19 near 150 s (each takes 0.8-1.7 s of
+# host), and of its profiled run (tabulating the profile of one LM
+# iteration, ~200 000 launches, takes ~30 s)
+LOWMEM_BA_ITERATIONS = 15
+LOWMEM_PROFILE_ITERATIONS = 1
+
+
+def feature_set_on(fset, device):
+    """A copy of a sparse FeatureSet with its patches on ``device``."""
+    from pixsfm_tpu_torch.features.featuremaps import FeatureMap, FeatureSet
+    out = FeatureSet(fset.channels, fset.patch_size, fset.dtype)
+    for name, m in fset.maps.items():
+        out.emplace(name, FeatureMap(
+            m.patches.to(device), m.keypoint_ids(), m.corners, m.scale,
+            upsampling_factor=m.upsampling_factor))
+    return out
+
+
+def costmaps_cuda_vs_cpu(torch, np, PixSfM, load_config):
+    """Phase 19(b): costmap extraction and the preset's costmap BA on the
+    card against the CPU, from identical inputs (phase 12's small scene)."""
+    from pixsfm_tpu_torch.base.interpolation import InterpolationConfig
+    from pixsfm_tpu_torch.bundle_adjustment import CostMapBundleAdjuster
+    from pixsfm_tpu_torch.bundle_adjustment.costmaps import (
+        costmap_solve, extract_costmaps)
+    from pixsfm_tpu_torch.extract import features_from_reconstruction
+    rec, views, _ = make_ba_scene(torch, np, seed=13, n_views=12,
+                                  n_points=1500, W=640, H=480,
+                                  device="cuda", min_track=3, max_track=3)
+
+    def preset(inner):
+        return load_config("low_memory", extra={"mapping": {"BA": {
+            "optimizer": {"solver": {
+                "max_num_iterations": LOWMEM_CPU_BA_ITERATIONS,
+                "use_inner_iterations": inner}}}}})
+
+    class Rechunked(CostMapBundleAdjuster):
+        """The same solve with another observation chunk: only the
+        summation order of the normal equations changes."""
+        def _ba_options(self, **overrides):
+            return super()._ba_options(obs_chunk=LOWMEM_WITNESS_CHUNK,
+                                       **overrides)
+
+    sfm = PixSfM(preset(True), device="cuda")
+    fset = features_from_reconstruction(sfm.extractor, rec, views).fset(0)
+    ba_conf = sfm.bundle_adjuster.conf
+    interp = InterpolationConfig.from_conf(ba_conf.interpolation)
+    n_obs = sum(len(m) for m in fset.maps.values())
+
+    def stack(cset):
+        return torch.cat([m.patches.float().cpu()
+                          for m in cset.maps.values()])
+
+    # each device extracts its own references (K1 on the card)
+    c_cpu, c_dev = (extract_costmaps(rec, feature_set_on(fset, d),
+                                     ba_conf.costmaps, ba_conf.references,
+                                     interp)[0] for d in ("cpu", "cuda"))
+    want = stack(c_cpu)
+    scale = float(want.abs().max())
+    err = float((stack(c_dev) - want).abs().max()) / scale
+    print(f"phase 19(b): {len(views)} views, {len(rec.points3D)} points, "
+          f"{n_obs} observations: cost patches cuda vs cpu {err:.2e} of "
+          f"the largest value {scale:.4g} (limit 1e-5)")
+    if not err <= 1e-5:
+        raise SystemExit("costmap extraction: cuda and cpu disagree")
+
+    confs = {True: ba_conf, False: PixSfM(
+        preset(False), device="cuda").bundle_adjuster.conf}
+
+    def solve(inner, device, cls=CostMapBundleAdjuster, nudge=False):
+        r = rec.copy()
+        if nudge:   # each starting coordinate one float32 step up
+            for p in r.points3D.values():
+                p.xyz = np.nextafter(p.xyz.astype(np.float32),
+                                     np.float32(np.inf)).astype(np.float64)
+        out = costmap_solve(cls(confs[inner], device=device), r,
+                            feature_set_on(c_cpu, device))
+        if not out["final_cost"] < out["initial_cost"]:
+            raise SystemExit("costmap BA: the cost did not fall")
+        return out, np.stack([r.points3D[p].xyz for p in sorted(r.points3D)])
+
+    def gap(a, b):
+        d = np.abs(a[1] - b[1]).max(axis=1)
+        return (abs(a[0]["final_cost"] - b[0]["final_cost"])
+                / abs(b[0]["final_cost"]), float(d.max()),
+                float(np.median(d)), int((d > 1e-3).sum()))
+
+    def show(g):
+        return (f"cost rel {g[0]:.2e}, points max {g[1]:.2e} / median "
+                f"{g[2]:.2e}, {g[3]} beyond 1e-3")
+
+    for inner in (False, True):
+        run = {d: solve(inner, d) for d in ("cuda", "cpu")}
+        g = gap(run["cuda"], run["cpu"])
+        o = run["cuda"][0]
+        print(f"phase 19(b): points-only costmap BA, inner iterations "
+              f"{'on (as shipped)' if inner else 'off'}, {o['iterations']} "
+              f"LM iterations ({o['linear_solver']} step), the same cost "
+              f"patches: cost {o['initial_cost']:.6f} -> cuda "
+              f"{o['final_cost']:.6f} / cpu {run['cpu'][0]['final_cost']:.6f}"
+              f"; cuda vs cpu {show(g)}")
+        if not inner:
+            # the tolerances of tests/test_torch_ba.py::
+            # test_adjuster_refine_matches
+            print("phase 19(b): limits without inner iterations: cost rtol "
+                  "1e-4, points 1e-3")
+            if not (g[0] <= 1e-4 and g[1] <= 1e-3):
+                raise SystemExit("costmap BA: cuda and cpu disagree")
+            continue
+        # the witnesses, on each device: the same solve with another
+        # observation chunk, and from starting points one float32 step
+        # away. Rounding of that size parts a few near-singular points on
+        # one device as across two (ROADMAP.md section 3). Held: the
+        # median point within 1e-4 (a fault of one device would move most
+        # points), and either cost rtol 1e-3 with at most 1 % of the
+        # points beyond 1e-3, or no further apart than twice the farthest
+        # witness
+        wit = []
+        for d in ("cuda", "cpu"):
+            wit += [gap(solve(True, d, Rechunked), run[d]),
+                    gap(solve(True, d, nudge=True), run[d])]
+            print(f"phase 19(b): witness on {d}, obs_chunk "
+                  f"{LOWMEM_WITNESS_CHUNK}: {show(wit[-2])}; points one "
+                  f"float32 step away: {show(wit[-1])}")
+        far = [max(w[k] for w in wit) for k in range(4)]
+        n_max = len(rec.points3D) // 100
+        print(f"phase 19(b): limits with inner iterations: median 1e-4, and "
+              f"cost rtol 1e-3 with at most {n_max} points beyond 1e-3 or "
+              f"within twice the farthest witness (cost {2 * far[0]:.2e}, "
+              f"points {2 * far[1]:.2e}, {2 * far[3]} beyond 1e-3)")
+        if not g[2] <= 1e-4 or not (
+                (g[0] <= 1e-3 and g[3] <= n_max)
+                or (g[0] <= 2 * far[0] and g[1] <= 2 * far[1]
+                    and g[3] <= 2 * far[3])):
+            raise SystemExit("costmap BA (inner iterations): cuda and cpu "
+                             "disagree")
+
+
+def costmap_extraction_timing(torch, n_obs, ps=8, C=128):
+    """The chunked costmap extraction (``costmap_patches``, plain PyTorch)
+    on the card at ``n_obs`` observations of bf16 ``ps x ps x C`` patches,
+    timed with CUDA events, beside its bound (each patch read once, each
+    cost patch written once)."""
+    from pixsfm_tpu_torch.base.losses import make_loss
+    from pixsfm_tpu_torch.bundle_adjustment.costmaps import costmap_patches
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    patches = torch.randn((n_obs, ps, ps, C), generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+    rows = torch.arange(n_obs, device="cuda")
+    targets = torch.randn((n_obs, C), generator=gen, device="cuda")
+    loss = make_loss({"name": "cauchy", "params": [0.25]})
+    ms = _time_ms(lambda: costmap_patches(patches, rows, targets, loss,
+                                          True), reps=3, warmup=1)
+    bytes_ = n_obs * (ps * ps * C * 2 + C * 4 + 8 + ps * ps * 3 * 4)
+    flops = n_obs * ps * ps * C * 16
+    bound_ms, bound_by = _bound(bytes_, flops)
+    del patches, targets
+    torch.cuda.empty_cache()
+    return ms, bound_ms, bound_by, bytes_
+
+
+def true_projections(np, truth):
+    """{view name: the true (noise-free) projection of each keypoint's
+    point} of a scene of :func:`make_ba_scene`."""
+    from pixsfm_tpu_torch.base.projection import project_np
+    out = {}
+    for im in truth.images.values():
+        X = np.stack([truth.points3D[int(p)].xyz for p in im.point3D_ids])
+        out[im.name], _ = project_np(truth.cameras[im.camera_id], im.qvec,
+                                     im.tvec, X)
+    return out
+
+
+def low_memory_phase(torch, np, PixSfM, load_config, interpolate_cuda,
+                     cg_cuda, schur_cuda, ba_scene, tri_scene, mem_peak_ba,
+                     profile_out=None):
+    """Phase 19: the ``low_memory`` preset. ``ba_scene``: phase 9's
+    (reconstruction at its starting state, decoded views, truth);
+    ``tri_scene``: phase 11's (reference model, views, keypoints, matches,
+    scores, truth, the unrefined and the default config's point errors,
+    the number of points); ``mem_peak_ba``: phase 9's peak device memory
+    above its start (bytes). Returns the launches (path, (c), (d)), K1's
+    figures at the preset's shape, the in-situ times of (c) and the
+    phase's other figures."""
+    import tempfile
+    from pixsfm_tpu_torch.extract import features_from_reconstruction
+    t19 = time.perf_counter()
+    rec_lowmem, views, truth = ba_scene
+    (reference, views_t, kps_t, matches_t, scores_t, truth_t, err_raw,
+     err_tri, n_tri_pts) = tri_scene
+    torch.cuda.empty_cache()
+    costmaps_cuda_vs_cpu(torch, np, PixSfM, load_config)
+    # (c) phase 9's scene: run_ba with costmaps, 8 px patches, poses free
+    lm_conf = {"dense_features": {"patch_size": 8}, "mapping": {"BA": {
+        "strategy": "costmaps", "optimizer": {"solver": {
+            "max_num_iterations": LOWMEM_BA_ITERATIONS}}}}}
+    sfm_lm = PixSfM(lm_conf, device="cuda")
+    rec_lm_profile = rec_lowmem.copy()
+    err0 = point_error(np, rec_lowmem, truth)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    interpolate_cuda.launches = 0
+    cg_cuda.launches = 0
+    for name in schur_cuda.launches:
+        schur_cuda.launches[name] = 0
+    mem_base_lm = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out_lm = sfm_lm.run_ba(rec_lowmem, views)
+    torch.cuda.synchronize()
+    wall_lm = time.perf_counter() - t0
+    mem_peak_lm = torch.cuda.max_memory_allocated() - mem_base_lm
+    launches_lm_ba = {"K1": interpolate_cuda.launches,
+                      "K2": cg_cuda.launches,
+                      "K3a": schur_cuda.launches["matvec"],
+                      "K3b": schur_cuda.launches["rhs"],
+                      "K3c": schur_cuda.launches["backsub"]}
+    ol = {k: v[0] for k, v in out_lm.items()}
+    err1 = point_error(np, rec_lowmem, truth)
+    med0, med1 = (float(np.median([np.linalg.norm(
+        r.points3D[p].xyz - q.xyz) for p, q in truth.points3D.items()]))
+        for r in (rec_lm_profile, rec_lowmem))
+    n_far = sum(np.linalg.norm(rec_lowmem.points3D[p].xyz - q.xyz)
+                > 10 * err0 for p, q in truth.points3D.items())
+    t_ext_lm = wall_lm - ol["references_time"] - ol["costmap_time"] \
+        - ol["time"]
+    print(f"phase 19(c): run_ba (costmaps, 8 px patches, poses free) on "
+          f"phase 9's scene {wall_lm:.2f} s (extraction + packing "
+          f"{t_ext_lm:.2f} s, references {ol['references_time']:.2f} s, "
+          f"costmap extraction {ol['costmap_time']:.2f} s, BA solve "
+          f"{ol['time']:.2f} s), grid T {ol['obs_grid_T']}, LM iterations "
+          f"{ol['iterations']}, CG iterations {ol['cg_iterations']}, cost "
+          f"{ol['initial_cost']:.6f} -> {ol['final_cost']:.6f}, point error "
+          f"to truth {err0:.5f} -> {err1:.5f} (median {med0:.5f} -> "
+          f"{med1:.5f}; {n_far} points end over 10x the mean starting "
+          f"error from the truth), launches {launches_lm_ba}; "
+          f"peak device memory {mem_peak_lm / 1e9:.2f} GB above the "
+          f"{mem_base_lm / 1e9:.2f} GB allocated before (feature_reference, "
+          f"16 px, phase 9: {mem_peak_ba / 1e9:.2f} GB)")
+    if not all(np.isfinite(im.qvec).all() and np.isfinite(im.tvec).all()
+               for im in rec_lowmem.images.values()) or not all(
+            np.isfinite(p.xyz).all() for p in rec_lowmem.points3D.values()):
+        raise SystemExit("non-finite poses or points after costmap BA")
+    if ol["obs_grid_T"] != 8:
+        raise SystemExit(f"costmap BA did not take the grid regime: {ol}")
+    if not ol["final_cost"] < ol["initial_cost"]:
+        raise SystemExit("costmap BA cost did not fall")
+    if min(launches_lm_ba[k] for k in ("K1", "K3a", "K3b", "K3c")) <= 0:
+        raise SystemExit(f"a kernel did not launch on the costmap BA path: "
+                         f"{launches_lm_ba}")
+    # where its time goes (a second run, not counted)
+    sfm_lm_prof = PixSfM({**lm_conf, "mapping": {"BA": {
+        "strategy": "costmaps", "optimizer": {"solver": {
+            "max_num_iterations": LOWMEM_PROFILE_ITERATIONS}}}}},
+        device="cuda")
+    fm_lm = features_from_reconstruction(sfm_lm_prof.extractor,
+                                         rec_lm_profile, views)
+    out_lp, t_lmp, busy_lmp, kern_lmp, tab_lmp = profile_stage(
+        torch, lambda: sfm_lm_prof.bundle_adjuster.refine_multilevel(
+            rec_lm_profile, fm_lm))
+    del fm_lm
+    print(f"phase 19(c) (under the profiler): references + costmaps + BA "
+          f"({LOWMEM_PROFILE_ITERATIONS} LM iteration, "
+          f"{out_lp['cg_iterations'][0]} CG iterations) {t_lmp:.3f} s wall, "
+          f"{busy_lmp:.3f} s device busy (idle share "
+          f"{1 - busy_lmp / t_lmp:.2f}); references "
+          f"{out_lp['references_time'][0]:.3f} s, costmaps "
+          f"{out_lp['costmap_time'][0]:.3f} s, BA solve "
+          f"{out_lp['time'][0]:.3f} s")
+    for name, calls, dev_ms in kern_lmp[:8]:
+        print(f"  costmap BA: {dev_ms:9.3f} ms in {calls:6d} launches  "
+              f"{name[:90]}")
+    in_situ_lm = _in_situ(kern_lmp, {"K3a": "matvec_kernel",
+                                     "K3b": "rhs_kernel",
+                                     "K3c": "backsub_kernel",
+                                     "K1": "interp_kernel"}, launches_lm_ba)
+    print(f"phase 19(c): in-situ device ms per launch {in_situ_lm}")
+    if profile_out:
+        with open(Path(profile_out) / "chip_smoke_profile.txt",
+                  "a") as fh:
+            fh.write(f"\n\n== low_memory: costmap BA "
+                     f"({LOWMEM_PROFILE_ITERATIONS} LM iteration) ==\n"
+                     f"{tab_lmp}\n")
+    n_obs_lm = sum(p.track_length for p in rec_lowmem.points3D.values())
+    del sfm_lm, sfm_lm_prof, rec_lowmem, rec_lm_profile, views, truth, \
+        ba_scene
+    torch.cuda.empty_cache()
+    cm_ms, cm_bound, cm_bound_by, cm_bytes = costmap_extraction_timing(
+        torch, n_obs_lm)
+    print(f"phase 19(c): costmap extraction (chunked PyTorch, "
+          f"{n_obs_lm} observations of bf16 8x8x128) {cm_ms:.3f} ms, bound "
+          f"{cm_bound:.3f} ms ({cm_bound_by}, {cm_bytes / 1e9:.2f} GB)")
+    # (a) K1 at the preset's shape: the references' one launch, one query
+    # per observation of (c) over one bf16 8 px patch each
+    k1_lm = check_k1(torch, interpolate_cuda, n_patches=n_obs_lm,
+                     n_queries=n_obs_lm, dtypes=(torch.bfloat16,), ps=8)
+    torch.cuda.empty_cache()
+    # (d) the shipped preset end to end on phase 11's scene
+    tmp19 = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    proj_t = true_projections(np, truth_t)
+    names_t = sorted(kps_t)
+    def kp_error(kps):
+        return float(np.mean(np.concatenate([
+            np.linalg.norm(kps[n] - proj_t[n], axis=1) for n in names_t])))
+
+    kp_err0 = kp_error(kps_t)
+    sfm_pre = PixSfM(load_config("low_memory"), device="cuda")
+    kps_d = {k: v.copy() for k, v in kps_t.items()}
+    torch.cuda.synchronize()
+    interpolate_cuda.launches = 0
+    cg_cuda.launches = 0
+    for name in schur_cuda.launches:
+        schur_cuda.launches[name] = 0
+    t0 = time.perf_counter()
+    rec_pre, out_pre = sfm_pre._triangulation(
+        Path(tmp19.name) / "low_memory", reference, views_t, kps_d,
+        matches_t, scores_t)
+    torch.cuda.synchronize()
+    wall_pre = time.perf_counter() - t0
+    launches_lm_tri = {"K1": interpolate_cuda.launches,
+                       "K2": cg_cuda.launches,
+                       "K3a": schur_cuda.launches["matvec"],
+                       "K3b": schur_cuda.launches["rhs"],
+                       "K3c": schur_cuda.launches["backsub"]}
+    tmp19.cleanup()
+    pka = {k: v[0] for k, v in out_pre["KA"].items()}
+    pba = {k: v[0] for k, v in out_pre["BA"].items()}
+    kp_err1 = kp_error(kps_d)
+    err_pre = triangulated_error(np, rec_pre, truth_t)
+    print(f"phase 19(d): PixSfM(low_memory)._triangulation on phase 11's "
+          f"scene {wall_pre:.2f} s (KA {pka['time']:.2f} s, "
+          f"{pka['num_problems']} problems, {pka['iterations']} LM "
+          f"iterations, cost {pka['initial_cost']:.4f} -> "
+          f"{pka['final_cost']:.4f}; triangulation "
+          f"{out_pre['triangulation']['time']:.2f} s, "
+          f"{len(rec_pre.points3D)} points; BA references "
+          f"{pba['references_time']:.2f} s, costmaps "
+          f"{pba['costmap_time']:.2f} s, solve {pba['time']:.2f} s, "
+          f"{pba['linear_solver']} step, grid T {pba['obs_grid_T']}, "
+          f"{pba['iterations']} LM / {pba['cg_iterations']} CG iterations, "
+          f"cost {pba['initial_cost']:.6f} -> {pba['final_cost']:.6f}); "
+          f"keypoint error to the true projections {kp_err0:.3f} -> "
+          f"{kp_err1:.3f} px; point error to truth {err_raw:.5f} "
+          f"(unrefined keypoints) -> {err_pre:.5f} (default config, phase "
+          f"11: {err_tri:.5f}); launches {launches_lm_tri}")
+    if not all(np.isfinite(p.xyz).all() for p in rec_pre.points3D.values()):
+        raise SystemExit("non-finite points on the low_memory path")
+    if not (pka["final_cost"] < pka["initial_cost"]
+            and pba["final_cost"] <= pba["initial_cost"]):
+        raise SystemExit("low_memory: a cost did not rise or fall as it "
+                         "should")
+    if launches_lm_tri["K1"] <= 0:
+        raise SystemExit("K1 did not launch on the low_memory path")
+    if not len(rec_pre.points3D) >= TRI_MIN_SURVIVING * n_tri_pts:
+        raise SystemExit("low_memory: too few tracks survived")
+    launches_lm = {k: launches_lm_ba[k] + launches_lm_tri[k]
+                   for k in launches_lm_ba}
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s")
+    return launches_lm, launches_lm_ba, launches_lm_tri, k1_lm, in_situ_lm
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", default=None,
@@ -1906,6 +2307,7 @@ def main() -> int:
           f"points, {n_obs} observations made in "
           f"{time.perf_counter() - t0:.1f} s")
     rec_profile = rec.copy()
+    rec_lowmem = rec.copy()          # phase 19(c) starts from the same state
     ba_conf = {"mapping": {"BA": {"optimizer": {"solver": {
         "max_num_iterations": BA_ITERATIONS}}}}}
     sfm_ba = PixSfM(ba_conf, device="cuda")
@@ -1916,10 +2318,13 @@ def main() -> int:
     cg_cuda.launches = 0
     for name in schur_cuda.launches:
         schur_cuda.launches[name] = 0
+    mem_base_ba = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out_ba = sfm_ba.run_ba(rec, views)
     torch.cuda.synchronize()
     wall_ba = time.perf_counter() - t0
+    mem_peak_ba = torch.cuda.max_memory_allocated() - mem_base_ba
     launches_ba = {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches,
                    "K3a": schur_cuda.launches["matvec"],
                    "K3b": schur_cuda.launches["rhs"],
@@ -1935,7 +2340,9 @@ def main() -> int:
           f"{ob['cg_iterations']}, cost {ob['initial_cost']:.4f} -> "
           f"{ob['final_cost']:.4f}, point error to truth {err0:.5f} -> "
           f"{err1:.5f}, reprojection error {reproj0:.3f} -> {reproj1:.3f} "
-          f"px, launches {launches_ba}")
+          f"px, launches {launches_ba}, peak device memory "
+          f"{mem_peak_ba / 1e9:.2f} GB above the {mem_base_ba / 1e9:.2f} GB "
+          f"allocated before")
     finite = all(np.isfinite(im.qvec).all() and np.isfinite(im.tvec).all()
                  for im in rec.images.values()) and all(
         np.isfinite(p.xyz).all() for p in rec.points3D.values())
@@ -1986,8 +2393,9 @@ def main() -> int:
                      f"iterations) ==\n{tab_bap}\n")
 
     # -- phase 11: the triangulation main path at full width -----------------
-    # phase 9's views and patches go first (~16 GB)
-    del rec, views, truth, rec_profile, sfm_ba, sfm_prof
+    # phase 9's patches go first (~16 GB); its decoded views, truth and
+    # starting state stay on the host for phase 19
+    del rec, rec_profile, sfm_ba, sfm_prof
     torch.cuda.empty_cache()
     import tempfile
     from pixsfm_tpu_torch.keypoint_adjustment import build_matching_graph
@@ -2459,19 +2867,28 @@ def main() -> int:
     tmp_dir.cleanup()
 
     # -- phase 18: query localization at full width ----------------------------
-    del views_t, sfm_ds
+    del sfm_ds
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches_loc, k1_loc, in_situ_loc = localization_phase(
         torch, np, interpolate_cuda, profile_out=args.profile_out)
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 19: the low_memory preset -----------------------------------
+    (launches_lm, launches_lm_ba, launches_lm_tri, k1_lm,
+     in_situ_lm) = low_memory_phase(
+        torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
+        schur_cuda, (rec_lowmem, views, truth),
+        (reference, views_t, kps_t, matches_t, scores_t, truth_t, err_raw,
+         err_tri, n_tri_pts), mem_peak_ba, profile_out=args.profile_out)
+    del rec_lowmem, views, truth
+
     # -- report ----------------------------------------------------------------
     # K1 runs on both paths at different shapes: one entry per path, each
     # with that path's launches and the figures measured at its shape
     paths = {"KA": launches, "BA": launches_ba,
              "triangulation": launches_tri, "reconstruction": launches_rc,
-             "localization": launches_loc}
+             "localization": launches_loc, "low_memory": launches_lm}
     both = {k: sum(n.get(k, 0) for n in paths.values())
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
     print(f"launches on the main paths: {paths}")
@@ -2504,6 +2921,14 @@ def main() -> int:
              replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
              launches=launches_loc["K1"], library_ms=None,
              in_situ_ms=in_situ_loc["K1"], **k1_loc),
+        dict(name="bicubic_window_interp_l2", path="low_memory",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_lm["K1"],
+             launches_by_run={"run_ba (costmaps)": launches_lm_ba["K1"],
+                              "triangulation": launches_lm_tri["K1"]},
+             library_ms=None, in_situ_ms=in_situ_lm.get("K1"), **k1_lm),
         dict(name="batched_jacobi_pcg", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/pcg.cu",
              replaces="pixsfm_tpu/ops/cg_pallas.py:88",
@@ -2514,18 +2939,27 @@ def main() -> int:
         dict(name="schur_term_matvec", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",
              replaces="pixsfm_tpu/ops/schur_pallas.py:253",
-             launches=both["K3a"], library_ms=None,
-             in_situ_ms=in_situ["K3a"], **k3["K3a"]),
+             launches=both["K3a"],
+             launches_by_path={n: c.get("K3a", 0)
+                               for n, c in paths.items()},
+             library_ms=None, in_situ_ms=in_situ["K3a"],
+             in_situ_low_memory_ms=in_situ_lm.get("K3a"), **k3["K3a"]),
         dict(name="schur_rhs", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",
              replaces="pixsfm_tpu/ops/schur_pallas.py:280",
-             launches=both["K3b"], library_ms=None,
-             in_situ_ms=in_situ["K3b"], **k3["K3b"]),
+             launches=both["K3b"],
+             launches_by_path={n: c.get("K3b", 0)
+                               for n, c in paths.items()},
+             library_ms=None, in_situ_ms=in_situ["K3b"],
+             in_situ_low_memory_ms=in_situ_lm.get("K3b"), **k3["K3b"]),
         dict(name="schur_backsub", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",
              replaces="pixsfm_tpu/ops/schur_pallas.py:302",
-             launches=both["K3c"], library_ms=None,
-             in_situ_ms=in_situ["K3c"], **k3["K3c"]),
+             launches=both["K3c"],
+             launches_by_path={n: c.get("K3c", 0)
+                               for n, c in paths.items()},
+             library_ms=None, in_situ_ms=in_situ["K3c"],
+             in_situ_low_memory_ms=in_situ_lm.get("K3c"), **k3["K3c"]),
     ]}
     print(smi)
     print(json.dumps(kernels_line))

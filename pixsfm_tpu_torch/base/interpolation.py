@@ -12,10 +12,17 @@ kernel is checked against on the card.
 which query bundle adjustment builds its exact Newton Hessian;
 :func:`bounds_violation` is the ``check_bounds`` hinge.
 
-Only BICUBIC / CERES_BICUBIC with one node and without NCC are ported; the
-other modes (bilinear, nearest, gradient fields), node windows and NCC come
-with ROADMAP.md item 'The other BA strategies' and raise
-``NotImplementedError`` here.
+The gradient-field modes (``POLYGRADIENTFIELD``, ``BICUBICGRADIENTFIELD``)
+interpolate the 3- or 4-channel cost patches of costmap BA, batched over
+observations: :func:`gradient_field_eval` returns the value and the
+derivatives d/dr, d/dc, d/drdc (one channel each), what the JAX package's
+``interpolate_residual_with_grad`` returns for them plus the cross
+derivative.
+
+The feature window path takes BICUBIC / CERES_BICUBIC with one node and
+without NCC only (:func:`check_window_config`); bilinear, nearest,
+BICUBICCHAIN, node windows and NCC come with ROADMAP.md item 'The other BA
+strategies' and raise ``NotImplementedError`` there.
 """
 
 from __future__ import annotations
@@ -23,13 +30,14 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Sequence
 
+import numpy as np
 import torch
 
 __all__ = [
     "InterpolationConfig", "INTERPOLATOR_TYPES", "catmull_rom_weights",
     "bicubic_window_eval_rows", "l2_normalize_with_grad",
     "bicubic_window_eval_rows_d2", "check_window_config",
-    "bounds_violation",
+    "bounds_violation", "gradient_field_eval",
 ]
 
 INTERPOLATOR_TYPES = (
@@ -77,6 +85,10 @@ class InterpolationConfig:
 
 def check_window_config(interp: InterpolationConfig) -> None:
     """Raise for configs outside the ported bicubic window path."""
+    if interp.mode in ("POLYGRADIENTFIELD", "BICUBICGRADIENTFIELD"):
+        raise ValueError(
+            f"interpolation mode {interp.mode} interpolates the cost patches "
+            "of costmap BA (gradient_field_eval), not feature patches")
     if interp.mode not in ("BICUBIC", "CERES_BICUBIC"):
         raise NotImplementedError(
             f"interpolation mode {interp.mode} is not ported yet; see "
@@ -204,3 +216,126 @@ def bounds_violation(r, c, H: int, W: int):
     zero = torch.zeros_like(r)
     return (torch.maximum(r - (H - 1.0), zero) + torch.maximum(-r, zero)
             + torch.maximum(c - (W - 1.0), zero) + torch.maximum(-c, zero))
+
+
+# ---------------------------------------------------------------------------
+# gradient-field modes (cost patches of costmap BA), batched over queries
+# ---------------------------------------------------------------------------
+
+def _fit_cubic_poly(p0, p1, s0, s1):
+    """Cubic a+bx+cx^2+dx^3 with p(0)=p0, p(1)=p1, p'(0)=s0, p'(1)=s1."""
+    a = p0
+    b = s0
+    c = 3.0 * (p1 - p0) - 2.0 * s0 - s1
+    d = 2.0 * (p0 - p1) + s0 + s1
+    return a, b, c, d
+
+
+def _bilinear_cell(patches, row, r, c):
+    """Corner values ``ll, lr, ul, ur [n, C]`` of each query's cell, read
+    with the indices clamped into the patch, and the fractional offsets
+    ``dy, dx [n]``. ``patches [B, H, W, C]``, ``row, r, c [n]``."""
+    H, W = patches.shape[1], patches.shape[2]
+    fr, fc = torch.floor(r), torch.floor(c)
+    r0, c0 = fr.to(torch.int64), fc.to(torch.int64)
+    row = row.to(torch.int64)
+
+    def at(rr, cc):
+        return patches[row, torch.clamp(rr, 0, H - 1),
+                       torch.clamp(cc, 0, W - 1)].to(torch.float32)
+
+    return (at(r0, c0), at(r0, c0 + 1), at(r0 + 1, c0), at(r0 + 1, c0 + 1),
+            r - fr, c - fc)
+
+
+def _poly_gradient_field(patches, row, r, c):
+    """PolyGradientFieldInterpolator (interpolation.h:297-362): channels
+    (cost, d/dr, d/dc); horizontal cubics from the values and d/dc at the
+    cell corners, a vertical cubic from the two horizontal values and the
+    lerped d/dr. ``(f, dfdr, dfdc, dfdrc)``, each ``[n]``; dfdrc is 0."""
+    ll, lr, ul, ur, dy, dx = _bilinear_cell(patches, row, r, c)
+
+    def horiz(a, b):
+        co = _fit_cubic_poly(a[:, 0], b[:, 0], a[:, 2], b[:, 2])
+        f = co[0] + dx * (co[1] + dx * (co[2] + co[3] * dx))
+        dfdx = co[1] + dx * (2.0 * co[2] + 3.0 * dx * co[3])
+        return f, dfdx
+
+    lf, lower_dfdc = horiz(ll, lr)
+    uf, upper_dfdc = horiz(ul, ur)
+    lower_dfdr = ll[:, 1] * (1.0 - dx) + lr[:, 1] * dx
+    upper_dfdr = ul[:, 1] * (1.0 - dx) + ur[:, 1] * dx
+    co = _fit_cubic_poly(lf, uf, lower_dfdr, upper_dfdr)
+    f = co[0] + dy * (co[1] + dy * (co[2] + co[3] * dy))
+    dfdr = co[1] + dy * (2.0 * co[2] + 3.0 * dy * co[3])
+    dfdc = upper_dfdc * dy + (1.0 - dy) * lower_dfdc
+    return f, dfdr, dfdc, torch.zeros_like(f)
+
+
+def _bicubic_fit_matrix_np() -> np.ndarray:
+    """16x16 inverse that fits a bicubic surface to the values and the
+    derivatives at the 4 cell corners (interpolation.h:364-386), built in
+    float64 and stored as float32, as the JAX package stores it. Rows of
+    the constraint matrix: values, d/dy, d/dx, d2/dxdy at the corners
+    (x, y) in (0,0), (1,0), (0,1), (1,1); columns the monomials x^i y^j,
+    j-major."""
+    corners = [(0.0, 0.0), (1.0, 0.0), (0.0, 1.0), (1.0, 1.0)]
+
+    def mono(i, j, x, y, dx, dy):
+        def d(e, x, n):
+            coef = 1.0
+            for _ in range(n):
+                coef *= e
+                e -= 1
+            return coef * (x ** e) if e >= 0 else 0.0
+        return d(i, x, dx) * d(j, y, dy)
+
+    A = np.array([[mono(i, j, x, y, dx, dy)
+                   for j in range(4) for i in range(4)]
+                  for dx, dy in [(0, 0), (0, 1), (1, 0), (1, 1)]
+                  for (x, y) in corners], dtype=np.float64)
+    return np.linalg.inv(A).astype(np.float32)
+
+
+_BICUBIC_FIT_A_INV = torch.from_numpy(_bicubic_fit_matrix_np())
+
+
+def _bicubic_gradient_field(patches, row, r, c):
+    """BiCubicGradientFieldInterpolator (interpolation.h:364-477): channels
+    (cost, d/dr, d/dc, d/drdc); a 16-coefficient bicubic surface per cell.
+    ``(f, dfdr, dfdc, dfdrc)``, each ``[n]``."""
+    ll, lr, ul, ur, dy, dx = _bilinear_cell(patches, row, r, c)
+    # [ll, lr, ul, ur] of each channel in turn: the constraint rows' order
+    rhs = torch.stack([ll[:, :4], lr[:, :4], ul[:, :4], ur[:, :4]],
+                      dim=2).reshape(-1, 16)
+    a_inv = _BICUBIC_FIT_A_INV.to(rhs.device)
+    C4 = (rhs @ a_inv.T).reshape(-1, 4, 4)        # [n, j, i]
+    one, zero = torch.ones_like(dx), torch.zeros_like(dx)
+    xp = torch.stack([one, dx, dx * dx, dx * dx * dx], dim=1)
+    yp = torch.stack([one, dy, dy * dy, dy * dy * dy], dim=1)
+    dxp = torch.stack([zero, one, 2.0 * dx, 3.0 * dx * dx], dim=1)
+    dyp = torch.stack([zero, one, 2.0 * dy, 3.0 * dy * dy], dim=1)
+    Cx = torch.einsum("nji,ni->nj", C4, xp)
+    Cdx = torch.einsum("nji,ni->nj", C4, dxp)
+    return ((yp * Cx).sum(1), (dyp * Cx).sum(1), (yp * Cdx).sum(1),
+            (dyp * Cdx).sum(1))
+
+
+_GRADIENT_FIELDS = {"POLYGRADIENTFIELD": _poly_gradient_field,
+                    "BICUBICGRADIENTFIELD": _bicubic_gradient_field}
+
+
+def gradient_field_eval(patches, row, r, c, mode: str):
+    """``(f, dfdr, dfdc, dfdrc)``, each ``[n, 1]`` float32: the
+    gradient-field interpolation of cost patches ``[B, H, W, 3|4]`` at
+    patch coordinates ``(r[n], c[n])`` of patch ``row[n]`` (the JAX
+    package's ``interpolate_with_grad(..., cross=True)`` for these modes,
+    one query at a time). Cell corners are read clamped into the patch;
+    POLYGRADIENTFIELD gives dfdrc = 0."""
+    if mode not in _GRADIENT_FIELDS:
+        raise NotImplementedError(
+            f"interpolation mode {mode} is not a ported gradient field; "
+            "see ROADMAP.md section 1, 'The other BA strategies'")
+    return tuple(o[:, None] for o in _GRADIENT_FIELDS[mode](patches, row,
+                                                             r, c))
+

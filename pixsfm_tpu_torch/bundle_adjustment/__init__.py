@@ -1,7 +1,8 @@
 """Bundle adjustment: problem packing, references, adjusters."""
 
-from .main import (BundleAdjuster, FeatureReferenceBundleAdjuster,  # noqa: F401
-                   GeometricBundleAdjuster)
+from .costmaps import costmap_ba, extract_costmaps  # noqa: F401
+from .main import (BundleAdjuster, CostMapBundleAdjuster,  # noqa: F401
+                   FeatureReferenceBundleAdjuster, GeometricBundleAdjuster)
 from .problem import (BundleAdjustmentSetup, PackedBA,  # noqa: F401
                       default_problem_setup, find_problem_labels,
                       pack_ba_problem)

@@ -1,11 +1,14 @@
 """Bundle adjustment orchestration (reference: pixsfm/bundle_adjustment/main.py).
 
-Port of ``pixsfm_tpu/bundle_adjustment/main.py`` for the ``geometric`` and
-``feature_reference`` strategies. Both funnel into
+Port of ``pixsfm_tpu/bundle_adjustment/main.py`` for the ``geometric``,
+``feature_reference`` and ``costmaps`` strategies. All funnel into
 :func:`pixsfm_tpu_torch.ops.schur.ba_solve` with batched residual closures
 and closed-form Jacobians (``project_with_jac`` + the analytic
 interpolation derivatives). The featuremetric window reads go through
-kernel K1 (``ops/interpolate_cuda.py``), one query per observation.
+kernel K1 (``ops/interpolate_cuda.py``), one query per observation; the
+costmap residual interpolates the float32 cost patches with the gradient
+field of ``base/interpolation.py`` (``bundle_adjustment/costmaps.py``
+extracts them).
 
 ``_run_ba_cached`` pads and lays out the problem exactly as the JAX package
 does (power-of-two buckets, the dense/CG switch by problem size with the
@@ -15,8 +18,8 @@ dispatches the LM in segments when ``segment_iterations > 0``. Scenes with
 several camera models carry each observation's model index; a chunk's
 observations are projected in groups of one model each (the JAX package
 switches per observation with ``lax.switch``). Not ported yet (each raises
-``NotImplementedError``): the ``costmaps`` and ``patch_warp`` strategies
-and ``parallel`` sharding.
+``NotImplementedError``): the ``patch_warp`` strategy and ``parallel``
+sharding, with its ``*_window`` layouts (``costmap_window``).
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from .. import logger, resolve_device
 from ..base import interpolation_default_conf, solver_default_conf
 from ..base.cameras import CAMERA_MODELS, img_from_cam
 from ..base.geometry import apply_pose
-from ..base.interpolation import InterpolationConfig, check_window_config
+from ..base.interpolation import (InterpolationConfig, check_window_config,
+                                  gradient_field_eval)
 from ..base.losses import make_loss
 from ..base.projection import project_with_jac
 from ..config import merge
@@ -46,7 +50,7 @@ from ..ops.schur import (BAObservations, BAOptions, BAState, ba_solve,
 from .problem import PackedBA, pack_ba_problem
 
 __all__ = ["BundleAdjuster", "GeometricBundleAdjuster",
-           "FeatureReferenceBundleAdjuster"]
+           "FeatureReferenceBundleAdjuster", "CostMapBundleAdjuster"]
 
 
 def _not_ported(what: str, item: str):
@@ -137,13 +141,12 @@ def _build_geometric_jac(model):
     return residual_jac_fn
 
 
-class _PatchRows:
-    """The packed patches of a feature-reference solve as K1 reads them:
-    the flat ``[B*H, W, C]`` row view plus per-patch placement."""
+class _Patches:
+    """The placement of a featuremetric solve's packed patches: corner,
+    scale and upsampling of each."""
 
     def __init__(self, pf, dev):
-        B, self.H, self.W, self.C = pf.patches.shape
-        self.rows = pf.patches.reshape(B * self.H, self.W, self.C)
+        _, self.H, self.W, self.C = pf.patches.shape
         self.corners = torch.as_tensor(pf.corners, dtype=torch.float32,
                                        device=dev)
         self.scales = torch.as_tensor(pf.scales, dtype=torch.float32,
@@ -151,15 +154,43 @@ class _PatchRows:
         self.ups = torch.as_tensor(pf.upsampling, dtype=torch.float32,
                                    device=dev)
 
-    def read(self, row, pix, l2: bool):
-        """Patch coords of ``pix`` and the K1 read there:
-        ``(pc [n, 2], su [n, 2], f, dfdr, dfdc)``."""
+    def coords(self, row, pix):
+        """Patch coords ``pc [n, 2]`` of ``pix`` and ``d pc / d pix``."""
         sc, up = self.scales[row], self.ups[row][:, None]
-        pc = (pix * sc - 0.5 - self.corners[row]) * up
+        return (pix * sc - 0.5 - self.corners[row]) * up, sc * up
+
+
+class _PatchRows(_Patches):
+    """The packed feature patches as K1 reads them: the flat ``[B*H, W,
+    C]`` row view."""
+
+    def __init__(self, pf, dev):
+        super().__init__(pf, dev)
+        self.rows = pf.patches.reshape(-1, self.W, self.C)
+
+    def read(self, row, pix, interp: InterpolationConfig):
+        """``(pc [n, 2], d pc / d pix [n, 2], f, dfdr, dfdc)``: the patch
+        coords of ``pix`` and the K1 read there."""
+        pc, su = self.coords(row, pix)
         f, dfdr, dfdc = interpolate_rows(self.rows, self.H, self.W, self.C,
                                          row * self.H, pc[:, 1], pc[:, 0],
-                                         l2)
-        return pc, sc * up, f, dfdr, dfdc
+                                         interp.l2_normalize)
+        return pc, su, f, dfdr, dfdc
+
+
+class _CostPatches(_Patches):
+    """The float32 cost patches ``[B, H, W, 3|4]`` of a costmap solve, read
+    with their gradient field (``[n, 1]`` values)."""
+
+    def __init__(self, pf, dev):
+        super().__init__(pf, dev)
+        self.patches = pf.patches.to(device=dev, dtype=torch.float32)
+
+    def read(self, row, pix, interp: InterpolationConfig):
+        pc, su = self.coords(row, pix)
+        f, dfdr, dfdc, _ = gradient_field_eval(self.patches, row, pc[:, 1],
+                                               pc[:, 0], interp.mode)
+        return pc, su, f, dfdr, dfdc
 
 
 def _bounds_violation(pc, H: int, W: int):
@@ -170,16 +201,47 @@ def _bounds_violation(pc, H: int, W: int):
             + torch.clamp(c - (W - 1.0), min=0.0) + torch.clamp(-c, min=0.0))
 
 
+def _interp_residual(interp: InterpolationConfig, ctx, row, pix,
+                     target=None):
+    """The interpolated patch value at ``pix`` ``[n, D]`` (less ``target``
+    when given), with the ``check_bounds`` violation as one more column."""
+    pc, _, f, _, _ = ctx.read(row, pix, interp)
+    if target is not None:
+        f = f - target
+    if interp.check_bounds:
+        f = torch.cat([f, _bounds_violation(pc, ctx.H, ctx.W)[:, None]],
+                      dim=1)
+    return f
+
+
+def _interp_residual_jac(interp: InterpolationConfig, ctx, row, pix, Jpix,
+                         target=None):
+    """:func:`_interp_residual` and its Jacobian ``[n, D(+1), 6+k+3]``
+    from the pixel Jacobian ``Jpix [n, 2, 6+k+3]``: the shared tail of the
+    featuremetric builders (``_interp_residual_jac``, ``main.py:297`` of
+    the JAX package)."""
+    pc, su, f, dfdr, dfdc = ctx.read(row, pix, interp)
+    if target is not None:
+        f = f - target
+    Jc_ = (su[:, 0, None] * Jpix[:, 0])[:, None, :]
+    Jr_ = (su[:, 1, None] * Jpix[:, 1])[:, None, :]
+    J = dfdc[:, :, None] * Jc_ + dfdr[:, :, None] * Jr_
+    if interp.check_bounds:
+        H, W = ctx.H, ctx.W
+        r_, c_ = pc[:, 1], pc[:, 0]
+        dv_dr = (r_ > H - 1.0).float() - (r_ < 0.0).float()
+        dv_dc = (c_ > W - 1.0).float() - (c_ < 0.0).float()
+        Jv = dv_dc[:, None, None] * Jc_ + dv_dr[:, None, None] * Jr_
+        f = torch.cat([f, _bounds_violation(pc, H, W)[:, None]], dim=1)
+        J = torch.cat([J, Jv], dim=1)
+    return f, J
+
+
 def _build_feature_reference(model, interp: InterpolationConfig):
     def residual_fn(qvec, tvec, cam, X, obs_slice, ctx):
         m, (row, target), mi = _split_models(model, obs_slice, 2)
-        xy = _project(m, cam, qvec, tvec, X, mi)
-        pc, _, f, _, _ = ctx.read(row, xy, interp.l2_normalize)
-        r = f - target
-        if interp.check_bounds:
-            r = torch.cat([r, _bounds_violation(pc, ctx.H, ctx.W)[:, None]],
-                          dim=1)
-        return r
+        return _interp_residual(interp, ctx, row,
+                                _project(m, cam, qvec, tvec, X, mi), target)
     return residual_fn
 
 
@@ -187,21 +249,23 @@ def _build_feature_reference_jac(model, interp: InterpolationConfig):
     def residual_jac_fn(qvec, tvec, cam, X, obs_slice, ctx):
         m, (row, target), mi = _split_models(model, obs_slice, 2)
         pix, Jpix = _project_jac(m, cam, qvec, tvec, X, mi)  # [n, 2, 6+k+3]
-        pc, su, f, dfdr, dfdc = ctx.read(row, pix, interp.l2_normalize)
-        # chain rule of _interp_residual_jac (main.py:297-321)
-        Jc_ = (su[:, 0, None] * Jpix[:, 0])[:, None, :]
-        Jr_ = (su[:, 1, None] * Jpix[:, 1])[:, None, :]
-        J = dfdc[:, :, None] * Jc_ + dfdr[:, :, None] * Jr_
-        r = f - target
-        if interp.check_bounds:
-            H, W = ctx.H, ctx.W
-            r_, c_ = pc[:, 1], pc[:, 0]
-            dv_dr = (r_ > H - 1.0).float() - (r_ < 0.0).float()
-            dv_dc = (c_ > W - 1.0).float() - (c_ < 0.0).float()
-            Jv = dv_dc[:, None, None] * Jc_ + dv_dr[:, None, None] * Jr_
-            r = torch.cat([r, _bounds_violation(pc, H, W)[:, None]], dim=1)
-            J = torch.cat([J, Jv], dim=1)
-        return r, J
+        return _interp_residual_jac(interp, ctx, row, pix, Jpix, target)
+    return residual_jac_fn
+
+
+def _build_costmap(model, interp: InterpolationConfig):
+    def residual_fn(qvec, tvec, cam, X, obs_slice, ctx):
+        m, (row,), mi = _split_models(model, obs_slice, 1)
+        return _interp_residual(interp, ctx, row,
+                                _project(m, cam, qvec, tvec, X, mi))
+    return residual_fn
+
+
+def _build_costmap_jac(model, interp: InterpolationConfig):
+    def residual_jac_fn(qvec, tvec, cam, X, obs_slice, ctx):
+        m, (row,), mi = _split_models(model, obs_slice, 1)
+        pix, Jpix = _project_jac(m, cam, qvec, tvec, X, mi)
+        return _interp_residual_jac(interp, ctx, row, pix, Jpix)
     return residual_jac_fn
 
 
@@ -209,6 +273,7 @@ _RESIDUAL_BUILDERS = {
     "geometric": (_build_geometric, _build_geometric_jac),
     "feature_reference": (_build_feature_reference,
                           _build_feature_reference_jac),
+    "costmap": (_build_costmap, _build_costmap_jac),
 }
 
 
@@ -253,12 +318,13 @@ class BundleAdjuster:
         strategy = cls.default_conf["strategy"]
         if conf is not None and "strategy" in conf:
             strategy = conf["strategy"]
-        if strategy in ("costmaps", "patch_warp"):
-            raise _not_ported(f"the {strategy} BA strategy",
+        if strategy == "patch_warp":
+            raise _not_ported("the patch_warp BA strategy",
                               "The other BA strategies")
         strategy_to_solver = {
             "feature_reference": FeatureReferenceBundleAdjuster,
             "geometric": GeometricBundleAdjuster,
+            "costmaps": CostMapBundleAdjuster,
         }
         return strategy_to_solver[strategy](conf, device=device)
 
@@ -554,3 +620,25 @@ class FeatureReferenceBundleAdjuster(BundleAdjuster):
             obs_valid=obs_valid)
         out["references_time"] = t_ref
         return out
+
+
+class CostMapBundleAdjuster(BundleAdjuster):
+    """BA over precomputed costmaps (reference:
+    costmap_bundle_optimizer.h:17-132); ``costmaps.py`` extracts them and
+    wires the solve."""
+
+    default_conf = deepcopy(BundleAdjuster.default_conf)
+    default_conf["strategy"] = "costmaps"
+    default_conf["costmaps"] = {
+        "loss": {"name": "cauchy", "params": [0.25]},
+        "as_gradientfield": True,
+        "compute_cross_derivative": False,
+        "num_threads": -1,
+        "dense_cut_size": 100,
+        "upsampling_factor": 1,
+    }
+
+    def refine(self, reconstruction, feature_set, problem_setup=None
+               ) -> Dict:
+        from .costmaps import costmap_ba
+        return costmap_ba(self, reconstruction, feature_set, problem_setup)

@@ -6,7 +6,8 @@ patches only at matched keypoints (the KA input) or at the reprojections of
 triangulated observations (the BA input), with image decoding prefetched on
 a background thread. ``image_dir`` is a directory of image files or a
 mapping ``{image_name: [H, W, 3] uint8 array}`` of decoded images. The H5
-cache comes with a later slice of the port.
+cache comes with a later slice of the port: a cache path raises, and a
+config's ``use_cache`` applies only with one, so it is ignored.
 """
 
 from __future__ import annotations
@@ -28,10 +29,11 @@ def features_from_image_list(extractor: FeatureExtractor, image_list,
                              keypoints_per_image: Dict[str, np.ndarray],
                              keypoint_ids_per_image: Optional[Dict] = None,
                              cache_path=None) -> FeatureManager:
+    # ``use_cache`` without a path is ignored (``pixsfm_tpu/extract.py:42``)
     if cache_path is not None:
         raise NotImplementedError(
-            "the H5 feature cache is not ported yet; it comes with a later "
-            "slice of pixsfm_tpu_torch")
+            "the H5 feature cache (cache_path) is not ported yet; see "
+            "ROADMAP.md section 1, 'Features, rest'")
     manager = FeatureManager(extractor.channels_per_level,
                              int(extractor.conf.patch_size),
                              str(extractor.conf.dtype))

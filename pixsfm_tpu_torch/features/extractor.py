@@ -7,9 +7,11 @@ resizes it to ``max_edge``, runs the feature model on the device and cuts a
 per pixel and cast to the storage dtype (``half`` -> bfloat16) on the
 device, and stay there as the :class:`FeatureMap`'s patches.
 
-Only sparse extraction (``sparse: true``, the default) without the H5 cache
-is ported; dense maps, the cache and batched forwards come with a later
-slice.
+Only sparse extraction (``sparse: true``, the default) is ported; dense
+maps, the H5 cache and batched forwards come with a later slice.
+``use_cache`` applies only when the caller gives a cache path, as in the
+JAX package, so a preset that sets it (``low_memory``) runs without one;
+``extract.py`` raises for a cache path.
 """
 
 from __future__ import annotations
@@ -59,10 +61,6 @@ class FeatureExtractor:
             raise NotImplementedError(
                 "dense extraction (sparse: false) is not ported yet; it "
                 "comes with a later slice of pixsfm_tpu_torch")
-        if self.conf.use_cache:
-            raise NotImplementedError(
-                "the H5 feature cache is not ported yet; it comes with a "
-                "later slice of pixsfm_tpu_torch")
         if int(self.conf.get("batch_size", 1)) > 1:
             raise NotImplementedError(
                 "batched extraction (batch_size > 1) is not ported yet")

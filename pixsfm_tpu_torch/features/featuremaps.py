@@ -149,11 +149,10 @@ class PackedFeatures:
         extracted (e.g. a reprojection behind the camera)."""
         return self.index.get((image_name, int(p2D_idx)), default)
 
-    def rows_for_image(self, image_name: str,
-                       p2D_idxs: np.ndarray) -> np.ndarray:
-        """Packed rows of many keypoints of ONE image (a dense ``p2D_idx
-        -> row`` lookup table per image, built once)."""
-        p2D_idxs = np.asarray(p2D_idxs, np.int64)
+    def _image_lut(self, image_name: str) -> Optional[np.ndarray]:
+        """The dense ``p2D_idx -> row`` lookup table of one image (-1 where
+        a keypoint is not packed; all built once), None for an image
+        without packed rows."""
         cache = self.__dict__.setdefault("_image_row_cache", {})
         if not cache:
             per_image: Dict[str, list] = {}
@@ -164,13 +163,32 @@ class PackedFeatures:
                 lut_n = np.full(int(arr[:, 0].max()) + 1, -1, np.int64)
                 lut_n[arr[:, 0]] = arr[:, 1]
                 cache[n] = lut_n
-        lut = cache.get(image_name)
+        return cache.get(image_name)
+
+    def rows_for_image(self, image_name: str,
+                       p2D_idxs: np.ndarray) -> np.ndarray:
+        """Packed rows of many keypoints of ONE image."""
+        p2D_idxs = np.asarray(p2D_idxs, np.int64)
+        lut = self._image_lut(image_name)
         if lut is None:
             raise KeyError(image_name)
         rows = lut[p2D_idxs]
         if (rows < 0).any():
             missing = p2D_idxs[rows < 0][:5]
             raise KeyError(f"{image_name}: keypoints {missing} not packed")
+        return rows
+
+    def rows_or_for_image(self, image_name: str, p2D_idxs: np.ndarray,
+                          default: int = -1) -> np.ndarray:
+        """:meth:`row_or` for many keypoints of ONE image."""
+        p2D_idxs = np.asarray(p2D_idxs, np.int64)
+        rows = np.full(len(p2D_idxs), default, np.int64)
+        lut = self._image_lut(image_name)
+        if lut is None:
+            return rows
+        inside = (p2D_idxs >= 0) & (p2D_idxs < len(lut))
+        found = lut[p2D_idxs[inside]]
+        rows[np.nonzero(inside)[0][found >= 0]] = found[found >= 0]
         return rows
 
 

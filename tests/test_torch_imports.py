@@ -44,7 +44,8 @@ def test_every_module_imports_without_jax():
                  "util.colmap", "refine_colmap", "refine_hloc",
                  "localization.pnp", "sfm.two_view", "sfm.mapper",
                  "features.models.dsift", "features.models.image",
-                 "localization.main", "localize"):
+                 "localization.main", "localize",
+                 "bundle_adjustment.costmaps"):
         assert f"pixsfm_tpu_torch.{name}" in _module_names()
 
 
@@ -69,6 +70,10 @@ def test_cuda_entry_points_raise_without_gpu():
     from pixsfm_tpu_torch.refine_colmap import main as colmap_main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BundleAdjuster.create()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BundleAdjuster.create({"strategy": "costmaps"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PixSfM("low_memory")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         colmap_main(["bundle_adjuster", "--input_path", "m", "--output_path",
                      "o", "--image_dir", "i"])

@@ -700,3 +700,52 @@ def test_localize_cuda_matches_cpu(dev):
         np.testing.assert_allclose(a["qvec"], b["qvec"], atol=1e-4)
         np.testing.assert_allclose(a["tvec"], b["tvec"], atol=1e-4)
         np.testing.assert_allclose(a["tvec"], gt[1], atol=0.05)
+
+
+# ---------------------------------------------------------------------------
+# the low_memory preset: K1 at 8 x 8 x 128, costmap extraction
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l2", [False, True])
+def test_k1_low_memory_shape_matches_plain(dev, dtype, l2):
+    """K1 on the ``low_memory`` preset's patches (8 x 8 x 128), queries on
+    and beyond the border: the vector variant, within the tolerances of
+    the 16 px shape."""
+    rows, row_base, r, c = _k1_inputs(dev, dtype, n_patches=300, n=3000,
+                                      ps=8)
+    assert interpolate_cuda.kernel_variant(rows) == "vector"
+    out = interpolate_cuda.interpolate_rows(rows, 8, 8, 128, row_base, r, c,
+                                            l2)
+    ref = interpolate_cuda.interpolate_rows_plain(rows, 8, 8, 128, row_base,
+                                                  r, c, l2)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=K1_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("up,cross", [(1, False), (1, True), (2, False)])
+def test_costmap_patches_cuda_matches_cpu(dev, up, cross):
+    """``costmap_patches`` on bf16 patches of 8 x 8 x 128 on the card
+    against the CPU from identical inputs, in several chunks: within 1e-5
+    of the largest absolute value (up = 2 reads the patches through K1)."""
+    from pixsfm_tpu_torch.base.losses import make_loss
+    from pixsfm_tpu_torch.bundle_adjustment import costmaps
+    gen = torch.Generator().manual_seed(3)
+    patches = torch.nn.functional.normalize(
+        torch.randn((400, 8, 8, 128), generator=gen), dim=-1) \
+        .to(torch.bfloat16)
+    rows = torch.randint(0, 400, (700,), generator=gen)
+    targets = patches[rows, 4, 4].float() \
+        + 0.05 * torch.randn((700, 128), generator=gen)
+    loss = make_loss({"name": "cauchy", "params": [0.25]})
+    before = interpolate_cuda.launches
+    out = {}
+    for d in ("cpu", dev):
+        out[str(d)] = costmaps.costmap_patches(
+            patches.to(d), rows.to(d), targets.to(d), loss, True, cross, up)
+    got, want = out[str(dev)].cpu(), out["cpu"]
+    assert got.shape == (700, 8 * up, 8 * up, 4 if cross else 3)
+    assert (interpolate_cuda.launches > before) == (up > 1)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
