@@ -169,6 +169,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    phase 11's scene: stage times, the keypoint error to the true
    projections and the point error to the truth, K1 launches (counters
    zeroed just before, read just after).
+20. The ``photometric`` preset (dense ``image``-model maps, bf16, 3
+   channels; no KA; 16-node NCC references with ``compute_offsets3D``;
+   points-only ``patch_warp`` BA with constant source poses). (b) Phase
+   12's scene on ``cuda`` and on ``cpu``: the dense maps equal, every
+   observation's node descriptor within 1e-5 of the largest value, and
+   ``patch_warp`` through ``refine_reconstruction``
+   (``PHOTO_CPU_BA_ITERATIONS`` LM iterations) with joint source poses
+   (``refine_extrinsics`` on: the dense step with ``src_idx``) and with
+   constant ones, within phase 8's limits. (c) The body of
+   ``PixSfM("photometric").triangulation`` as shipped on phase 11's scene:
+   stage times, LM iterations, costs, the point error to the truth before
+   and after BA beside the default config's, K1 launches (counters zeroed
+   just before, read just after); the cost must fall and the points stay
+   finite; then the same under the profiler (BA capped at
+   ``BA_PROFILE_ITERATIONS``). (d) ``run_ba`` with ``patch_warp`` and poses
+   free (joint source poses on the flat CG layout) on (c)'s model, poses
+   perturbed, LM capped at ``BA_ITERATIONS``: the cost must fall. (a) K1
+   at the path's shape: one chunk's node queries, 16 per observation of
+   8192, over one bf16 16x16x3 window per observation of (c), L2 off (the
+   general variant), as phase 2 checks it.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA, BA, triangulation), its error against the plain version, its
@@ -188,7 +208,8 @@ one entry per path (``"path": "KA"`` / ``"BA"`` / ``"triangulation"`` /
 path's BA shape, the last at its QKA shape) with that
 path's launches and the figures at its shape (``"low_memory"``: the
 launches of 19(c) and 19(d), split in ``launches_by_run``, and K1 timed
-at 19(a)); K2's and K3a/b/c's entries sum their launches over the paths
+at 19(a); ``"photometric"``: the launches of 20(c) and 20(d), K1 timed at
+20(a), its ``general_ms`` the same variant); K2's and K3a/b/c's entries sum their launches over the paths
 and list them in ``launches_by_path`` (K3's ``in_situ_low_memory_ms``
 from 19(c)); and last ``{"ok": true, "device": {...}}``.
 
@@ -272,20 +293,36 @@ def _max_err(a, b):
 # phase 2: K1
 # ---------------------------------------------------------------------------
 
+def _k1_queries(torch, gen, n_patches, n_queries, ps, nodes=None):
+    """Random K1 queries ``(row_base, r, c)``: uniform over the patches and
+    up to 1.5 px past their border; with ``nodes`` (offsets ``(dx, dy)``),
+    ``n_queries / len(nodes)`` centres with their node windows, each on
+    its centre's patch row (the node queries of patch-warp BA)."""
+    dev = gen.device
+    n = n_queries if nodes is None else n_queries // len(nodes)
+    row_base = torch.randint(0, n_patches, (n,), generator=gen,
+                             device=dev) * ps
+    row_base[-1] = (n_patches - 1) * ps      # the last patch: top offsets
+    r = torch.rand(n, generator=gen, device=dev) * (ps + 2.0) - 1.5
+    c = torch.rand(n, generator=gen, device=dev) * (ps + 2.0) - 1.5
+    if nodes is None:
+        return row_base, r, c
+    from pixsfm_tpu_torch.base.interpolation import node_queries
+    return node_queries(row_base, r, c, nodes)
+
+
 def check_k1(torch, interpolate_cuda, n_patches, n_queries, dtypes,
-             ps=16, C=128):
+             ps=16, C=128, l2=True, variant="vector", nodes=None):
     """K1 against its plain version on random patches stored in each of
     ``dtypes`` (the first one makes the random base), L2 on and off; timed
-    at the main paths' configuration, bf16 storage and L2 on."""
+    at the path's configuration: bf16 storage, L2 ``l2``, the kernel variant
+    ``variant`` (``nodes``: the queries are node windows, see
+    :func:`_k1_queries`)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     base = torch.randn((n_patches * ps, ps, C), generator=gen, device=dev,
                        dtype=dtypes[0])
-    row_base = torch.randint(0, n_patches, (n_queries,), generator=gen,
-                             device=dev) * ps
-    row_base[-1] = (n_patches - 1) * ps      # the last patch: top offsets
-    r = torch.rand(n_queries, generator=gen, device=dev) * (ps + 2.0) - 1.5
-    c = torch.rand(n_queries, generator=gen, device=dev) * (ps + 2.0) - 1.5
+    row_base, r, c = _k1_queries(torch, gen, n_patches, n_queries, ps, nodes)
     r[:4] = torch.tensor([0.0, ps - 1.0, 0.25, ps - 1.25])
     c[:4] = torch.tensor([ps - 1.0, 0.0, ps - 1.5, 0.5])
     worst = 0.0
@@ -293,52 +330,50 @@ def check_k1(torch, interpolate_cuda, n_patches, n_queries, dtypes,
     for dtype in dtypes:
         tol = tols[dtype]
         rows = base.to(dtype)
-        for l2 in (False, True):
+        for l2_case in (False, True):
             out = interpolate_cuda.interpolate_rows(rows, ps, ps, C, row_base,
-                                                    r, c, l2)
-            ref = interpolate_cuda.interpolate_rows_plain(rows, ps, ps, C,
-                                                          row_base, r, c, l2)
+                                                    r, c, l2_case)
+            ref = interpolate_cuda.interpolate_rows_plain(
+                rows, ps, ps, C, row_base, r, c, l2_case)
             torch.cuda.synchronize()
             err = _max_err(out, ref)
-            print(f"K1 {str(dtype)[6:]} l2={l2} (N={n_queries}, "
+            print(f"K1 {str(dtype)[6:]} l2={l2_case} (N={n_queries}, "
                   f"{n_patches} patches): max |kernel - plain| = {err:.3e} "
                   f"(atol {tol})")
             if not all(bool(torch.isfinite(o).all()) for o in out) \
                     or err > tol:
                 raise SystemExit(f"K1 disagrees with its plain version "
-                                 f"({dtype}, l2={l2}): {err}")
+                                 f"({dtype}, l2={l2_case}): {err}")
             worst = max(worst, err)
-    # timing at the main path's configuration: bf16 storage, L2 on
+    # timing at the path's configuration: bf16 storage, L2 ``l2``
     rows = base.to(torch.bfloat16)
     del base
     row_base = row_base.to(torch.int32)   # as the callers pass it: no cast
     ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
-        rows, ps, ps, C, row_base, r, c, True))
+        rows, ps, ps, C, row_base, r, c, l2))
     plain_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows_plain(
-        rows, ps, ps, C, row_base, r, c, True), reps=5)
+        rows, ps, ps, C, row_base, r, c, l2), reps=5)
     # the same launch on query sets that change every time: together they
     # read far more than the 50 MB L2 holds, as a caller's chunks do
     n_sets = 8
-    sets = [(torch.randint(0, n_patches, (n_queries,), generator=gen,
-                           device=dev).to(torch.int32) * ps,
-             torch.rand(n_queries, generator=gen, device=dev) * (ps + 2.0)
-             - 1.5,
-             torch.rand(n_queries, generator=gen, device=dev) * (ps + 2.0)
-             - 1.5) for _ in range(n_sets)]
+    sets = [tuple(a.to(torch.int32) if k == 0 else a for k, a in enumerate(
+        _k1_queries(torch, gen, n_patches, n_queries, ps, nodes)))
+        for _ in range(n_sets)]
     turn = iter(range(10 ** 9))
     cold_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
-        rows, ps, ps, C, *sets[next(turn) % n_sets], True), reps=40, warmup=8)
+        rows, ps, ps, C, *sets[next(turn) % n_sets], l2), reps=40, warmup=8)
     # the general variant on the same queries: a copy of the rows one
     # element past an aligned base, which the 16-byte loads cannot take
+    # (the photometric path's 3 channels take it anyway)
     shifted = torch.empty(rows.numel() + 8, device=dev,
                           dtype=rows.dtype)[1:rows.numel() + 1].view_as(rows)
     shifted.copy_(rows)
     if interpolate_cuda.kernel_variant(shifted) != "general":
         raise SystemExit("K1 took 16-byte loads on a misaligned base")
     general_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
-        shifted, ps, ps, C, row_base, r, c, True))
+        shifted, ps, ps, C, row_base, r, c, l2))
     general_cold_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
-        shifted, ps, ps, C, *sets[next(turn) % n_sets], True), reps=40,
+        shifted, ps, ps, C, *sets[next(turn) % n_sets], l2), reps=40,
         warmup=8)
     del shifted
     # bound: the distinct tap pixels this input needs, read once, plus the
@@ -350,19 +385,20 @@ def check_k1(torch, interpolate_cuda, n_patches, n_queries, dtypes,
            + ci[:, None, :]).reshape(-1)
     n_pix = int(torch.unique(pix).numel())
     bytes_ = n_pix * C * 2 + n_queries * 12 + 3 * n_queries * C * 4
-    flops = n_queries * C * (16 * 6 + 12)
+    flops = n_queries * C * (16 * 6 + (12 if l2 else 0))
     bound_ms = 1e3 * max(bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
     bound_by = "bytes" if bytes_ / HBM_BYTES_PER_S >= \
         flops / FP32_FLOP_PER_S else "operations"
-    variant = interpolate_cuda.kernel_variant(rows)
-    print(f"K1 timing (bf16, L2, N={n_queries}, {n_patches} patches, "
-          f"{variant} variant): kernel {ms:.4f} ms ({cold_ms:.4f} ms on "
-          f"changing query sets), general variant {general_ms:.4f} ms "
-          f"({general_cold_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bytes_ / 1e6:.1f} MB)")
-    if variant != "vector":
-        raise SystemExit("K1 did not take its vector variant at a main "
-                         "path's shape")
+    took = interpolate_cuda.kernel_variant(rows)
+    print(f"K1 timing (bf16, L2 {'on' if l2 else 'off'}, N={n_queries}, "
+          f"{n_patches} patches of {ps}x{ps}x{C}, {took} variant): kernel "
+          f"{ms:.4f} ms ({cold_ms:.4f} ms on changing query sets), general "
+          f"variant {general_ms:.4f} ms ({general_cold_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bytes_ / 1e6:.1f} MB)")
+    if took != variant:
+        raise SystemExit(f"K1 did not take its {variant} variant at a "
+                         f"path's shape")
     return dict(max_abs_err=worst, ms=ms, cold_ms=cold_ms,
                 general_ms=general_ms, general_cold_ms=general_cold_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
@@ -2142,6 +2178,277 @@ def low_memory_phase(torch, np, PixSfM, load_config, interpolate_cuda,
     return launches_lm, launches_lm_ba, launches_lm_tri, k1_lm, in_situ_lm
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the photometric preset
+# ---------------------------------------------------------------------------
+
+# (b): LM iterations of the cuda / cpu patch-warp solves (the preset's 30
+# would take ~1 min on the card machine's CPU)
+PHOTO_CPU_BA_ITERATIONS = 5
+
+
+def photometric_cuda_vs_cpu(torch, np, PixSfM, load_config, tmp):
+    """Phase 20(b): phase 12's scene (12 views of 640x480, 1500 points with
+    tracks of 3) with the photometric preset on ``cuda`` and on ``cpu``:
+    the dense image-model maps equal, every observation's 16-node NCC
+    descriptor within 1e-5 of the largest value, and ``patch_warp`` through
+    ``refine_reconstruction`` with joint source poses (``refine_extrinsics``
+    on: the dense step with ``src_idx``) and with constant ones (the preset)
+    within phase 8's limits."""
+    from pixsfm_tpu_torch.base.interpolation import InterpolationConfig
+    from pixsfm_tpu_torch.bundle_adjustment.references import \
+        extract_references
+    from pixsfm_tpu_torch.extract import features_from_reconstruction
+    from pixsfm_tpu_torch.features.featuremaps import FeatureView
+    rec, views, _ = make_ba_scene(torch, np, seed=13, n_views=12,
+                                  n_points=1500, W=640, H=480,
+                                  device="cuda", min_track=3, max_track=3)
+    conf = load_config("photometric")
+    sfm = {d: PixSfM(conf, device=d) for d in ("cuda", "cpu")}
+    fsets = {d: features_from_reconstruction(sfm[d].extractor, rec,
+                                             views).fset(0)
+             for d in sfm}
+    map_err = max(float((fsets["cuda"].maps[n].patches.cpu().float()
+                         - m.patches.float()).abs().max())
+                  for n, m in fsets["cpu"].maps.items())
+    ba_conf = sfm["cuda"].bundle_adjuster.conf
+    interp = InterpolationConfig.from_conf(ba_conf.interpolation)
+    ref_conf = {**ba_conf.references.to_dict(), "keep_observations": True}
+    pids = sorted(rec.points3D)
+    refs = {d: extract_references(
+        rec, fsets[d], FeatureView.from_reconstruction(fsets[d], rec, pids),
+        ref_conf, interp, point3D_ids=pids) for d in sfm}
+    want = np.concatenate([refs["cpu"][p].track_descriptors for p in pids])
+    got = np.concatenate([refs["cuda"][p].track_descriptors for p in pids])
+    scale = float(np.abs(want).max())
+    ref_err = float(np.abs(got - want).max()) / scale
+    same_src = sum(refs["cuda"][p].source == refs["cpu"][p].source
+                   for p in pids)
+    off_err = max(float(np.abs(refs["cuda"][p].node_offsets3D
+                               - refs["cpu"][p].node_offsets3D).max())
+                  for p in pids)
+    n_obs = sum(len(p.track) for p in rec.points3D.values())
+    print(f"phase 20(b): {len(views)} views, {len(pids)} points, {n_obs} "
+          f"observations: dense maps ({tuple(fsets['cuda'].maps['view000.png'].patches.shape)} "
+          f"bf16 each) max |cuda - cpu| = {map_err:.2e} (limit 0); "
+          f"16-node NCC descriptors {ref_err:.2e} of the largest value "
+          f"{scale:.4g} (limit 1e-5), sources equal for {same_src} / "
+          f"{len(pids)}, 3D node offsets {off_err:.2e}")
+    if not (map_err == 0.0 and ref_err <= 1e-5):
+        raise SystemExit("photometric extraction or references: cuda and "
+                         "cpu disagree")
+    del fsets, refs
+    src = Path(tmp) / "photometric_in"
+    rec.write(src)
+    for mode, extrinsics in (("joint", True), ("constant", False)):
+        mode_conf = load_config("photometric", extra={"mapping": {"BA": {
+            "optimizer": {"refine_extrinsics": extrinsics, "solver": {
+                "max_num_iterations": PHOTO_CPU_BA_ITERATIONS}}}}})
+        runs = {}
+        for d in ("cuda", "cpu"):
+            if d == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_rec, out = PixSfM(mode_conf, device=d).refine_reconstruction(
+                Path(tmp) / f"photometric_{mode}_{d}", src, views)
+            if d == "cuda":
+                torch.cuda.synchronize()
+            runs[d] = ({k: v[0] for k, v in out.items()}, np.stack(
+                [out_rec.points3D[p].xyz for p in pids]),
+                time.perf_counter() - t0)
+        (o_d, x_d, w_d), (o_c, x_c, w_c) = runs["cuda"], runs["cpu"]
+        dx = float(np.abs(x_d - x_c).max())
+        print(f"phase 20(b): patch_warp ({mode} source poses) through "
+              f"refine_reconstruction: regime {o_d['linear_solver']} / "
+              f"{o_c['linear_solver']}, {o_d['iterations']} / "
+              f"{o_c['iterations']} LM iterations, cost cuda "
+              f"{o_d['initial_cost']:.6f} -> {o_d['final_cost']:.6f} / cpu "
+              f"{o_c['final_cost']:.6f}, max |xyz(cuda) - xyz(cpu)| = "
+              f"{dx:.2e} (limits: cost rtol 1e-4, xyz 1e-3); {w_d:.2f} s on "
+              f"cuda (BA solve {o_d['time']:.3f} s), {w_c:.2f} s on cpu "
+              f"(BA solve {o_c['time']:.3f} s)")
+        if not (o_d["linear_solver"] == o_c["linear_solver"] == "dense"
+                and o_d["joint_source_poses"] is extrinsics
+                and o_c["joint_source_poses"] is extrinsics):
+            raise SystemExit(f"photometric BA ({mode}): not the dense step "
+                             f"in the {mode} mode")
+        if not (abs(o_d["final_cost"] - o_c["final_cost"])
+                <= 1e-4 * abs(o_c["final_cost"]) and dx <= 1e-3):
+            raise SystemExit(f"photometric BA ({mode}): cuda and cpu "
+                             f"disagree")
+        if not o_d["final_cost"] < o_d["initial_cost"]:
+            raise SystemExit(f"photometric BA ({mode}): the cost did not "
+                             f"fall")
+
+
+def pose_errors(np, rec, truth):
+    """Mean rotation (degrees) and camera-centre errors of ``rec``'s poses
+    against ``truth``'s."""
+    rot, centre = [], []
+    for iid, im in truth.images.items():
+        R0, R1 = im.rotation_matrix(), rec.images[iid].rotation_matrix()
+        cos = (np.trace(R0.T @ R1) - 1.0) / 2.0
+        rot.append(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
+        centre.append(np.linalg.norm(R0.T @ im.tvec
+                                     - R1.T @ rec.images[iid].tvec))
+    return float(np.mean(rot)), float(np.mean(centre))
+
+
+def photometric_phase(torch, np, PixSfM, load_config, interpolate_cuda,
+                      cg_cuda, schur_cuda, tri_scene, profile_out=None):
+    """Phase 20: the ``photometric`` preset. ``tri_scene``: phase 11's
+    (reference model, views, keypoints, matches, scores, truth, the
+    unrefined and the default config's point errors, the number of
+    points). Returns the launches of (c) and (d), K1's figures at the
+    path's shape and its in-situ time."""
+    import tempfile
+    from pixsfm_tpu_torch.base.geometry import (exp_quat_np, quat_mul,
+                                                quat_normalize)
+    t20 = time.perf_counter()
+    (reference, views_t, kps_t, matches_t, scores_t, truth_t, err_raw,
+     err_tri, n_tri_pts) = tri_scene
+    tmp20 = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = Path(tmp20.name)
+    torch.cuda.empty_cache()
+    photometric_cuda_vs_cpu(torch, np, PixSfM, load_config, tmp)
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        interpolate_cuda.launches = 0
+        cg_cuda.launches = 0
+        for name in schur_cuda.launches:
+            schur_cuda.launches[name] = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches,
+                "K3a": schur_cuda.launches["matvec"],
+                "K3b": schur_cuda.launches["rhs"],
+                "K3c": schur_cuda.launches["backsub"]}
+
+    # (c) the preset as shipped on phase 11's scene
+    sfm = PixSfM(load_config("photometric"), device="cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    rec_p, out_p = sfm._triangulation(
+        tmp / "photometric", reference, views_t,
+        {k: v.copy() for k, v in kps_t.items()}, matches_t, scores_t)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    launches_tri = read_counts()
+    oba = {k: v[0] for k, v in out_p["BA"].items()}
+    err_p = triangulated_error(np, rec_p, truth_t)
+    t_rest = wall_p - out_p["triangulation"]["time"] - oba["time"]
+    print(f"phase 20(c): PixSfM(photometric)._triangulation on phase 11's "
+          f"scene {wall_p:.2f} s (no KA; dense extraction + packing + "
+          f"references {t_rest:.2f} s, of which references "
+          f"{oba['references_time']:.2f} s; triangulation "
+          f"{out_p['triangulation']['time']:.2f} s, "
+          f"{len(rec_p.points3D)} points; patch_warp BA solve "
+          f"{oba['time']:.2f} s, {oba['num_residuals']} observations, "
+          f"{oba['linear_solver']} step, joint source poses "
+          f"{oba['joint_source_poses']}, {oba['iterations']} LM / "
+          f"{oba['cg_iterations']} CG iterations, cost "
+          f"{oba['initial_cost']:.6f} -> {oba['final_cost']:.6f}); point "
+          f"error to truth {err_raw:.5f} before BA (the unrefined keypoints' "
+          f"triangulation) -> {err_p:.5f} after it; the default config "
+          f"(phase 11, KA and featuremetric BA on S2DNet): {err_tri:.5f}; "
+          f"launches {launches_tri}")
+    if not all(np.isfinite(p.xyz).all() for p in rec_p.points3D.values()):
+        raise SystemExit("non-finite points on the photometric path")
+    if not oba["final_cost"] < oba["initial_cost"]:
+        raise SystemExit("photometric BA cost did not fall")
+    if launches_tri["K1"] <= 0:
+        raise SystemExit("K1 did not launch on the photometric path")
+    if not len(rec_p.points3D) >= TRI_MIN_SURVIVING * n_tri_pts:
+        raise SystemExit("photometric: too few tracks survived")
+    # where its time goes: the path again under the profiler, BA capped at
+    # BA_PROFILE_ITERATIONS (a second run, not counted)
+    sfm_prof = PixSfM(load_config("photometric", extra={"mapping": {"BA": {
+        "optimizer": {"solver": {
+            "max_num_iterations": BA_PROFILE_ITERATIONS}}}}}), device="cuda")
+    (_, out_pp), t_pp, busy_pp, kern_pp, tab_pp = profile_stage(
+        torch, lambda: sfm_prof._triangulation(
+            tmp / "photometric_profile", reference, views_t,
+            {k: v.copy() for k, v in kps_t.items()}, matches_t, scores_t))
+    print(f"phase 20(c) (under the profiler, {BA_PROFILE_ITERATIONS} BA "
+          f"iterations): {t_pp:.3f} s wall, {busy_pp:.3f} s device busy "
+          f"(idle share {1 - busy_pp / t_pp:.2f}); references "
+          f"{out_pp['BA']['references_time'][0]:.3f} s, BA solve "
+          f"{out_pp['BA']['time'][0]:.3f} s")
+    for name, calls, dev_ms in kern_pp[:10]:
+        print(f"  photometric path: {dev_ms:9.3f} ms in {calls:6d} launches"
+              f"  {name[:90]}")
+    in_situ = _in_situ(kern_pp, {"K1": "interp_kernel"}, launches_tri)
+    print(f"phase 20(c): in-situ device ms per launch {in_situ}")
+    if profile_out:
+        with open(Path(profile_out) / "chip_smoke_profile.txt", "a") as fh:
+            fh.write(f"\n\n== photometric triangulation path "
+                     f"({BA_PROFILE_ITERATIONS} BA iterations) ==\n"
+                     f"{tab_pp}\n")
+    # (d) run_ba with patch_warp and poses free (joint source poses, the
+    # flat CG layout) on (c)'s model, its poses perturbed
+    rec_d = rec_p.copy()
+    rng = np.random.default_rng(20)
+    for iid in sorted(rec_d.images)[1:]:
+        im = rec_d.images[iid]
+        dq = torch.as_tensor(exp_quat_np(rng.normal(0, 3e-4, 3)))
+        im.qvec = quat_normalize(quat_mul(dq, torch.as_tensor(
+            im.qvec))).numpy()
+        im.tvec = im.tvec + rng.normal(0, 1e-3, 3)
+    rot0, cen0 = pose_errors(np, rec_d, truth_t)
+    err_d0 = triangulated_error(np, rec_d, truth_t)
+    sfm_j = PixSfM(load_config("photometric", extra={"mapping": {"BA": {
+        "optimizer": {"refine_extrinsics": True, "solver": {
+            "max_num_iterations": BA_ITERATIONS}}}}}), device="cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    out_j = sfm_j.run_ba(rec_d, views_t)
+    torch.cuda.synchronize()
+    wall_j = time.perf_counter() - t0
+    launches_ba = read_counts()
+    oj = {k: v[0] for k, v in out_j.items()}
+    rot1, cen1 = pose_errors(np, rec_d, truth_t)
+    err_d1 = triangulated_error(np, rec_d, truth_t)
+    print(f"phase 20(d): run_ba (patch_warp, poses free) on (c)'s model, "
+          f"poses perturbed: {wall_j:.2f} s (references "
+          f"{oj['references_time']:.2f} s, BA solve {oj['time']:.2f} s), "
+          f"{oj['linear_solver']} step, grid T {oj['obs_grid_T']}, joint "
+          f"source poses {oj['joint_source_poses']}, {oj['iterations']} LM "
+          f"/ {oj['cg_iterations']} CG iterations, cost "
+          f"{oj['initial_cost']:.6f} -> {oj['final_cost']:.6f}; poses to "
+          f"truth {rot0:.4f} -> {rot1:.4f} deg, centres {cen0:.5f} -> "
+          f"{cen1:.5f}; points {err_d0:.5f} -> {err_d1:.5f}; launches "
+          f"{launches_ba}")
+    if not (oj["joint_source_poses"] and oj["linear_solver"] == "cg"
+            and oj["obs_grid_T"] == 0):
+        raise SystemExit("photometric run_ba did not take the joint mode "
+                         "on the flat CG layout")
+    if not oj["final_cost"] < oj["initial_cost"]:
+        raise SystemExit("photometric run_ba cost did not fall")
+    if not all(np.isfinite(im.qvec).all() and np.isfinite(im.tvec).all()
+               for im in rec_d.images.values()):
+        raise SystemExit("non-finite poses after photometric run_ba")
+    if launches_ba["K1"] <= 0:
+        raise SystemExit("K1 did not launch in photometric run_ba")
+    n_obs = int(oba["num_residuals"])
+    del sfm, sfm_prof, sfm_j, rec_p, rec_d
+    tmp20.cleanup()
+    torch.cuda.empty_cache()
+    # (a) K1 at the path's shape: one BA chunk (8192 observations) of node
+    # queries, 16 per observation, over one bf16 16x16x3 window each, L2
+    # off (the general variant: 3 channels)
+    from pixsfm_tpu_torch.base.interpolation import InterpolationConfig
+    nodes = InterpolationConfig.from_conf(
+        load_config("photometric").interpolation).nodes
+    k1 = check_k1(torch, interpolate_cuda, n_patches=n_obs,
+                  n_queries=8192 * len(nodes), dtypes=(torch.bfloat16,),
+                  C=3, l2=False, variant="general", nodes=nodes)
+    launches = {k: launches_tri[k] + launches_ba[k] for k in launches_tri}
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s")
+    return launches, launches_tri, launches_ba, k1, in_situ
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", default=None,
@@ -2883,12 +3190,21 @@ def main() -> int:
          err_tri, n_tri_pts), mem_peak_ba, profile_out=args.profile_out)
     del rec_lowmem, views, truth
 
+    # -- phase 20: the photometric preset -------------------------------------
+    (launches_ph, launches_ph_tri, launches_ph_ba, k1_ph,
+     in_situ_ph) = photometric_phase(
+        torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
+        schur_cuda, (reference, views_t, kps_t, matches_t, scores_t, truth_t,
+                     err_raw, err_tri, n_tri_pts),
+        profile_out=args.profile_out)
+
     # -- report ----------------------------------------------------------------
     # K1 runs on both paths at different shapes: one entry per path, each
     # with that path's launches and the figures measured at its shape
     paths = {"KA": launches, "BA": launches_ba,
              "triangulation": launches_tri, "reconstruction": launches_rc,
-             "localization": launches_loc, "low_memory": launches_lm}
+             "localization": launches_loc, "low_memory": launches_lm,
+             "photometric": launches_ph}
     both = {k: sum(n.get(k, 0) for n in paths.values())
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
     print(f"launches on the main paths: {paths}")
@@ -2929,6 +3245,14 @@ def main() -> int:
              launches_by_run={"run_ba (costmaps)": launches_lm_ba["K1"],
                               "triangulation": launches_lm_tri["K1"]},
              library_ms=None, in_situ_ms=in_situ_lm.get("K1"), **k1_lm),
+        dict(name="bicubic_window_interp_l2", path="photometric",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_ph["K1"],
+             launches_by_run={"triangulation": launches_ph_tri["K1"],
+                              "run_ba (poses free)": launches_ph_ba["K1"]},
+             library_ms=None, in_situ_ms=in_situ_ph.get("K1"), **k1_ph),
         dict(name="batched_jacobi_pcg", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/pcg.cu",
              replaces="pixsfm_tpu/ops/cg_pallas.py:88",

@@ -211,7 +211,10 @@ def img_from_cam_with_jac(model: str, params, uv):
     J_cam[..., 0, spec.pp_idxs[0]] = 1.0
     J_cam[..., 1, spec.pp_idxs[1]] = 1.0
     if spec.extra_idxs:
-        J_cam[..., list(spec.extra_idxs)] = f[..., :, None] * Jd_extra
+        # a slice (the extra parameters are contiguous in every model): a
+        # list index would copy an index tensor to the device at each call
+        J_cam[..., spec.extra_idxs[0]:spec.extra_idxs[-1] + 1] = \
+            f[..., :, None] * Jd_extra
     return pix, J_uv, J_cam
 
 

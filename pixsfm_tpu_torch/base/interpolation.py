@@ -19,10 +19,19 @@ derivatives d/dr, d/dc, d/drdc (one channel each), what the JAX package's
 ``interpolate_residual_with_grad`` returns for them plus the cross
 derivative.
 
-The feature window path takes BICUBIC / CERES_BICUBIC with one node and
-without NCC only (:func:`check_window_config`); bilinear, nearest,
-BICUBICCHAIN, node windows and NCC come with ROADMAP.md item 'The other BA
-strategies' and raise ``NotImplementedError`` there.
+Node windows (:func:`interpolate_nodes_with_grad`): every query is
+evaluated at ``config.nodes`` offsets ``(dx, dy)`` around it, and with
+``ncc_normalize`` each channel is brought to mean 0 / std 1 across the
+nodes with the chain rule through the derivatives
+(:func:`ncc_normalize_with_grad`, the reference's sigma := 1 where sigma
+is 0). Patch-warp BA and its references read them; one K1 launch serves
+all nodes of a batch (``ops/interpolate_cuda.interpolate_node_rows``).
+
+The feature window path takes BICUBIC / CERES_BICUBIC only
+(:func:`check_window_config`); node windows and NCC only where the caller
+reads them (``nodes=True``). Bilinear, nearest and BICUBICCHAIN come with
+ROADMAP.md item 'The other BA strategies', node windows and NCC in KA, QKA
+and QBA with item 'The rest of KA', and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ __all__ = [
     "InterpolationConfig", "INTERPOLATOR_TYPES", "catmull_rom_weights",
     "bicubic_window_eval_rows", "l2_normalize_with_grad",
     "bicubic_window_eval_rows_d2", "check_window_config",
-    "bounds_violation", "gradient_field_eval",
+    "bounds_violation", "gradient_field_eval", "ncc_normalize",
+    "ncc_normalize_with_grad", "node_queries", "interpolate_nodes_with_grad",
 ]
 
 INTERPOLATOR_TYPES = (
@@ -82,9 +92,14 @@ class InterpolationConfig:
     def n_nodes(self) -> int:
         return len(self.nodes)
 
+    def nodes_array(self) -> np.ndarray:
+        return np.asarray(self.nodes, dtype=np.float32)
 
-def check_window_config(interp: InterpolationConfig) -> None:
-    """Raise for configs outside the ported bicubic window path."""
+
+def check_window_config(interp: InterpolationConfig,
+                        nodes: bool = False) -> None:
+    """Raise for configs outside the ported bicubic window path; node
+    windows and NCC pass only for a caller that reads them (``nodes``)."""
     if interp.mode in ("POLYGRADIENTFIELD", "BICUBICGRADIENTFIELD"):
         raise ValueError(
             f"interpolation mode {interp.mode} interpolates the cost patches "
@@ -93,10 +108,11 @@ def check_window_config(interp: InterpolationConfig) -> None:
         raise NotImplementedError(
             f"interpolation mode {interp.mode} is not ported yet; see "
             "ROADMAP.md section 1, 'The other BA strategies'")
-    if interp.ncc_normalize or interp.n_nodes != 1:
+    if not nodes and (interp.ncc_normalize or interp.n_nodes != 1):
         raise NotImplementedError(
-            "NCC normalization and multi-node interpolation are not ported "
-            "yet; see ROADMAP.md section 1, 'The other BA strategies'")
+            "NCC normalization and multi-node interpolation are ported for "
+            "patch-warp BA and its references only; see ROADMAP.md section "
+            "1, 'The rest of KA'")
 
 
 def catmull_rom_weights(t):
@@ -205,6 +221,71 @@ def l2_normalize_with_grad(f, derivs):
         dn = dn - torch.sum(fn * dn, dim=-1, keepdim=True) * fn
         out.append(dn)
     return fn, out
+
+
+def ncc_normalize(f_nodes, eps=0.0):
+    """Per-channel mean 0 / std 1 across the node axis -2 of ``[...,
+    n_nodes, C]`` (interpolation.h:54-85); sigma := 1 where it is 0."""
+    mu = torch.mean(f_nodes, dim=-2, keepdim=True)
+    sigma = torch.sqrt(torch.mean((f_nodes - mu) ** 2, dim=-2, keepdim=True))
+    sigma = torch.where(sigma > 0.0, sigma, torch.ones_like(sigma))
+    return (f_nodes - mu) / sigma
+
+
+def ncc_normalize_with_grad(f_nodes, derivs):
+    """:func:`ncc_normalize` with the chain rule applied to each array of
+    ``derivs`` (each broadcastable against ``f_nodes``: a Jacobian keeps its
+    columns on an axis before the node axis, against a unit axis of
+    ``f_nodes``): per channel ``g = (f - mu) / sigma`` and ``dg =
+    (df - dmu) / sigma - g dsigma / sigma``, ``dsigma = mean((f - mu)(df -
+    dmu)) / sigma``; where sigma is 0, sigma := 1 and dsigma := 0 (the
+    centred derivative), as the JAX package does."""
+    mu = torch.mean(f_nodes, dim=-2, keepdim=True)
+    fc = f_nodes - mu
+    sigma = torch.sqrt(torch.mean(fc * fc, dim=-2, keepdim=True))
+    ok = sigma > 0.0
+    sigma = torch.where(ok, sigma, torch.ones_like(sigma))
+    g = fc / sigma
+    out = []
+    for d in derivs:
+        if d is None:
+            out.append(None)
+            continue
+        dc = d - torch.mean(d, dim=-2, keepdim=True)
+        dsigma = torch.where(ok, torch.mean(fc * dc, dim=-2, keepdim=True)
+                             / sigma, torch.zeros_like(sigma))
+        out.append(dc / sigma - g * dsigma / sigma)
+    return g, out
+
+
+def node_queries(row_base, r, c, nodes):
+    """The ``N * n_nodes`` window queries of node windows around ``N``
+    queries, node-major within each query: ``(row_base, r + dy, c + dx)``
+    for the node offsets ``nodes [n_nodes, 2]`` ``(dx, dy)``."""
+    nodes = torch.as_tensor(np.asarray(nodes, np.float32), device=r.device)
+    n = nodes.shape[0]
+    return (row_base.repeat_interleave(n), (r[:, None] + nodes[:, 1])
+            .reshape(-1), (c[:, None] + nodes[:, 0]).reshape(-1))
+
+
+def interpolate_nodes_with_grad(rows, H: int, W: int, C: int, row_base, r,
+                                c, config: InterpolationConfig):
+    """Node windows ``(f, dfdr, dfdc)``, each ``[N, n_nodes, C]`` float32,
+    at patch coordinates ``(r, c)`` of the flat row view ``rows [NR, W,
+    C]`` (``row_base`` as for :func:`bicubic_window_eval_rows`): every node
+    L2-normalized when ``config.l2_normalize``, then NCC-normalized across
+    the nodes when ``config.ncc_normalize`` (the JAX package's
+    ``interpolate_nodes_with_grad``, batched). The plain version of
+    ``ops/interpolate_cuda.interpolate_node_rows``."""
+    n = config.n_nodes
+    f, dfdr, dfdc = bicubic_window_eval_rows(
+        rows, H, W, C, *node_queries(row_base, r, c, config.nodes))
+    if config.l2_normalize:
+        f, (dfdr, dfdc) = l2_normalize_with_grad(f, (dfdr, dfdc))
+    f, dfdr, dfdc = (a.reshape(-1, n, C) for a in (f, dfdr, dfdc))
+    if config.ncc_normalize:
+        f, (dfdr, dfdc) = ncc_normalize_with_grad(f, (dfdr, dfdc))
+    return f, dfdr, dfdc
 
 
 def bounds_violation(r, c, H: int, W: int):

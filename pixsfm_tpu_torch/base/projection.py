@@ -11,11 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cameras import CAMERA_MODELS, Camera, img_from_cam, img_from_cam_with_jac
-from .geometry import apply_pose, quat_to_rotmat_np
+from .cameras import (CAMERA_MODELS, Camera, cam_from_img, img_from_cam,
+                      img_from_cam_with_jac)
+from .geometry import apply_pose, quat_normalize, quat_rotate, \
+    quat_to_rotmat_np
 
 __all__ = ["project_with_jac", "world_to_pixel", "calculate_depth",
-           "project_np", "reproj_errors_np"]
+           "pixel_to_world", "project_np", "reproj_errors_np"]
 
 
 def project_with_jac(model: str, cam_params, qvec, tvec, X, z_eps=1e-8):
@@ -73,6 +75,16 @@ def world_to_pixel(model: str, cam_params, qvec, tvec, X):
 def calculate_depth(qvec, tvec, X):
     """Depth of world point(s) in the camera frame (projection.h:20-38)."""
     return apply_pose(qvec, tvec, X)[..., 2]
+
+
+def pixel_to_world(model: str, cam_params, qvec, tvec, xy, depth):
+    """Pixels ``xy [..., 2]`` lifted at ``depth [...]`` back into world
+    coordinates ``[..., 3]`` (projection.h:41-57; ``pixel_to_world`` of the
+    JAX package, batched over leading axes)."""
+    uv = cam_from_img(model, cam_params, xy)
+    x_cam = torch.cat([uv * depth[..., None], depth[..., None]], dim=-1)
+    qinv = quat_normalize(qvec) * qvec.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return quat_rotate(qinv, x_cam - tvec)
 
 
 def project_np(camera: Camera, qvec, tvec, X):

@@ -1,14 +1,17 @@
 """Bundle adjustment orchestration (reference: pixsfm/bundle_adjustment/main.py).
 
 Port of ``pixsfm_tpu/bundle_adjustment/main.py`` for the ``geometric``,
-``feature_reference`` and ``costmaps`` strategies. All funnel into
-:func:`pixsfm_tpu_torch.ops.schur.ba_solve` with batched residual closures
-and closed-form Jacobians (``project_with_jac`` + the analytic
-interpolation derivatives). The featuremetric window reads go through
+``feature_reference``, ``costmaps`` and ``patch_warp`` strategies. All
+funnel into :func:`pixsfm_tpu_torch.ops.schur.ba_solve` with batched
+residual closures and closed-form Jacobians (``project_with_jac`` + the
+analytic interpolation derivatives). The featuremetric window reads go through
 kernel K1 (``ops/interpolate_cuda.py``), one query per observation; the
 costmap residual interpolates the float32 cost patches with the gradient
 field of ``base/interpolation.py`` (``bundle_adjustment/costmaps.py``
-extracts them).
+extracts them); the patch-warp residual (``bundle_adjustment/
+patch_warp.py``) reads K1 at the warped nodes, and in its joint mode each
+observation carries its source view's pose as a second pose block
+(``src_idx``).
 
 ``_run_ba_cached`` pads and lays out the problem exactly as the JAX package
 does (power-of-two buckets, the dense/CG switch by problem size with the
@@ -17,9 +20,9 @@ budget), so both packages pick the same regime for the same scene, and
 dispatches the LM in segments when ``segment_iterations > 0``. Scenes with
 several camera models carry each observation's model index; a chunk's
 observations are projected in groups of one model each (the JAX package
-switches per observation with ``lax.switch``). Not ported yet (each raises
-``NotImplementedError``): the ``patch_warp`` strategy and ``parallel``
-sharding, with its ``*_window`` layouts (``costmap_window``).
+switches per observation with ``lax.switch``). Not ported yet (raises
+``NotImplementedError``): ``parallel`` sharding, with its ``*_window``
+layouts (``costmap_window``).
 """
 
 from __future__ import annotations
@@ -47,10 +50,13 @@ from ..ops.interpolate_cuda import interpolate_rows
 from ..util.misc import bucket
 from ..ops.schur import (BAObservations, BAOptions, BAState, ba_solve,
                          make_pair_list)
+from .patch_warp import (build_patch_warp_residual,
+                         build_patch_warp_residual_jac, patch_warp_ba)
 from .problem import PackedBA, pack_ba_problem
 
 __all__ = ["BundleAdjuster", "GeometricBundleAdjuster",
-           "FeatureReferenceBundleAdjuster", "CostMapBundleAdjuster"]
+           "FeatureReferenceBundleAdjuster", "CostMapBundleAdjuster",
+           "PatchWarpBundleAdjuster"]
 
 
 def _not_ported(what: str, item: str):
@@ -274,6 +280,7 @@ _RESIDUAL_BUILDERS = {
     "feature_reference": (_build_feature_reference,
                           _build_feature_reference_jac),
     "costmap": (_build_costmap, _build_costmap_jac),
+    "patch_warp": (build_patch_warp_residual, build_patch_warp_residual_jac),
 }
 
 
@@ -318,13 +325,11 @@ class BundleAdjuster:
         strategy = cls.default_conf["strategy"]
         if conf is not None and "strategy" in conf:
             strategy = conf["strategy"]
-        if strategy == "patch_warp":
-            raise _not_ported("the patch_warp BA strategy",
-                              "The other BA strategies")
         strategy_to_solver = {
             "feature_reference": FeatureReferenceBundleAdjuster,
             "geometric": GeometricBundleAdjuster,
             "costmaps": CostMapBundleAdjuster,
+            "patch_warp": PatchWarpBundleAdjuster,
         }
         return strategy_to_solver[strategy](conf, device=device)
 
@@ -356,9 +361,11 @@ class BundleAdjuster:
 
     def _run_ba_cached(self, reconstruction, packed: PackedBA, residual_key,
                        obs_data, ctx, loss, opts: BAOptions,
-                       obs_valid=None) -> Dict:
+                       obs_valid=None, src_idx=None) -> Dict:
         """Lay the problem out as the JAX package does and run
-        :func:`ba_solve` (``pixsfm_tpu/bundle_adjustment/main.py:540``)."""
+        :func:`ba_solve` (``pixsfm_tpu/bundle_adjustment/main.py:540``).
+        ``src_idx``: each observation's second pose block (patch-warp
+        joint source poses); the grid layout is not taken with it."""
         t0 = time.time()
         dev = self.device
         O = len(packed.obs_img)
@@ -396,7 +403,7 @@ class BundleAdjuster:
         O_grid = Np_pad * T_b
         real_valid = (np.ones(O, bool) if obs_valid is None
                       else np.asarray(obs_valid, bool))
-        if opts.linear_solver == "cg" and large_pts \
+        if opts.linear_solver == "cg" and large_pts and src_idx is None \
                 and O_grid <= 2 * O_pad and O_grid % opts.obs_chunk == 0:
             order = np.argsort(packed.obs_pt, kind="stable")
             sorted_pts = np.asarray(packed.obs_pt)[order]
@@ -433,7 +440,9 @@ class BundleAdjuster:
             obs_data=tuple(put(prep(a)) for a in obs_data),
             valid=put(valid),
             pair_o1=None if pairs is None else put(pairs[0], torch.long),
-            pair_o2=None if pairs is None else put(pairs[1], torch.long))
+            pair_o2=None if pairs is None else put(pairs[1], torch.long),
+            src_idx=None if src_idx is None
+            else put(prep(np.asarray(src_idx)), torch.long))
         xyz = np.concatenate([packed.xyz, np.zeros((Np_pad - Np, 3))]) \
             .astype(np.float32)
         xyz[Np:] = [0.0, 0.0, 10.0]   # padded points safely in front
@@ -642,3 +651,25 @@ class CostMapBundleAdjuster(BundleAdjuster):
                ) -> Dict:
         from .costmaps import costmap_ba
         return costmap_ba(self, reconstruction, feature_set, problem_setup)
+
+
+class PatchWarpBundleAdjuster(BundleAdjuster):
+    """Patch-warping BA (reference: patch_warp_bundle_optimizer.h:21-61);
+    ``patch_warp.py`` builds the residual and wires the solve. The source
+    poses are a second optimized block (``optimize_source_poses``) when
+    ``refine_extrinsics`` is on."""
+
+    default_conf = deepcopy(BundleAdjuster.default_conf)
+    default_conf["strategy"] = "patch_warp"
+    default_conf["interpolation"] = {
+        "nodes": [[float(dx), float(dy)] for dy in (-1.5, -0.5, 0.5, 1.5)
+                  for dx in (-1.5, -0.5, 0.5, 1.5)],
+        "mode": "BICUBIC", "l2_normalize": False, "ncc_normalize": True,
+    }
+    default_conf["optimizer"]["regularize_source"] = {"n_nodes": 0}
+    default_conf["optimizer"]["optimize_source_poses"] = True
+
+    def refine(self, reconstruction, feature_set, problem_setup=None
+               ) -> Dict:
+        return patch_warp_ba(self, reconstruction, feature_set,
+                             problem_setup)

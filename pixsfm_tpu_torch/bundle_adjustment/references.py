@@ -8,10 +8,14 @@ location, compute a robust (IRLS) mean over the track, and keep the
 observation whose descriptor is closest to that mean.
 
 The descriptor reads go through kernel K1 (``ops/interpolate_cuda.py``),
-one query per observation straight from the packed patch rows; the IRLS
-runs batched over all points at once on the device. Only the default
-single-node BICUBIC config is ported: other modes, node windows and
-``compute_offsets3D`` (patch-warp BA) raise ``NotImplementedError``.
+one launch for all observations straight from the packed patch rows: one
+query per observation, or with node windows (patch-warp BA) one per node
+and observation, the ``n_nodes x C`` descriptor NCC-normalized across the
+nodes when the config asks. The IRLS runs batched over all points at once
+on the device. ``compute_offsets3D`` lifts each node at the source
+observation's depth (``Reference.node_offsets3D``), vectorised over points
+per camera model. BICUBIC / CERES_BICUBIC only: other modes raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,19 +28,25 @@ import numpy as np
 import torch
 
 from .. import logger
-from ..base.interpolation import InterpolationConfig, check_window_config
+from ..base.cameras import img_from_cam
+from ..base.geometry import apply_pose, quat_normalize
+from ..base.interpolation import (InterpolationConfig, check_window_config,
+                                  ncc_normalize)
 from ..base.losses import RobustLoss, make_loss
-from ..ops.interpolate_cuda import interpolate_rows
+from ..base.projection import pixel_to_world, project_np
+from ..ops.interpolate_cuda import interpolate_node_rows
 from ..util.misc import bucket
 
-__all__ = ["Reference", "extract_references", "robust_mean_irls"]
+__all__ = ["Reference", "extract_references", "node_offsets3D",
+           "robust_mean_irls"]
 
 
 @dataclass
 class Reference:
     """Per-point3D reference (reference: features/src/references.{h,cc})."""
     source: Tuple[int, int]               # (image_id, p2D_idx) of chosen obs
-    descriptor: np.ndarray                # [C]
+    descriptor: np.ndarray                # [n_nodes * C], node-major
+    node_offsets3D: Optional[np.ndarray] = None   # [n_nodes, 3]
     observations: Optional[List[Tuple[int, int]]] = None
     costs: Optional[np.ndarray] = None    # [T] distance to robust mean
     track_descriptors: Optional[np.ndarray] = None  # [T, C]
@@ -82,11 +92,8 @@ def extract_references(reconstruction, feature_set, view, conf,
     iters = int(get("iters", 100) or 100)
     if keep_observations is None:
         keep_observations = bool(get("keep_observations", False))
-    if bool(get("compute_offsets3D", False)):
-        raise NotImplementedError(
-            "compute_offsets3D (patch-warp BA) is not ported yet; see "
-            "ROADMAP.md section 1, 'The other BA strategies'")
-    check_window_config(interp)
+    compute_offsets = bool(get("compute_offsets3D", False))
+    check_window_config(interp, nodes=True)
 
     pids = list(point3D_ids if point3D_ids is not None
                 else sorted(reconstruction.points3D.keys()))
@@ -95,8 +102,6 @@ def extract_references(reconstruction, feature_set, view, conf,
     pf = view.packed
 
     # flatten all track observations; reprojected locations batched per image
-    from ..base.projection import project_np
-
     per_image: Dict[int, list] = {}
     for s, pid in enumerate(pids):
         for (iid, p2D_idx) in reconstruction.points3D[pid].track:
@@ -123,17 +128,28 @@ def extract_references(reconstruction, feature_set, view, conf,
     obs_row = np.asarray(obs_row, np.int64)
     obs_xy = np.asarray(obs_xy, np.float64)
 
-    # descriptor at each reprojection: one K1 query per observation
+    # descriptor at each reprojection: one K1 launch over the node queries
+    # of every observation (one node by default)
     dev = pf.patches.device
     B, H, W, C = pf.patches.shape
-    pc = ((obs_xy * pf.scales[obs_row] - 0.5 - pf.corners[obs_row])
-          * pf.upsampling[obs_row][:, None]).astype(np.float32)
+    # patch coordinates in float32, as the JAX package rounds them (a
+    # pixel of ~1000 carries 6e-5 px of float32 rounding, which NCC
+    # scales by 1 / sigma)
+    f32 = np.float32
+    pc = ((obs_xy.astype(f32) * pf.scales[obs_row].astype(f32) - f32(0.5)
+           - pf.corners[obs_row].astype(f32))
+          * pf.upsampling[obs_row].astype(f32)[:, None])
     rows_view = pf.patches.reshape(B * H, W, C)
     row_base = torch.as_tensor(obs_row * H, dtype=torch.int32, device=dev)
-    desc, _, _ = interpolate_rows(
+    desc, _, _ = interpolate_node_rows(
         rows_view, H, W, C, row_base,
         torch.as_tensor(pc[:, 1], device=dev),
-        torch.as_tensor(pc[:, 0], device=dev), bool(interp.l2_normalize))
+        torch.as_tensor(pc[:, 0], device=dev), interp.nodes,
+        bool(interp.l2_normalize))
+    if interp.ncc_normalize:
+        desc = ncc_normalize(desc)
+    C = interp.n_nodes * C
+    desc = desc.reshape(-1, C)
 
     # pad tracks to T (power of two) and run IRLS batched over points
     counts = np.bincount(obs_pt, minlength=len(pids))
@@ -162,6 +178,12 @@ def extract_references(reconstruction, feature_set, view, conf,
 
     track_elems: Dict[Tuple[int, int], Tuple[int, int]] = {
         (int(s), int(t)): e for s, t, e in zip(obs_pt, obs_slot, obs_track)}
+    if compute_offsets:
+        has = np.nonzero(counts > 0)[0]
+        offsets = dict(zip(has, node_offsets3D(
+            reconstruction, [track_elems[(int(s), int(best[s]))]
+                             for s in has],
+            [pids[s] for s in has], pf, interp)))
     refs: Dict[int, Reference] = {}
     for s, pid in enumerate(pids):
         if counts[s] == 0:
@@ -174,7 +196,47 @@ def extract_references(reconstruction, feature_set, view, conf,
             ref.observations = [track_elems[(s, t)] for t in range(n)]
             ref.costs = d2[s, :n].copy()
             ref.track_descriptors = track_desc[s, :n].copy()
+        if compute_offsets:
+            ref.node_offsets3D = offsets[s]
         refs[pid] = ref
     logger.info("Reference extraction: %.3fs (%d points)",
                 time.time() - t0, len(refs))
     return refs
+
+
+def node_offsets3D(reconstruction, sources: Sequence[Tuple[int, int]],
+                   point3D_ids: Sequence[int], pf,
+                   interp: InterpolationConfig) -> np.ndarray:
+    """``[P, n_nodes, 3]``: each node offset ``(dx, dy) / scale`` around the
+    source observation's reprojection lifted at its depth, less the lifted
+    reprojection (reference: reference_extractor.h:331-363; the JAX
+    package's ``_node_offsets3D`` one point and one node at a time, here
+    all points of a camera model at once, in float64 on the host)."""
+    nodes = torch.as_tensor(interp.nodes_array(), dtype=torch.float64)
+    zero = torch.zeros((1, 2), dtype=torch.float64)
+    nodes = torch.cat([zero, nodes])               # node 0: the reprojection
+    P = len(sources)
+    out = np.zeros((P, interp.n_nodes, 3))
+    models: Dict[str, List[int]] = {}
+    for j, (iid, _) in enumerate(sources):
+        cam = reconstruction.cameras[reconstruction.images[iid].camera_id]
+        models.setdefault(cam.model, []).append(j)
+    for model, idx in models.items():
+        ims = [reconstruction.images[sources[j][0]] for j in idx]
+        params = torch.as_tensor(np.stack(
+            [reconstruction.cameras[im.camera_id].params for im in ims]))
+        q = torch.as_tensor(np.stack([im.qvec for im in ims]))
+        t = torch.as_tensor(np.stack([im.tvec for im in ims]))
+        X = torch.as_tensor(np.stack([reconstruction.points3D[
+            point3D_ids[j]].xyz for j in idx]))
+        x_cam = apply_pose(quat_normalize(q), t, X)
+        depth = x_cam[:, 2]
+        xy = img_from_cam(model, params, x_cam[:, :2] / depth[:, None])
+        rows = np.asarray([pf.row_or(ims[i].name, sources[j][1])
+                           for i, j in enumerate(idx)])
+        scale = torch.as_tensor(pf.scales[rows])[:, None]     # [p, 1, 2]
+        xy_n = xy[:, None] + nodes[None] / scale
+        Xn = pixel_to_world(model, params[:, None], q[:, None], t[:, None],
+                            xy_n, depth[:, None].expand(-1, len(nodes)))
+        out[idx] = (Xn[:, 1:] - Xn[:, :1]).numpy()
+    return out

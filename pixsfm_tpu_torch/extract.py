@@ -4,7 +4,8 @@ Port of ``features_from_image_list`` / ``features_from_graph`` /
 ``features_from_reconstruction`` of ``pixsfm_tpu/extract.py``: extract
 patches only at matched keypoints (the KA input) or at the reprojections of
 triangulated observations (the BA input), with image decoding prefetched on
-a background thread. ``image_dir`` is a directory of image files or a
+a background thread; with ``sparse: false`` each image keeps its whole map
+(``FeatureView`` cuts the windows a solve reads). ``image_dir`` is a directory of image files or a
 mapping ``{image_name: [H, W, 3] uint8 array}`` of decoded images. The H5
 cache comes with a later slice of the port: a cache path raises, and a
 config's ``use_cache`` applies only with one, so it is ignored.

@@ -3,15 +3,17 @@
 Port of ``pixsfm_tpu/features/extractor.py``. Loads an image (a path, read
 with PIL, or an already decoded ``[H, W, 3]`` uint8 array / PIL image),
 resizes it to ``max_edge``, runs the feature model on the device and cuts a
-``[ps, ps, C]`` window around every keypoint. The windows are L2-normalized
-per pixel and cast to the storage dtype (``half`` -> bfloat16) on the
-device, and stay there as the :class:`FeatureMap`'s patches.
+``[ps, ps, C]`` window around every keypoint (``sparse: true``, the
+default), or keeps the whole map (``sparse: false``, and the dense fallback
+when the keypoint windows would hold more than the map). Windows or map are
+L2-normalized per pixel (``l2_normalize``) and cast to the storage dtype
+(``half`` -> bfloat16) on the device, and stay there as the
+:class:`FeatureMap`'s patches.
 
-Only sparse extraction (``sparse: true``, the default) is ported; dense
-maps, the H5 cache and batched forwards come with a later slice.
-``use_cache`` applies only when the caller gives a cache path, as in the
-JAX package, so a preset that sets it (``low_memory``) runs without one;
-``extract.py`` raises for a cache path.
+The H5 cache and batched forwards come with a later slice. ``use_cache``
+applies only when the caller gives a cache path, as in the JAX package, so
+a preset that sets it (``low_memory``) runs without one; ``extract.py``
+raises for a cache path.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 from .. import resolve_device
 from ..config import merge
-from .featuremaps import FeatureMap, storage_dtype
+from .featuremaps import FeatureMap, kDensePatchId, storage_dtype, window_cut
 from .models import get_model
 
 __all__ = ["FeatureExtractor"]
@@ -57,10 +59,6 @@ class FeatureExtractor:
 
     def __init__(self, conf=None, device=None):
         self.conf = merge(self.default_conf, conf or {})
-        if not self.conf.sparse:
-            raise NotImplementedError(
-                "dense extraction (sparse: false) is not ported yet; it "
-                "comes with a later slice of pixsfm_tpu_torch")
         if int(self.conf.get("batch_size", 1)) > 1:
             raise NotImplementedError(
                 "batched extraction (batch_size > 1) is not ported yet")
@@ -135,34 +133,39 @@ class FeatureExtractor:
         """Cut, normalize and cast the keypoint windows of one ``[C, h, w]``
         map on the device (``_compiled_extract_patches`` of the JAX
         package; the per-pixel L2 commutes with the window cut, so only
-        the windows are normalized)."""
-        if keypoints is None:
+        the windows are normalized), or normalize and cast the whole map
+        (``_to_fmap``'s dense branch, ``extractor.py:302-331``)."""
+        sparse = bool(self.conf.sparse)
+        if sparse and keypoints is None:
             raise RuntimeError("sparse extraction requires keypoints")
-        keypoints = np.asarray(keypoints, np.float64).reshape(-1, 2)
-        if keypoint_ids is None:
-            keypoint_ids = list(range(len(keypoints)))
-        elif len(keypoints) != len(keypoint_ids):
-            raise ValueError("keypoints / keypoint_ids length mismatch")
+        if keypoints is not None:
+            keypoints = np.asarray(keypoints, np.float64).reshape(-1, 2)
+            if keypoint_ids is None:
+                keypoint_ids = list(range(len(keypoints)))
+            elif len(keypoints) != len(keypoint_ids):
+                raise ValueError("keypoints / keypoint_ids length mismatch")
         w, h = image_size
         ps = int(self.conf.patch_size)
         C, fh, fw = fmap.shape
         scale = np.array([fw / w, fh / h])
-        if fmap.numel() <= len(keypoints) * ps * ps * C:
-            raise NotImplementedError(
-                "more keypoint windows than the dense map holds; the dense "
-                "fallback of the JAX extractor is not ported yet")
-        corners = (keypoints * scale - ps / 2.0).astype(np.int32)
-        corners = np.clip(corners, [0, 0],
-                          [max(fw - ps - 1, 0), max(fh - ps - 1, 0)])
-        dev = fmap.device
-        cr = torch.as_tensor(corners, device=dev, dtype=torch.int64)
-        off = torch.arange(ps, device=dev)
-        ys = (cr[:, 1, None] + off)[:, :, None]              # [N, ps, 1]
-        xs = (cr[:, 0, None] + off)[:, None, :]              # [N, 1, ps]
-        f = fmap.permute(1, 2, 0)[ys, xs].to(torch.float32)  # [N, ps, ps, C]
-        if self.conf.l2_normalize:
-            f = f / torch.clamp(torch.linalg.vector_norm(f, dim=-1,
-                                                         keepdim=True),
-                                min=1e-12)
-        patches = f.to(storage_dtype(self.storage_dtype)).contiguous()
-        return FeatureMap(patches, list(keypoint_ids), corners, scale)
+        dtype = storage_dtype(self.storage_dtype)
+
+        def normalize(f):
+            f = f.to(torch.float32)
+            if self.conf.l2_normalize:
+                f = f / torch.clamp(torch.linalg.vector_norm(
+                    f, dim=-1, keepdim=True), min=1e-12)
+            return f.to(dtype).contiguous()
+
+        if sparse and fmap.numel() > len(keypoints) * ps * ps * C:
+            corners = (keypoints * scale - ps / 2.0).astype(np.int32)
+            corners = np.clip(corners, [0, 0],
+                              [max(fw - ps - 1, 0), max(fh - ps - 1, 0)])
+            patches = normalize(window_cut(fmap.permute(1, 2, 0), corners,
+                                           ps))
+            return FeatureMap(patches, list(keypoint_ids), corners, scale)
+        # the whole map: sparse: false, or more keypoint windows than the
+        # map holds (the JAX extractor's dense fallback)
+        return FeatureMap(normalize(fmap.permute(1, 2, 0))[None],
+                          [kDensePatchId], np.zeros((1, 2), np.int64), scale,
+                          is_sparse=False)

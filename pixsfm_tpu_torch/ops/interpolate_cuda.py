@@ -11,6 +11,11 @@ The CUDA source holds two variants, a vector one (16-byte loads, for bf16 or
 f32 rows of 128 channels on a 16-byte aligned base) and a general one
 (everything else up to 256 channels). The C entry
 point chooses between them; :func:`kernel_variant` reports its choice.
+
+:func:`interpolate_node_rows` reads node windows (patch-warp BA and its
+references): the node offsets of every query expand into one launch on
+that query's patch row; the general variant serves their 3-channel raw
+intensities.
 """
 
 from __future__ import annotations
@@ -20,10 +25,10 @@ import ctypes
 import torch
 
 from ..base.interpolation import (bicubic_window_eval_rows,
-                                  l2_normalize_with_grad)
+                                  l2_normalize_with_grad, node_queries)
 
-__all__ = ["interpolate_rows", "interpolate_rows_plain", "kernel_variant",
-           "launches"]
+__all__ = ["interpolate_rows", "interpolate_rows_plain",
+           "interpolate_node_rows", "kernel_variant", "launches"]
 
 # Number of kernel launches since the last reset (set it to 0 to reset).
 launches = 0
@@ -112,3 +117,19 @@ def interpolate_rows(rows, H: int, W: int, C: int, row_base, r, c,
                            f"(cudaError {err})")
     launches += 1
     return f, dfdr, dfdc
+
+
+def interpolate_node_rows(rows, H: int, W: int, C: int, row_base, r, c,
+                          nodes, l2_normalize: bool):
+    """Node windows ``(f, dfdr, dfdc)``, each ``[N, n_nodes, C]`` float32:
+    the ``N * n_nodes`` queries at the offsets ``nodes [n_nodes, 2]`` ``(dx,
+    dy)`` around each of the ``N`` queries (``base.interpolation.
+    node_queries``, all on the query's own patch row) in one
+    :func:`interpolate_rows` call. NCC is the caller's
+    (``base.interpolation.ncc_normalize_with_grad``); the plain version is
+    ``base.interpolation.interpolate_nodes_with_grad``."""
+    n = len(nodes)
+    out = interpolate_rows(rows, H, W, C, *node_queries(row_base, r, c,
+                                                        nodes),
+                           l2_normalize)
+    return tuple(o.reshape(-1, n, C) for o in out)

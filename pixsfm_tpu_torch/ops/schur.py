@@ -33,13 +33,21 @@ pixsfm/bundle_adjustment/src/bundle_optimizer.h:114-245). Design:
 - The CG loop copies ``jax.scipy.sparse.linalg.cg``: stop when
   ``r.r <= max(tol^2 b.b, 0)`` (unpreconditioned residual) or after
   ``max_linear_solver_iterations`` steps.
+- A second pose block per observation (``obs.src_idx``, the source view of
+  patch-warp BA): the Jacobian's columns are ``[img pose 6 | src pose 6 |
+  cam k | X 3]``, both pose blocks' diagonals go to the pose blocks, and
+  each observation keeps its full camera-side block ``Aob [O, 12+k,
+  12+k]``, which carries every img<->src<->intrinsics cross term: the CG
+  matvec applies it per observation, the dense step places it at the
+  observation's rows (an observation whose source is its own image puts
+  both pose blocks on one slot, and ``index_add_`` sums them). Flat layout
+  only, as in the JAX package.
 - LM with Ceres-style non-monotonic (GLL) acceptance, best-state return and
   optional inner point-only iterations after each accepted step.
 
 The LM loop runs on the host (one device sync per iteration and per CG
-step). Out of scope here, each raising ``NotImplementedError``: the generic
-autodiff path (no ``residual_jac_fn``) and a second pose block per
-observation (``src_idx``, patch-warp BA).
+step). Out of scope here, raising ``NotImplementedError``: the generic
+autodiff path (no ``residual_jac_fn``).
 """
 
 from __future__ import annotations
@@ -274,7 +282,11 @@ def ba_solve(residual_fn: Callable,
     with the same arguments returns ``(r [n, C], J [n, C, 6+k+3])``, the
     Jacobian in the tangent layout ``[omega(3), dt(3), dcam(k), dX(3)]``.
     ``residual_fn`` serves the cost-only evaluations, so the two must agree
-    on the residual.
+    on the residual. With ``obs.src_idx`` both take the source pose after
+    the image's, ``(q, t, q_src, t_src, cam, X, obs_slice, ctx)``, and the
+    Jacobian's layout is ``[omega, dt, omega_src, dt_src, dcam, dX]``
+    (JAX's ``ba_solve`` takes ``jax.jacfwd`` there and refuses a
+    ``residual_jac_fn``).
 
     Returns the best state and a summary ``{initial_cost, final_cost,
     iterations, cg_iterations, lam, done}``."""
@@ -282,11 +294,6 @@ def ba_solve(residual_fn: Callable,
         raise NotImplementedError(
             "ba_solve without residual_jac_fn (the generic autodiff path) is "
             "not ported yet; see ROADMAP.md section 1, 'The jacfwd path'")
-    if obs.src_idx is not None:
-        raise NotImplementedError(
-            "a second pose block per observation (src_idx, patch-warp BA) "
-            "is not ported yet; see ROADMAP.md section 1, 'The other BA "
-            "strategies'")
     if opts.linear_solver not in ("dense", "cg"):
         raise ValueError(f"unknown linear_solver {opts.linear_solver!r}")
     dense = opts.linear_solver == "dense"
@@ -300,14 +307,20 @@ def ba_solve(residual_fn: Callable,
     Nc, k = state0.cams.shape
     Np = state0.xyz.shape[0]
     O = obs.img_idx.shape[0]
-    NR = 6 + k
+    has_src = obs.src_idx is not None
+    PB = 12 if has_src else 6          # pose tangent rows per observation
+    NR = PB + k
     grid_T = int(opts.obs_grid_T or 0)
+    if has_src and grid_T:
+        raise ValueError("the grid layout does not take a second pose block "
+                         "per observation (src_idx)")
     if grid_T > 0 and O != Np * grid_T:
         raise ValueError(f"obs_grid_T={grid_T}: obs axis must be exactly "
                          f"Np*T ({Np}*{grid_T}={Np * grid_T}), got O={O}")
     img_idx = obs.img_idx.to(dev).long()
     cam_idx = obs.cam_idx.to(dev).long()
     pt_idx = obs.pt_idx.to(dev).long()
+    src_idx = obs.src_idx.to(dev).long() if has_src else None
     valid = obs.valid.to(dev).bool()
     obs_data = tuple(a.to(dev) for a in obs.obs_data)
     pose_free = pose_free.to(dev).bool()
@@ -328,9 +341,12 @@ def ba_solve(residual_fn: Callable,
     cam_of_img[img_idx[valid]] = cam_idx[valid]
 
     def gather(state, s, e):
-        return (state.qvec[img_idx[s:e]], state.tvec[img_idx[s:e]],
+        """The arguments of the residual functions for chunk [s, e)."""
+        src = ((state.qvec[src_idx[s:e]], state.tvec[src_idx[s:e]])
+               if has_src else ())
+        return (state.qvec[img_idx[s:e]], state.tvec[img_idx[s:e]], *src,
                 state.cams[cam_idx[s:e]], state.xyz[pt_idx[s:e]],
-                tuple(a[s:e] for a in obs_data))
+                tuple(a[s:e] for a in obs_data), ctx)
 
     def eval_chunked(state: BAState, with_jac: bool,
                      points_only: bool = False) -> Dict:
@@ -338,17 +354,20 @@ def ba_solve(residual_fn: Callable,
         cost = torch.zeros((), dtype=torch.float32, device=dev)
         out: Dict = {}
         if with_jac:
-            img_acc = torch.zeros((I, 42 + 6 * k), device=dev)
+            img_acc = torch.zeros((I, 42 if has_src else 42 + 6 * k),
+                                  device=dev)
             cam_acc = torch.zeros((Nc, k * k + k), device=dev)
             ptv = torch.zeros((O, 12), device=dev)
             B = torch.empty((O, NR, 3), device=dev)
+            if has_src and not points_only:
+                Aob = torch.empty((O, NR, NR), device=dev)
         for s, e in bounds:
-            q, t, c, X, sl = gather(state, s, e)
+            args = gather(state, s, e)
             vm = valid[s:e]
             if with_jac:
-                r, J = residual_jac_fn(q, t, c, X, sl, ctx)
+                r, J = residual_jac_fn(*args)
             else:
-                r = residual_fn(q, t, c, X, sl, ctx)
+                r = residual_fn(*args)
             sq = torch.sum(r * r, dim=-1)
             cost = cost + 0.5 * torch.sum(torch.where(
                 vm, loss(sq), torch.zeros_like(sq)))
@@ -359,16 +378,24 @@ def ba_solve(residual_fn: Callable,
                              torch.cat([J, r[..., None]], dim=-1), 0.0)
             G = torch.einsum("nci,ncj->nij", Ja * w[:, None, None], Ja)
             n = e - s
-            px, xe = 6 + k, 9 + k                                  # xe: r col
+            px, xe = NR, NR + 3                                    # xe: r col
             ptv[s:e] = torch.cat([G[:, px:xe, px:xe].reshape(n, 9),
                                   G[:, px:xe, xe]], dim=1)
             if points_only:
                 continue
-            img_acc.index_add_(0, img_idx[s:e], torch.cat([
-                G[:, :6, :6].reshape(n, 36), G[:, :6, xe],
-                G[:, :6, 6:px].reshape(n, 6 * k)], dim=1))
+            if has_src:
+                img_acc.index_add_(0, img_idx[s:e], torch.cat([
+                    G[:, :6, :6].reshape(n, 36), G[:, :6, xe]], dim=1))
+                img_acc.index_add_(0, src_idx[s:e], torch.cat([
+                    G[:, 6:12, 6:12].reshape(n, 36), G[:, 6:12, xe]], dim=1))
+                Aob[s:e] = G[:, :px, :px]
+            else:
+                img_acc.index_add_(0, img_idx[s:e], torch.cat([
+                    G[:, :6, :6].reshape(n, 36), G[:, :6, xe],
+                    G[:, :6, 6:px].reshape(n, 6 * k)], dim=1))
             cam_acc.index_add_(0, cam_idx[s:e], torch.cat([
-                G[:, 6:px, 6:px].reshape(n, k * k), G[:, 6:px, xe]], dim=1))
+                G[:, PB:px, PB:px].reshape(n, k * k), G[:, PB:px, xe]],
+                dim=1))
             B[s:e] = G[:, :px, px:xe]
         out["cost"] = cost
         if not with_jac:
@@ -383,7 +410,10 @@ def ba_solve(residual_fn: Callable,
         if not points_only:
             out["Hpp"] = img_acc[:, :36].reshape(I, 6, 6)
             out["gp"] = img_acc[:, 36:42]
-            out["Hpc"] = img_acc[:, 42:].reshape(I, 6, k)
+            if has_src:
+                out["Aob"] = Aob
+            else:
+                out["Hpc"] = img_acc[:, 42:].reshape(I, 6, k)
             out["Hcc"] = cam_acc[:, :k * k].reshape(Nc, k, k)
             out["gc"] = cam_acc[:, k * k:]
             out["B"] = B
@@ -403,8 +433,13 @@ def ba_solve(residual_fn: Callable,
         sysd["Hcc"] = sysd["Hcc"] * cm[:, :, None] * cm[:, None, :]
         sysd["gp"] = sysd["gp"] * pm
         sysd["gc"] = sysd["gc"] * cm
-        sysd["Hpc"] = sysd["Hpc"] * pm[:, :, None] * cm[cam_of_img][:, None, :]
-        bm = torch.cat([pm[img_idx], cm[cam_idx]], dim=1)          # [O, NR]
+        if has_src:
+            bm = torch.cat([pm[img_idx], pm[src_idx], cm[cam_idx]], dim=1)
+            sysd["Aob"] = sysd["Aob"] * bm[:, :, None] * bm[:, None, :]
+        else:
+            bm = torch.cat([pm[img_idx], cm[cam_idx]], dim=1)      # [O, NR]
+            sysd["Hpc"] = (sysd["Hpc"] * pm[:, :, None]
+                           * cm[cam_of_img][:, None, :])
         sysd["B"] = sysd["B"] * bm[:, :, None] * xm[pt_idx][:, None, :]
         return sysd
 
@@ -442,15 +477,7 @@ def ba_solve(residual_fn: Callable,
                     vp.t(), vc.t(), Btr, img_r, cam_r, **dims)[:, :Np].t()
             return term, rhs, backsub
 
-        def rows(vp, vc):
-            return torch.cat([vp[img_idx], vc[cam_idx]], dim=1)    # [O, NR]
-
-        def scatter(u_o):
-            up = torch.zeros((I, 6), device=dev).index_add_(0, img_idx,
-                                                            u_o[:, :6])
-            uc = torch.zeros((Nc, k), device=dev).index_add_(0, cam_idx,
-                                                             u_o[:, 6:])
-            return up, uc
+        rows, scatter = obs_rows_fns()
 
         def per_point(s_o):
             return torch.zeros((Np, 3), device=dev).index_add_(0, pt_idx,
@@ -469,23 +496,60 @@ def ba_solve(residual_fn: Callable,
             return per_point(torch.einsum("oab,oa->ob", B, rows(vp, vc)))
         return term, rhs, backsub
 
+    def obs_rows_fns():
+        """``(rows, scatter)``: the camera-side rows ``[O, NR]`` of each
+        observation from per-image / per-camera vectors, and their
+        reduction back (both pose blocks of an observation with a source
+        view)."""
+        def rows(vp, vc):
+            src = (vp[src_idx],) if has_src else ()
+            return torch.cat([vp[img_idx], *src, vc[cam_idx]], dim=1)
+
+        def scatter(u_o):
+            up = torch.zeros((I, 6), device=dev).index_add_(0, img_idx,
+                                                            u_o[:, :6])
+            if has_src:
+                up.index_add_(0, src_idx, u_o[:, 6:12])
+            uc = torch.zeros((Nc, k), device=dev).index_add_(0, cam_idx,
+                                                             u_o[:, PB:])
+            return up, uc
+        return rows, scatter
+
     def schur_step(sysd: Dict, lam: float):
         """One damped CG Schur solve -> (d_pose [I, 6], d_cam [Nc, k],
         d_xyz [Np, 3], predicted reduction, CG steps)."""
-        Hpp, Hcc, Hpc = sysd["Hpp"], sysd["Hcc"], sysd["Hpc"]
+        Hpp, Hcc = sysd["Hpp"], sysd["Hcc"]
         V, gp, gc, gx = sysd["V"], sysd["gp"], sysd["gc"], sysd["gx"]
         Vinv = _inv3x3(damp(V, xm, lam))
         Hpp_d = damp(Hpp, pose_mask6, lam)
         Hcc_d = damp(Hcc, cam_mask, lam)
         term, rhs, backsub = schur_terms(sysd["B"], Vinv)
 
+        if has_src:
+            # the camera-side matrix through the per-observation blocks;
+            # the damping (and the fill of frozen rows) on its diagonal
+            rows, scatter = obs_rows_fns()
+            Aob = sysd["Aob"]
+            diag_p = lam * clip_diag(Hpp) + (1.0 - pm)
+            diag_c = lam * clip_diag(Hcc) + (1.0 - cm)
+
+            def a_matvec(vp, vc):
+                avp, avc = scatter(torch.einsum("oab,ob->oa", Aob,
+                                                rows(vp, vc)))
+                return avp + diag_p * vp, avc + diag_c * vc
+        else:
+            Hpc = sysd["Hpc"]
+
+            def a_matvec(vp, vc):
+                avp = torch.einsum("iab,ib->ia", Hpp_d, vp) \
+                    + torch.einsum("iak,ik->ia", Hpc, vc[cam_of_img])
+                avc = torch.einsum("cab,cb->ca", Hcc_d, vc).index_add(
+                    0, cam_of_img, torch.einsum("iak,ia->ik", Hpc, vp))
+                return avp, avc
+
         def s_matvec(v):
-            vp, vc = v
-            avp = torch.einsum("iab,ib->ia", Hpp_d, vp) \
-                + torch.einsum("iak,ik->ia", Hpc, vc[cam_of_img])
-            avc = torch.einsum("cab,cb->ca", Hcc_d, vc).index_add(
-                0, cam_of_img, torch.einsum("iak,ia->ik", Hpc, vp))
-            up, uc = term(vp, vc)
+            avp, avc = a_matvec(*v)
+            up, uc = term(*v)
             return avp - up, avc - uc
 
         Minv_p = torch.linalg.inv(Hpp_d)
@@ -521,7 +585,9 @@ def ba_solve(residual_fn: Callable,
         rk = torch.arange(k, device=dev)
         pose_rows = torch.arange(I, device=dev)[:, None] * 6 + r6    # [I, 6]
         cam_rows = 6 * I + torch.arange(Nc, device=dev)[:, None] * k + rk
-        obs_rows = torch.cat([pose_rows[img_idx], cam_rows[cam_idx]], 1)
+        src_rows = (pose_rows[src_idx],) if has_src else ()
+        obs_rows = torch.cat([pose_rows[img_idx], *src_rows,
+                              cam_rows[cam_idx]], 1)                  # [O, NR]
         free_rows = torch.cat([pose_mask6.reshape(-1),
                                cam_mask.reshape(-1)]).float()
         pair_o1 = obs.pair_o1.to(dev).long()
@@ -539,17 +605,22 @@ def ba_solve(residual_fn: Callable,
     def dense_step(sysd: Dict, lam: float):
         """One damped dense Schur solve (``pixsfm_tpu/ops/schur.py:1253-
         1354``) -> (d_pose, d_cam, d_xyz, predicted reduction, 0)."""
-        Hpp, Hcc, Hpc = sysd["Hpp"], sysd["Hcc"], sysd["Hpc"]
         V, gp, gc, gx, B = (sysd["V"], sysd["gp"], sysd["gc"], sysd["gx"],
                             sysd["B"])
         Vinv = _inv3x3(damp(V, xm, lam))
-        # the camera-side matrix A from its blocks, placed by index
+        # the camera-side matrix A from its blocks, placed by index: with a
+        # source view, every term (both poses, intrinsics, all cross
+        # blocks) lives in the per-observation blocks
         A = torch.zeros(M * M, device=dev)
-        crow_img = cam_rows[cam_of_img]                              # [I, k]
-        place(A, pose_rows, pose_rows, Hpp)
-        place(A, pose_rows, crow_img, Hpc)
-        place(A, crow_img, pose_rows, Hpc.transpose(1, 2))
-        place(A, cam_rows, cam_rows, Hcc)
+        if has_src:
+            place(A, obs_rows, obs_rows, sysd["Aob"])
+        else:
+            Hpc = sysd["Hpc"]
+            crow_img = cam_rows[cam_of_img]                          # [I, k]
+            place(A, pose_rows, pose_rows, sysd["Hpp"])
+            place(A, pose_rows, crow_img, Hpc)
+            place(A, crow_img, pose_rows, Hpc.transpose(1, 2))
+            place(A, cam_rows, cam_rows, sysd["Hcc"])
         A = A.view(M, M)
         diagA = clip_diag(A)
         A = A + torch.diag(lam * diagA + (1.0 - free_rows))

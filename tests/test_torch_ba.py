@@ -414,10 +414,13 @@ def test_ba_solve_out_of_scope_raises():
     with pytest.raises(NotImplementedError, match="autodiff"):
         tschur.ba_solve(None, st, obs, RobustLoss(), *free,
                         opts=tschur.BAOptions(linear_solver="cg"))
-    with pytest.raises(NotImplementedError, match="src_idx"):
+    # a second pose block per observation runs on the flat layout and the
+    # dense step (tests/test_torch_patch_warp.py), never on the grid
+    with pytest.raises(ValueError, match="src_idx"):
         tschur.ba_solve(None, st, obs._replace(src_idx=obs.img_idx),
                         RobustLoss(), *free, residual_jac_fn=lambda: 0,
-                        opts=tschur.BAOptions(linear_solver="cg"))
+                        opts=tschur.BAOptions(linear_solver="cg",
+                                              obs_grid_T=4))
 
 
 def test_make_pair_list_and_point_major_match():

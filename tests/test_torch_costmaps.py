@@ -327,11 +327,12 @@ def test_low_memory_preset_builds():
     ``PixSfM("low_memory", device="cpu")`` builds topological_reference KA
     (1000 keypoints per problem, bound 2.0) and costmap BA (points only,
     JAX's ``costmaps`` defaults) on an extractor of 8 px patches; the
-    patch_warp strategy and the device mesh (with its costmap_window
-    layout) still raise."""
+    patch_warp strategy builds its adjuster, and the device mesh (with its
+    costmap_window layout) still raises."""
     from pixsfm_tpu.config import load_config as j_load_config
     from pixsfm_tpu_torch.bundle_adjustment import (BundleAdjuster,
-                                                    CostMapBundleAdjuster)
+                                                    CostMapBundleAdjuster,
+                                                    PatchWarpBundleAdjuster)
     from pixsfm_tpu_torch.config import load_config
     from pixsfm_tpu_torch.keypoint_adjustment.main import \
         TopologicalReferenceKeypointAdjuster
@@ -349,8 +350,9 @@ def test_low_memory_preset_builds():
                                           "num_threads": -1}
     assert not any(ba._optimizer_flags().values())
     assert int(sfm.extractor.conf.patch_size) == 8
-    with pytest.raises(NotImplementedError, match="The other BA strategies"):
-        BundleAdjuster.create({"strategy": "patch_warp"}, device="cpu")
+    assert isinstance(BundleAdjuster.create({"strategy": "patch_warp"},
+                                            device="cpu"),
+                      PatchWarpBundleAdjuster)
     # the costmap_window layout exists only for a device mesh
     with pytest.raises(NotImplementedError, match="Sharding"):
         CostMapBundleAdjuster({"parallel": {"enabled": True}}, device="cpu")

@@ -114,3 +114,104 @@ def test_plain_k1_edge_shapes_match_xla_path(dtype, l2, C, ps):
         assert a.dtype == torch.float32 and a.shape == (len(r), C)
         np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                    atol=ATOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# node windows and NCC (patch-warp BA and its references): atol 1e-5 with
+# float32 storage against the JAX package's per-patch forms
+# ---------------------------------------------------------------------------
+
+NODES16 = [[float(dx), float(dy)] for dy in (-1.5, -0.5, 0.5, 1.5)
+           for dx in (-1.5, -0.5, 0.5, 1.5)]
+
+
+def test_ncc_normalize_matches():
+    """``ncc_normalize`` / ``ncc_normalize_with_grad`` against JAX's, with
+    a flat channel (sigma = 0: sigma := 1, dsigma := 0) and a flat node
+    window: atol 1e-5."""
+    from pixsfm_tpu.base.interpolation import ncc_normalize as j_ncc
+    from pixsfm_tpu.base.interpolation import \
+        ncc_normalize_with_grad as j_ncc_grad
+    from pixsfm_tpu_torch.base.interpolation import (ncc_normalize,
+                                                     ncc_normalize_with_grad)
+    rng = np.random.default_rng(21)
+    f = rng.normal(0, 1, (6, 16, 5)).astype(np.float32)
+    f[:, :, 2] = 0.7            # a flat channel
+    f[3] = 0.25                 # a flat window
+    d = [rng.normal(0, 1, f.shape).astype(np.float32) for _ in range(2)]
+    want_g, want_d = j_ncc_grad(jnp.asarray(f), [jnp.asarray(a) for a in d])
+    got_g, got_d = ncc_normalize_with_grad(torch.from_numpy(f),
+                                           [torch.from_numpy(a) for a in d])
+    for a, b in zip([got_g, *got_d], [want_g, *want_d]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    np.testing.assert_allclose(ncc_normalize(torch.from_numpy(f)).numpy(),
+                               np.asarray(j_ncc(jnp.asarray(f))), atol=1e-5)
+    assert float(got_g[3].abs().max()) == 0.0
+    # a Jacobian's columns on an axis of their own broadcast against f
+    J = np.stack(d, axis=1)                                # [6, 2, 16, 5]
+    _, (got_J,) = ncc_normalize_with_grad(torch.from_numpy(f)[:, None],
+                                          [torch.from_numpy(J)])
+    np.testing.assert_allclose(got_J.numpy(),
+                               np.stack([np.asarray(a) for a in want_d], 1),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("l2,ncc", [(False, True), (True, False),
+                                    (True, True)])
+def test_node_windows_match(l2, ncc):
+    """``interpolate_nodes_with_grad`` (16 nodes, queries up to and past the
+    window border, one window flat: sigma = 0) against JAX's per-patch
+    ``interpolate_nodes_with_grad``; ``interpolate_node_rows``, the kernel
+    wrapper, gives the plain version's numbers on CPU tensors: atol 1e-5."""
+    import jax
+    from pixsfm_tpu.base.interpolation import InterpolationConfig as JInterp
+    from pixsfm_tpu.base.interpolation import \
+        interpolate_nodes_with_grad as j_nodes
+    from pixsfm_tpu_torch.base.interpolation import \
+        interpolate_nodes_with_grad
+    from pixsfm_tpu_torch.ops.interpolate_cuda import interpolate_node_rows
+    rng = np.random.default_rng(22)
+    rows, row_base, r, c = _inputs(rng, "float32", n_patches=5, n=12, ps=16,
+                                   C=3)
+    # a flat window of zeros reads exactly 0 at every node: sigma = 0 (at
+    # any other value the Catmull-Rom weights sum to 1 only up to
+    # rounding, and NCC divides that rounding by a spread of ~1e-8, in
+    # both packages)
+    rows[row_base[5]:row_base[5] + 16] = 0.0
+    r[6:8], c[6:8] = [-1.0, 15.5], [16.0, -0.75]  # nodes beyond the border
+    kw = dict(mode="BICUBIC", l2_normalize=l2, ncc_normalize=ncc,
+              nodes=NODES16)
+    patches = jnp.asarray(rows.reshape(5, 16, 16, 3))
+    want = jax.vmap(lambda p, rr, cc: j_nodes(p, rr, cc, JInterp(**kw)))(
+        patches[row_base // 16], jnp.asarray(r), jnp.asarray(c))
+    got = interpolate_nodes_with_grad(
+        torch.from_numpy(rows), 16, 16, 3, torch.from_numpy(row_base),
+        torch.from_numpy(r), torch.from_numpy(c), InterpolationConfig(**kw))
+    for a, b in zip(got, want):
+        assert a.shape == (12, 16, 3)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    raw = interpolate_node_rows(
+        torch.from_numpy(rows), 16, 16, 3, torch.from_numpy(row_base),
+        torch.from_numpy(r), torch.from_numpy(c), NODES16, l2)
+    if ncc:
+        from pixsfm_tpu_torch.base.interpolation import \
+            ncc_normalize_with_grad
+        raw = (lambda g, d: (g, *d))(*ncc_normalize_with_grad(raw[0],
+                                                              raw[1:]))
+    for a, b in zip(raw, got):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_node_windows_config():
+    """With ``nodes=True`` BICUBIC / CERES_BICUBIC pass with node windows
+    and NCC; the modes still to port raise either way."""
+    conf = dict(ncc_normalize=True, nodes=NODES16)
+    for mode in ("BICUBIC", "CERES_BICUBIC"):
+        check_window_config(InterpolationConfig(mode=mode, **conf),
+                            nodes=True)
+        with pytest.raises(NotImplementedError, match="The rest of KA"):
+            check_window_config(InterpolationConfig(mode=mode, **conf))
+    for mode in ("BILINEAR", "NEARESTNEIGHBOR", "BICUBICCHAIN"):
+        with pytest.raises(NotImplementedError):
+            check_window_config(InterpolationConfig(mode=mode, **conf),
+                                nodes=True)

@@ -749,3 +749,109 @@ def test_costmap_patches_cuda_matches_cpu(dev, up, cross):
     assert (interpolate_cuda.launches > before) == (up > 1)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the photometric preset: node windows at C = 3 and patch-warp BA
+# ---------------------------------------------------------------------------
+
+NODES16 = [[float(dx), float(dy)] for dy in (-1.5, -0.5, 0.5, 1.5)
+           for dx in (-1.5, -0.5, 0.5, 1.5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ncc", [False, True])
+def test_k1_node_windows_match_plain(dev, dtype, ncc):
+    """``interpolate_node_rows`` at the photometric shape (16x16x3 windows,
+    16 nodes per query, up to 1.5 px past the border; the general variant)
+    in one launch, against the plain version at the K1 tolerances; with
+    NCC across the nodes within 1e-4 (NCC divides by each channel's spread
+    over the nodes)."""
+    from pixsfm_tpu_torch.base.interpolation import (
+        InterpolationConfig, interpolate_nodes_with_grad,
+        ncc_normalize_with_grad)
+    rows, row_base, r, c = _k1_inputs(dev, dtype, n_patches=300, n=2000,
+                                      C=3)
+    assert interpolate_cuda.kernel_variant(rows) == "general"
+    before = interpolate_cuda.launches
+    out = interpolate_cuda.interpolate_node_rows(rows, 16, 16, 3, row_base,
+                                                 r, c, NODES16, False)
+    if ncc:
+        g, d = ncc_normalize_with_grad(out[0], out[1:])
+        out = (g, *d)
+    ref = interpolate_nodes_with_grad(
+        rows.cpu(), 16, 16, 3, row_base.cpu(), r.cpu(), c.cpu(),
+        InterpolationConfig(l2_normalize=False, ncc_normalize=ncc,
+                            nodes=NODES16))
+    torch.cuda.synchronize()
+    assert interpolate_cuda.launches == before + 1
+    for a, b in zip(out, ref):
+        assert a.shape == (2000, 16, 3)
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 if ncc else K1_ATOL[dtype])
+
+
+def _patch_warp_refine(device, joint, obs_chunk=8192):
+    """``PatchWarpBundleAdjuster.refine`` (16 NCC nodes) on a synthetic
+    scene whose windows are random waves around each point's true
+    projection: (summary, points [Np, 3])."""
+    import numpy as np
+    from pixsfm_tpu_torch.bundle_adjustment import PatchWarpBundleAdjuster
+    from pixsfm_tpu_torch.features.featuremaps import FeatureMap, FeatureSet
+    from pixsfm_tpu_torch.sfm.synthetic import synthetic_reconstruction
+    rec = synthetic_reconstruction(n_images=5, n_points=60, noise_px=0.0,
+                                   seed=23)
+    ps, C = 16, 3
+    fset = FeatureSet(C, ps, "half")
+    rr, cc = np.meshgrid(np.arange(ps), np.arange(ps), indexing="ij")
+    for im in rec.images.values():
+        ids = [k for k, p in enumerate(im.point3D_ids) if p >= 0]
+        corners = np.floor(im.xys[ids] - ps / 2).astype(np.int64)
+        patches = []
+        for k, corner in zip(ids, corners):
+            g = np.random.default_rng(int(im.point3D_ids[k]))
+            dx = (corner[0] + cc + 0.5 - im.xys[k][0])[..., None]
+            dy = (corner[1] + rr + 0.5 - im.xys[k][1])[..., None]
+            # each channel a wave of 0.3-0.6 rad per pixel in a random
+            # direction: NCC divides by the spread over the nodes, which
+            # a near-flat channel would bring to ~0
+            th, k = g.uniform(0, 2 * np.pi, C), g.uniform(0.3, 0.6, C)
+            patches.append(0.5 + 0.2 * np.sin(
+                k * (np.cos(th) * dx + np.sin(th) * dy) + g.uniform(0, 6, C)))
+        fset.emplace(im.name, FeatureMap(
+            torch.as_tensor(np.stack(patches), dtype=torch.bfloat16,
+                            device=device), ids, corners, [1.0, 1.0]))
+    rng = np.random.default_rng(23)
+    for p in rec.points3D.values():
+        p.xyz = p.xyz + rng.normal(0, 0.004, 3)
+    for iid in sorted(rec.images)[1:]:
+        rec.images[iid].tvec = rec.images[iid].tvec + rng.normal(0, 0.004,
+                                                                  3)
+    class Adjuster(PatchWarpBundleAdjuster):
+        def _ba_options(self, **kw):
+            return super()._ba_options(obs_chunk=obs_chunk, **kw)
+
+    out = Adjuster(
+        {"optimizer": {"refine_extrinsics": joint,
+                       "refine_focal_length": False,
+                       "refine_extra_params": False,
+                       "solver": {"max_num_iterations": 10}}},
+        device=device).refine(rec, fset)
+    return out, np.stack([rec.points3D[p].xyz for p in sorted(rec.points3D)])
+
+
+@pytest.mark.parametrize("joint", [False, True])
+def test_patch_warp_cuda_matches_cpu(dev, joint):
+    """Patch-warp BA (bf16 windows read by K1, NCC, the dense step; with
+    joint source poses the second pose block) on the card against the CPU:
+    phase 8's limits, final cost rtol 1e-4, points 1e-3."""
+    before = interpolate_cuda.launches
+    out_d, x_d = _patch_warp_refine("cuda", joint)
+    assert interpolate_cuda.launches > before
+    out_c, x_c = _patch_warp_refine("cpu", joint)
+    assert out_d["joint_source_poses"] is out_c["joint_source_poses"] is joint
+    assert out_d["linear_solver"] == out_c["linear_solver"] == "dense"
+    assert out_d["final_cost"] < out_d["initial_cost"]
+    assert abs(out_d["final_cost"] - out_c["final_cost"]) \
+        <= 1e-4 * out_c["final_cost"]
+    assert float(abs(x_d - x_c).max()) <= 1e-3
