@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    storage, L2 on and off, queries on the patch border; then at small shapes
    that reach its general variant and the edges of the vector one (channel
    counts that are no multiple of 8, f32 rows of 128 channels, 3 x 3
-   patches, a base that is not 16-byte aligned).
+   patches, a base that is not 16-byte aligned); then at VGGNet's widths
+   (phase 21(d)) at the KA shape, bf16 and f32, L2 on and off: 64 channels
+   (general variant), 256 and 512 (vector variant), each also timed
+   through the general variant.
 3. K2 (batched Jacobi PCG, ``ops/cg_cuda.py``) against its plain version,
    folded-damping and explicit forms, each variant (register, general) at
    the main path's shape (P = 128 systems of N = 112, 15 steps) and at
@@ -185,10 +188,41 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    finite; then the same under the profiler (BA capped at
    ``BA_PROFILE_ITERATIONS``). (d) ``run_ba`` with ``patch_warp`` and poses
    free (joint source poses on the flat CG layout) on (c)'s model, poses
-   perturbed, LM capped at ``BA_ITERATIONS``: the cost must fall. (a) K1
+   perturbed, LM capped at ``PHOTO_BA_ITERATIONS``: the cost must fall. (a) K1
    at the path's shape: one chunk's node queries, 16 per observation of
    8192, over one bf16 16x16x3 window per observation of (c), L2 off (the
    general variant), as phase 2 checks it.
+21. The ETH3D evaluation flow (``eval/eth3d``) on one rendered
+   ``make_synthetic_scene`` of ``ETH3D_VIEWS`` 1600x1200 views and
+   ``ETH3D_POINTS`` points with ``ETH3D_PATCH`` px textures. (a)
+   SuperPoint, R2D2 (thresholds 0: the random network's reliability stays
+   under the default 0.7) and D2-Net (4096 keypoints, random weights) on
+   one view at full width: ms per image (CUDA events) and keypoints; then cuda
+   against cpu on a 640x480 crop: the valid keypoint sets (D2-Net's: its
+   detection cells) equal outside score ties, D2-Net's sub-pixel positions
+   within ``D2NET_POS_TOL``, scores within 1e-5 relative, descriptors
+   within 1e-4 where the positions agree within 1e-3 px, which all but
+   ``D2NET_FAR_SHARE`` of the common cells must. (b) ``run_scene`` with
+   ``method="superpoint"`` with ``configs/pixsfm_eth3d.yaml`` as shipped
+   (S2DNet, featuremetric KA, feature-reference BA of 10 LM iterations,
+   poses fixed) and as the ``norefine`` control: accuracy and
+   completeness at ``ETH3D_TOLERANCES``, ``accuracy_delta``, points,
+   reprojection error, stage times, launches (counters zeroed just before
+   each run, read just after): K1 and K2 launched, the KA and BA costs
+   fell, at least ``ETH3D_MIN_POINTS`` points, mean reprojection error
+   under 3 px. (c) ``run_scene_localization`` on the same scene, 3
+   held-out queries, the same preset: the AUC at ``ETH3D_LOC_THRESHOLDS``,
+   the median error and the stage times; at least 2 of the 3 queries
+   localize. The preset extracts each query's whole dense map, which QKA
+   and QBA read as one 1200x1600x128 patch: the K1 calls on such maps are
+   watched (their launches counted apart by the wrapper's own count, the
+   first call's inputs kept), and K1 is held to its plain version on those
+   inputs (as stored and in float32, L2 on and off) and timed there. (d) ``PixSfM.run_ka`` with ``dense_features.model.name:
+   vggnet`` on phase 5's scene (three levels of 64 / 256 / 512 channels,
+   bf16 16 px patches): K1 launched at each width (counters zeroed just
+   before), each level's cost fell. (b)'s refined run runs under the
+   profiler (device activity only), (d) again under it: device-idle share
+   and K1's in-situ time (in (d) per width).
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA, BA, triangulation), its error against the plain version, its
@@ -209,12 +243,17 @@ path's BA shape, the last at its QKA shape) with that
 path's launches and the figures at its shape (``"low_memory"``: the
 launches of 19(c) and 19(d), split in ``launches_by_run``, and K1 timed
 at 19(a); ``"photometric"``: the launches of 20(c) and 20(d), K1 timed at
-20(a), its ``general_ms`` the same variant); K2's and K3a/b/c's entries sum their launches over the paths
-and list them in ``launches_by_path`` (K3's ``in_situ_low_memory_ms``
+20(a), its ``general_ms`` the same variant; ``"eth3d"``: the launches of
+21(b)'s refined run and of 21(c) on 16x16 patches, with phase 2's figures
+at the KA shape; ``"eth3d_dense_query"``: 21(c)'s launches on the queries'
+dense maps, with the figures on the first such launch's inputs;
+``"vggnet"``: one entry per width, ``channels`` 64 / 256 / 512, with
+21(d)'s launches at that width and phase 2's figures at it); K2's and
+K3a/b/c's entries sum their launches over the paths and list them in ``launches_by_path`` (K3's ``in_situ_low_memory_ms``
 from 19(c)); and last ``{"ok": true, "device": {...}}``.
 
-The weights are S2DNet's deterministic random init (no checkpoint ships
-with the repository); the scenes are made from seeds with numpy.
+The weights are each model's deterministic random init (no checkpoint
+ships with the repository); the scenes are made from seeds with numpy.
 """
 
 import argparse
@@ -228,8 +267,10 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
-# depth of the full-size BA (the default config allows 100 LM iterations)
-BA_ITERATIONS = 30
+# depth of the full-size BA (the default config allows 100 LM iterations;
+# 15 keeps the whole run inside its time limit with a margin for slower
+# hosts, whose host-bound stages take tens of percent longer)
+BA_ITERATIONS = 15
 BA_PROFILE_ITERATIONS = 2
 # least share of the triangulation scene's tracks that must survive the
 # acceptance rules (8000 of 8000 on an H100 with 1 px keypoint noise and the
@@ -253,6 +294,32 @@ PNP_POLISHED_TOL = 1e-2
 # phase 16: the reconstruction scene
 RECON_POINTS = 4000
 RECON_NOISE_PX = 0.5
+# phase 21: the synthetic ETH3D scene (eval/eth3d/synthetic.py) of
+# tools/eth3d_synth_matrix.py (seed 5, 480x360 views, 15 px textures, its
+# tolerances scaled to them) rendered at 1600x1200 with the textures scaled
+# alike (15 px x 1600 / 480 -> 51 px), so that they cover the same extent
+# of the scene. With random SuperPoint weights the harness triangulates
+# ~2000 points from ETH3D_POINTS = 100 scene points (2007 in a CPU run of
+# the norefine and refined arms, 2010); more scene points overlap their
+# textures and triangulate fewer (200 -> 149 at 8 views), and 15 px textures
+# at this size triangulate < 70 (the random network is not shift-equivariant
+# below its stride of 8 px)
+ETH3D_VIEWS = 16
+ETH3D_POINTS = 100
+ETH3D_PATCH = 51
+ETH3D_MIN_POINTS = 500
+ETH3D_TOLERANCES = (0.05, 0.15, 0.3)
+ETH3D_LOC_THRESHOLDS = (0.05, 0.15, 0.5)
+# D2-Net's sub-pixel Newton step solves a 2x2 system per keypoint whose
+# Hessian can be near singular: it amplifies the convolutions' float32
+# rounding (a 1e-6 relative change of the weights moves keypoints of a
+# 640x480 crop by up to 5.6e-3 px on the CPU; its cells do not change)
+D2NET_POS_TOL = 1e-2
+# ... so its descriptors are compared where positions agree within 1e-3 px,
+# and at most this share of the common cells may lie beyond (4 of 1170 on
+# an H100): a fault that moved every position would otherwise leave no
+# descriptor compared
+D2NET_FAR_SHARE = 0.01
 
 
 def _smi():
@@ -309,6 +376,67 @@ def _k1_queries(torch, gen, n_patches, n_queries, ps, nodes=None):
         return row_base, r, c
     from pixsfm_tpu_torch.base.interpolation import node_queries
     return node_queries(row_base, r, c, nodes)
+
+
+def _k1_bound(torch, H, W, C, row_base, r, c, l2, elem_bytes):
+    """K1's bound on these queries: the distinct tap pixels they need, read
+    once, plus the query inputs and the three float32 outputs, against the
+    interpolation's and the L2 chain rule's operations. Returns ``(ms,
+    "bytes" or "operations", bytes)``."""
+    n = r.shape[0]
+    taps = torch.arange(-1, 3, device=r.device)
+    ri = torch.clamp(torch.floor(r).long()[:, None] + taps, 0, H - 1)
+    ci = torch.clamp(torch.floor(c).long()[:, None] + taps, 0, W - 1)
+    pix = ((row_base.long()[:, None, None] + ri[:, :, None]) * W
+           + ci[:, None, :]).reshape(-1)
+    n_pix = int(torch.unique(pix).numel())
+    bytes_ = n_pix * C * elem_bytes + n * 12 + 3 * n * C * 4
+    flops = n * C * (16 * 6 + (12 if l2 else 0))
+    return (*_bound(bytes_, flops), bytes_)
+
+
+def check_k1_recorded(torch, interpolate_cuda, rows, H, W, C, row_base, r, c,
+                      l2):
+    """K1 against its plain version on one launch's inputs as a path gave
+    them (``rows [NR, W, C]`` in their stored type, and the same rows in
+    float32), L2 on and off, at :func:`check_k1`'s tolerances; timed, and
+    its bound computed, as the path launched it."""
+    tols = {torch.float32: 2e-5, torch.bfloat16: 5e-3}
+    worst = 0.0
+    for dtype in dict.fromkeys((rows.dtype, torch.float32)):
+        rows_t = rows if dtype == rows.dtype else rows.to(dtype)
+        for l2_case in (False, True):
+            out = interpolate_cuda.interpolate_rows(rows_t, H, W, C, row_base,
+                                                    r, c, l2_case)
+            ref = interpolate_cuda.interpolate_rows_plain(
+                rows_t, H, W, C, row_base, r, c, l2_case)
+            torch.cuda.synchronize()
+            err = _max_err(out, ref)
+            print(f"K1 {str(dtype)[6:]} l2={l2_case} (N={r.shape[0]}, "
+                  f"{rows.shape[0] // H} maps of {H}x{W}x{C}): max |kernel - "
+                  f"plain| = {err:.3e} (atol {tols[dtype]})")
+            if not all(bool(torch.isfinite(o).all()) for o in out) \
+                    or err > tols[dtype]:
+                raise SystemExit(f"K1 disagrees with its plain version "
+                                 f"({dtype}, l2={l2_case}, {H}x{W}x{C}): "
+                                 f"{err}")
+            worst = max(worst, err)
+        del rows_t
+    ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
+        rows, H, W, C, row_base, r, c, l2))
+    plain_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows_plain(
+        rows, H, W, C, row_base, r, c, l2), reps=5)
+    bound_ms, bound_by, bytes_ = _k1_bound(
+        torch, H, W, C, row_base, r, c, l2, elem_bytes=rows.element_size())
+    took = interpolate_cuda.kernel_variant(rows)
+    print(f"K1 timing ({str(rows.dtype)[6:]}, L2 {'on' if l2 else 'off'}, "
+          f"N={r.shape[0]}, {H}x{W}x{C}, {took} variant): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bytes_ / 1e6:.2f} MB)")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, variant=took,
+                timed_at=f"{r.shape[0]} queries on a {H}x{W}x{C} "
+                         f"{str(rows.dtype)[6:]} map")
 
 
 def check_k1(torch, interpolate_cuda, n_patches, n_queries, dtypes,
@@ -376,19 +504,8 @@ def check_k1(torch, interpolate_cuda, n_patches, n_queries, dtypes,
         shifted, ps, ps, C, *sets[next(turn) % n_sets], l2), reps=40,
         warmup=8)
     del shifted
-    # bound: the distinct tap pixels this input needs, read once, plus the
-    # query inputs and the three float32 outputs
-    taps = torch.arange(-1, 3, device=dev)
-    ri = torch.clamp(torch.floor(r).long()[:, None] + taps, 0, ps - 1)
-    ci = torch.clamp(torch.floor(c).long()[:, None] + taps, 0, ps - 1)
-    pix = ((row_base.long()[:, None, None] + ri[:, :, None]) * ps
-           + ci[:, None, :]).reshape(-1)
-    n_pix = int(torch.unique(pix).numel())
-    bytes_ = n_pix * C * 2 + n_queries * 12 + 3 * n_queries * C * 4
-    flops = n_queries * C * (16 * 6 + (12 if l2 else 0))
-    bound_ms = 1e3 * max(bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
-    bound_by = "bytes" if bytes_ / HBM_BYTES_PER_S >= \
-        flops / FP32_FLOP_PER_S else "operations"
+    bound_ms, bound_by, bytes_ = _k1_bound(torch, ps, ps, C, row_base, r, c,
+                                           l2, elem_bytes=2)
     took = interpolate_cuda.kernel_variant(rows)
     print(f"K1 timing (bf16, L2 {'on' if l2 else 'off'}, N={n_queries}, "
           f"{n_patches} patches of {ps}x{ps}x{C}, {took} variant): kernel "
@@ -961,14 +1078,18 @@ def gt_error(np, keypoints, truth, names):
                           for n in names]))
 
 
-def profile_stage(torch, fn):
+def profile_stage(torch, fn, cpu=True):
     """Run ``fn`` under torch.profiler: (result, wall s, device-busy s,
-    [(kernel, calls, device ms)] by device time, full table)."""
+    [(kernel, calls, device ms)] by device time, full table). ``cpu``:
+    record the host-side operators too (their summary takes tens of
+    seconds on a long stage of many small operators)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
@@ -1816,10 +1937,10 @@ def localization_phase(torch, np, interpolate_cuda, profile_out=None):
 LOWMEM_CPU_BA_ITERATIONS = 10
 # (b): the observation chunk of the same-device witness (8192 otherwise)
 LOWMEM_WITNESS_CHUNK = 1024
-# (c): LM iterations of costmap BA on phase 9's scene, cut from
-# BA_ITERATIONS to keep phase 19 near 150 s (each takes 0.8-1.7 s of
-# host), and of its profiled run (tabulating the profile of one LM
-# iteration, ~200 000 launches, takes ~30 s)
+# (c): LM iterations of costmap BA on phase 9's scene, kept at 15 to hold
+# phase 19 near 150 s (each takes 0.8-1.7 s of host), and of its profiled
+# run (tabulating the profile of one LM iteration, ~200 000 launches,
+# takes ~30 s)
 LOWMEM_BA_ITERATIONS = 15
 LOWMEM_PROFILE_ITERATIONS = 1
 
@@ -2185,6 +2306,8 @@ def low_memory_phase(torch, np, PixSfM, load_config, interpolate_cuda,
 # (b): LM iterations of the cuda / cpu patch-warp solves (the preset's 30
 # would take ~1 min on the card machine's CPU)
 PHOTO_CPU_BA_ITERATIONS = 5
+# (d): LM iterations of run_ba with poses free (~1.1 s of host each)
+PHOTO_BA_ITERATIONS = 10
 
 
 def photometric_cuda_vs_cpu(torch, np, PixSfM, load_config, tmp):
@@ -2400,7 +2523,7 @@ def photometric_phase(torch, np, PixSfM, load_config, interpolate_cuda,
     err_d0 = triangulated_error(np, rec_d, truth_t)
     sfm_j = PixSfM(load_config("photometric", extra={"mapping": {"BA": {
         "optimizer": {"refine_extrinsics": True, "solver": {
-            "max_num_iterations": BA_ITERATIONS}}}}}), device="cuda")
+            "max_num_iterations": PHOTO_BA_ITERATIONS}}}}}), device="cuda")
     zero_counts()
     t0 = time.perf_counter()
     out_j = sfm_j.run_ba(rec_d, views_t)
@@ -2449,11 +2572,334 @@ def photometric_phase(torch, np, PixSfM, load_config, interpolate_cuda,
     return launches, launches_tri, launches_ba, k1, in_situ
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the ETH3D evaluation flow
+# ---------------------------------------------------------------------------
+
+def detector_agreement(np, a, b, stride=1, offset=0.0):
+    """cuda against cpu ``detect`` results, keypoints keyed by their
+    detection cell ``rint((xy - offset) / stride)`` (SuperPoint and R2D2
+    detect on pixels; D2-Net on stride-4 cells mapped back as 4 p + 1.5,
+    then moved by its sub-pixel Newton step). The cell sets must be equal
+    outside score ties (a cell found on one device only must carry the
+    smallest valid score, tied at the top-k boundary). On the common cells:
+    the largest position difference, the largest score difference relative
+    to the largest score, and the largest descriptor difference over the
+    cells whose positions agree within 1e-3 px (``far`` counts the others:
+    a descriptor sampled elsewhere is another descriptor)."""
+    def keyed(o):
+        v = o["valid"][0]
+        kp, sc, de = (o[k][0][v] for k in ("keypoints", "scores",
+                                           "descriptors"))
+        cells = np.rint((kp - offset) / stride).astype(np.int64)
+        return {tuple(c): (k, s, d) for c, k, s, d in zip(cells, kp, sc, de)}
+
+    A, B = keyed(a), keyed(b)
+    common = sorted(set(A) & set(B))
+    scores = [s for _, s, _ in list(A.values()) + list(B.values())]
+    floor = min(scores) if scores else 0.0
+    untied = [c for c in set(A) ^ set(B)
+              if abs((A.get(c) or B.get(c))[1] - floor)
+              > 1e-5 * max(abs(floor), 1e-12)]
+    pos = [float(np.abs(A[c][0] - B[c][0]).max()) for c in common]
+    close = [c for c, d in zip(common, pos) if d <= 1e-3]
+    top = max((abs(s) for s in scores), default=1.0)
+    return dict(
+        n_cuda=len(A), n_cpu=len(B), common=len(common), untied=len(untied),
+        pos=max(pos, default=0.0), far=len(common) - len(close),
+        score_rel=max((abs(A[c][1] - B[c][1]) / top for c in common),
+                      default=0.0),
+        desc=max((float(np.abs(A[c][2] - B[c][2]).max()) for c in close),
+                 default=0.0))
+
+
+def eth3d_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
+                schur_cuda, profile_out=None):
+    """Phase 21: the ETH3D evaluation flow on a rendered synthetic scene.
+    Returns the launches of (b)+(c) on patches, K1's launches in (c) on
+    the queries' dense maps and K1's figures there, the launches of (d)
+    and of (d) by channel count, and the in-situ device ms per launch of
+    K1 / K2 in (b) and of K1 per channel count in (d)."""
+    import tempfile
+
+    from pixsfm_tpu_torch.eval.eth3d.localization import \
+        run_scene_localization
+    from pixsfm_tpu_torch.eval.eth3d.synthetic import make_synthetic_scene
+    from pixsfm_tpu_torch.eval.eth3d.triangulation import run_scene
+    from pixsfm_tpu_torch.features.detectors import load_rgb
+    from pixsfm_tpu_torch.features.models import get_model
+    t21 = time.perf_counter()
+    tmp21 = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = Path(tmp21.name)
+    torch.cuda.empty_cache()
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        interpolate_cuda.launches = 0
+        interpolate_cuda.launches_by_channels.clear()
+        cg_cuda.launches = 0
+        for name in schur_cuda.launches:
+            schur_cuda.launches[name] = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches,
+                "K3a": schur_cuda.launches["matvec"],
+                "K3b": schur_cuda.launches["rhs"],
+                "K3c": schur_cuda.launches["backsub"]}
+
+    t0 = time.perf_counter()
+    scene = tmp / "scene"
+    gt = make_synthetic_scene(scene, n_images=ETH3D_VIEWS,
+                              n_points=ETH3D_POINTS, seed=5, width=1600,
+                              height=1200, patch=ETH3D_PATCH)
+    print(f"phase 21: synthetic ETH3D scene of {len(gt.images)} rendered "
+          f"1600x1200 views, {len(gt.points3D)} points with {ETH3D_PATCH} "
+          f"px textures, made in {time.perf_counter() - t0:.1f} s")
+
+    # (a) the detectors at full width on one view, then cuda against cpu
+    # on a 640x480 crop of it
+    view, _ = load_rgb(scene / "images" / sorted(
+        im.name for im in gt.images.values())[0], 1600)
+    # padded to a multiple of 64 rows, as detect_directory pads
+    full = torch.zeros((1, 1216, 1600, 3), device="cuda")
+    full[0, :1200] = torch.as_tensor(view, device="cuda")
+    crop = np.ascontiguousarray(view[360:840, 480:1120][None])
+    # R2D2's reliability and repeatability thresholds (0.7) pass no pixel
+    # of the random network (its reliability softmax sits near 0.5), so
+    # they are 0 here, as the JAX package's own random-weight tests set them
+    detectors = {"superpoint": {"max_keypoints": 4096},
+                 "r2d2": {"max_keypoints": 4096,
+                          "reliability_threshold": 0.0,
+                          "repeatability_threshold": 0.0},
+                 "d2net": {"max_keypoints": 4096}}
+    for method, conf in detectors.items():
+        model = get_model(method)({**conf, "pretrained": None},
+                                  device="cuda")
+        ms = _time_ms(lambda: model.detect(full), reps=3, warmup=1)
+        n_kp = int(model.detect(full)["valid"].sum())
+        out_d = model.detect(crop)
+        out_c = get_model(method)({**conf, "pretrained": None},
+                                  device="cpu").detect(crop)
+        d2 = method == "d2net"
+        agree = detector_agreement(np, out_d, out_c, stride=4 if d2 else 1,
+                                   offset=1.5 if d2 else 0.0)
+        pos_tol = D2NET_POS_TOL if d2 else 0.0
+        far_max = D2NET_FAR_SHARE * agree["common"] if d2 else 0
+        print(f"phase 21(a): {method} on a 1600x1200 view: {ms:.2f} ms per "
+              f"image (CUDA events, outputs copied to the host), {n_kp} "
+              f"keypoints of {conf['max_keypoints']}, descriptors "
+              f"{out_d['descriptors'].shape[-1]}-d; cuda vs cpu on a 640x480 "
+              f"crop: {agree} (limits: no untied difference, positions "
+              f"{pos_tol} px, at most {far_max:.1f} cells beyond 1e-3 px, "
+              f"scores 1e-5 relative, descriptors 1e-4)")
+        if not (agree["untied"] == 0 and agree["common"] > 0
+                and agree["pos"] <= pos_tol and agree["far"] <= far_max
+                and agree["score_rel"] <= 1e-5 and agree["desc"] <= 1e-4):
+            raise SystemExit(f"{method}: cuda and cpu detections disagree")
+        del model
+    del full
+    torch.cuda.empty_cache()
+
+    # (b) the triangulation harness, refined and the norefine control; the
+    # refined run under the profiler (device activity only: its overhead
+    # is the tracing of each launch)
+    arms = {}
+    for arm, conf in (("norefine", load_config("norefine")),
+                      ("refined", load_config("pixsfm_eth3d"))):
+        stats = {}
+        zero_counts()
+
+        def run(arm=arm, conf=conf, stats=stats):
+            return run_scene(scene, tmp / arm, conf=conf,
+                             tolerances=ETH3D_TOLERANCES,
+                             method="superpoint", device="cuda",
+                             stats=stats)
+
+        t0 = time.perf_counter()
+        if arm == "refined":
+            metrics, _, busy_p, kern_p, tab_p = profile_stage(torch, run,
+                                                              cpu=False)
+        else:
+            metrics = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        arms[arm] = (metrics, stats, launches, wall)
+        stage = {k: round(v, 3) for k, v in stats.items()
+                 if k.endswith("_s")}
+        print(f"phase 21(b): run_scene superpoint, {arm}: {wall:.2f} s; "
+              f"accuracy {metrics['accuracy']}, completeness "
+              f"{metrics['completeness']} at {list(ETH3D_TOLERANCES)}; "
+              f"{metrics['num_points']} points, mean reprojection error "
+              f"{metrics['mean_reproj_error']:.4f} px; "
+              f"{stats['keypoints_per_image']:.0f} keypoints per image, "
+              f"{stats['num_pairs']} verified pairs; stages {stage}; "
+              f"launches {launches}")
+    metrics, stats, launches_tri, _ = arms["refined"]
+    raw = arms["norefine"][0]
+    delta = [round(f - r, 2) for r, f in zip(raw["accuracy"],
+                                             metrics["accuracy"])]
+    oka = {k: v[0] for k, v in stats["KA"].items()}
+    oba = {k: v[0] for k, v in stats["BA"].items()}
+    print(f"phase 21(b): accuracy_delta (refined - norefine) {delta}; KA "
+          f"{oka['iterations']} LM iterations on {oka['num_problems']} "
+          f"problems, cost {oka['initial_cost']:.4f} -> "
+          f"{oka['final_cost']:.4f}; BA {oba['iterations']} LM iterations, "
+          f"cost {oba['initial_cost']:.4f} -> {oba['final_cost']:.4f}")
+    if launches_tri["K1"] <= 0 or launches_tri["K2"] <= 0:
+        raise SystemExit(f"K1 or K2 did not launch on the ETH3D path: "
+                         f"{launches_tri}")
+    if not (oka["final_cost"] < oka["initial_cost"]
+            and oba["final_cost"] < oba["initial_cost"]):
+        raise SystemExit("ETH3D harness: the KA or BA cost did not fall")
+    if not (metrics["num_points"] >= ETH3D_MIN_POINTS
+            and metrics["mean_reproj_error"] < 3.0):
+        raise SystemExit(f"ETH3D harness: {metrics['num_points']} points "
+                         f"(at least {ETH3D_MIN_POINTS}), mean reprojection "
+                         f"error {metrics['mean_reproj_error']} (< 3 px)")
+    # where its time goes: the refined run's profile
+    t_p = arms["refined"][3]
+    in_situ = _in_situ(kern_p, {"K1": "interp_kernel", "K2": "pcg_kernel"},
+                       launches_tri)
+    print(f"phase 21(b) (the refined run's profile): {t_p:.3f} s wall, "
+          f"{busy_p:.3f} s device busy (idle share {1 - busy_p / t_p:.2f}); "
+          f"in-situ device ms per launch {in_situ}")
+    for name, calls, dev_ms in kern_p[:8]:
+        print(f"  ETH3D triangulation harness: {dev_ms:9.3f} ms in "
+              f"{calls:6d} launches  {name[:90]}")
+
+    # (c) the localization harness on the same scene. The preset extracts
+    # each query's whole dense map (overwrite_features_sparse: false), and
+    # QKA and QBA read it as one 1200-row patch: the K1 calls on such a map
+    # are watched (every name bound to the wrapper is swapped for one that
+    # reads the wrapper's own count around the call, and keeps the first
+    # call's inputs), so that (c)'s launches split by shape and K1 is held
+    # to its plain version on the inputs the path gave it
+    stats_l = {}
+    dense = {"launches": 0, "args": None}
+    wrapper = interpolate_cuda.interpolate_rows
+    patch = load_config("pixsfm_eth3d").dense_features.patch_size
+
+    def watched(rows, H, W, C, row_base, r, c, l2):
+        if H <= patch:
+            return wrapper(rows, H, W, C, row_base, r, c, l2)
+        if dense["args"] is None:
+            dense["args"] = (rows, H, W, C, row_base.clone(), r.clone(),
+                             c.clone(), l2)
+        before = interpolate_cuda.launches
+        out = wrapper(rows, H, W, C, row_base, r, c, l2)
+        dense["launches"] += interpolate_cuda.launches - before
+        return out
+
+    def rebind(old, new):
+        for m in list(sys.modules.values()):
+            if getattr(m, "__name__", "").startswith("pixsfm_tpu_torch") \
+                    and getattr(m, "interpolate_rows", None) is old:
+                m.interpolate_rows = new
+
+    zero_counts()
+    t0 = time.perf_counter()
+    rebind(wrapper, watched)
+    try:
+        res = run_scene_localization(scene, tmp / "loc",
+                                     conf=load_config("pixsfm_eth3d"),
+                                     num_holdout=3,
+                                     thresholds=ETH3D_LOC_THRESHOLDS,
+                                     method="superpoint", device="cuda",
+                                     stats=stats_l)
+        torch.cuda.synchronize()
+    finally:
+        rebind(watched, wrapper)
+    wall_l = time.perf_counter() - t0
+    launches_loc = read_counts()
+    n_loc = sum(e is not None for e in res["errors_m"])
+    stage = {k: round(v, 3) for k, v in stats_l.items() if k.endswith("_s")}
+    print(f"phase 21(c): run_scene_localization superpoint, "
+          f"{res['num_queries']} held-out queries: {wall_l:.2f} s; AUC "
+          f"{[round(a, 2) for a in res['auc']]} at "
+          f"{list(ETH3D_LOC_THRESHOLDS)}, median error "
+          f"{res['median_error_m']:.4f}, errors {res['errors_m']}; "
+          f"{n_loc} of {res['num_queries']} localized; stages {stage}; "
+          f"launches {launches_loc}")
+    if n_loc < 2:
+        raise SystemExit("ETH3D localization: fewer than 2 of 3 queries "
+                         "localized")
+    if launches_loc["K1"] <= 0 or dense["launches"] <= 0:
+        raise SystemExit(f"K1 did not launch on the query's dense map in "
+                         f"the localization harness: {launches_loc}, "
+                         f"{dense['launches']} on dense maps")
+    print(f"phase 21(c): K1 launches on the queries' dense maps "
+          f"{dense['launches']}, on 16x16 patches "
+          f"{launches_loc['K1'] - dense['launches']}; K1 against its plain "
+          f"version on the first dense-map launch's inputs:")
+    k1_dense = check_k1_recorded(torch, interpolate_cuda, *dense["args"])
+    del dense["args"]
+    tmp21.cleanup()
+    torch.cuda.empty_cache()
+
+    # (d) VGGNet KA at full width on phase 5's scene: three levels of
+    # 64 / 256 / 512 channels, bf16 patches of 16 px
+    images, kps, _, matches, scores = make_scene(
+        np, seed=0, n_views=10, n_points=2000, W=1600, H=1200, margin=150)
+    kps2 = {k: v.copy() for k, v in kps.items()}
+    sfm = PixSfM({"dense_features": {"model": {"name": "vggnet"}}},
+                 device="cuda")
+    widths = list(sfm.extractor.model.output_dims)
+    zero_counts()
+    t0 = time.perf_counter()
+    _, out = sfm.run_ka(kps, images, matches=matches, scores=scores)
+    torch.cuda.synchronize()
+    wall_v = time.perf_counter() - t0
+    launches_vgg = read_counts()
+    by_width = dict(interpolate_cuda.launches_by_channels)
+    print(f"phase 21(d): run_ka with VGGNet (levels of {widths} channels) "
+          f"on phase 5's scene: {wall_v:.2f} s; per level LM iterations "
+          f"{out['iterations']}, cost {out['initial_cost']} -> "
+          f"{out['final_cost']}; K1 launches by channel count {by_width}; "
+          f"launches {launches_vgg}")
+    if sorted(widths) != [64, 256, 512] or any(
+            by_width.get(c, 0) <= 0 for c in widths):
+        raise SystemExit(f"VGGNet KA: K1 did not launch at every width: "
+                         f"{by_width}")
+    if not all(f < i for i, f in zip(out["initial_cost"],
+                                     out["final_cost"])):
+        raise SystemExit("VGGNet KA: a level's cost did not fall")
+    # K1 in situ per width: the same KA again under the profiler (the
+    # general variant serves 64 channels, the wide kernel 256 and 512)
+    _, t_v, busy_v, kern_v, tab_v = profile_stage(
+        torch, lambda: sfm.run_ka(kps2, images, matches=matches,
+                                  scores=scores))
+    in_situ_vgg = {}
+    for C in widths:
+        hits = [(c, ms) for n, c, ms in kern_v if "interp_kernel" in n
+                and ("general" in n if C == 64 else f", {C}>" in n)]
+        if not hits:
+            raise SystemExit(f"VGGNet KA: the profile shows no K1 launch "
+                             f"at C = {C}")
+        in_situ_vgg[C] = sum(ms for _, ms in hits) / sum(c for c, _ in hits)
+    print(f"phase 21(d) (under the profiler): {t_v:.3f} s wall, "
+          f"{busy_v:.3f} s device busy (idle share {1 - busy_v / t_v:.2f}); "
+          f"K1 in-situ device ms per launch by channel count {in_situ_vgg}")
+    if profile_out:
+        with open(Path(profile_out) / "chip_smoke_profile.txt", "a") as fh:
+            fh.write(f"\n\n== ETH3D triangulation harness (refined) ==\n"
+                     f"{tab_p}\n\n== VGGNet KA ==\n{tab_v}\n")
+    del sfm, images
+    torch.cuda.empty_cache()
+    launches = {k: launches_tri[k] + launches_loc[k] for k in launches_tri}
+    launches["K1"] -= dense["launches"]
+    print(f"phase 21: {time.perf_counter() - t21:.1f} s")
+    return (launches, dense["launches"], k1_dense, launches_vgg, by_width,
+            in_situ, in_situ_vgg)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", default=None,
                         help="directory for the profiler tables")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2482,6 +2928,14 @@ def main() -> int:
     k1 = check_k1(torch, interpolate_cuda, n_patches=20000,
                   n_queries=P * K, dtypes=(torch.float32, torch.bfloat16))
     k1["edge_max_abs_err"] = check_k1_edges(torch, interpolate_cuda)
+    # the widths of VGGNet's levels (phase 21(d)) at the KA shape: 64 takes
+    # the general variant, 256 and 512 the vector one
+    k1_wide = {C: check_k1(torch, interpolate_cuda, n_patches=20000,
+                           n_queries=P * K,
+                           dtypes=(torch.float32, torch.bfloat16), C=C,
+                           variant="general" if C == 64 else "vector")
+               for C in (64, 256, 512)}
+    torch.cuda.empty_cache()
     k2 = check_k2(torch, cg_cuda, P=P, N=2 * K, iters=15)
 
     # -- phase 4: small scene, cuda against cpu --------------------------------
@@ -3198,13 +3652,21 @@ def main() -> int:
                      err_raw, err_tri, n_tri_pts),
         profile_out=args.profile_out)
 
+    # -- phase 21: the ETH3D evaluation flow --------------------------------
+    (launches_e3, launches_e3_dense, k1_e3_dense, launches_vgg, vgg_by_width,
+     in_situ_e3, in_situ_vgg) = eth3d_phase(
+        torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
+        schur_cuda, profile_out=args.profile_out)
+
     # -- report ----------------------------------------------------------------
     # K1 runs on both paths at different shapes: one entry per path, each
     # with that path's launches and the figures measured at its shape
     paths = {"KA": launches, "BA": launches_ba,
              "triangulation": launches_tri, "reconstruction": launches_rc,
              "localization": launches_loc, "low_memory": launches_lm,
-             "photometric": launches_ph}
+             "photometric": launches_ph, "eth3d": launches_e3,
+             "eth3d_dense_query": {"K1": launches_e3_dense},
+             "vggnet": launches_vgg}
     both = {k: sum(n.get(k, 0) for n in paths.values())
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
     print(f"launches on the main paths: {paths}")
@@ -3253,6 +3715,24 @@ def main() -> int:
              launches_by_run={"triangulation": launches_ph_tri["K1"],
                               "run_ba (poses free)": launches_ph_ba["K1"]},
              library_ms=None, in_situ_ms=in_situ_ph.get("K1"), **k1_ph),
+        dict(name="bicubic_window_interp_l2", path="eth3d", route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_e3["K1"], library_ms=None,
+             in_situ_ms=in_situ_e3.get("K1"),
+             timed_at="the KA shape of phase 2 (C = 128)", **k1),
+        dict(name="bicubic_window_interp_l2", path="eth3d_dense_query",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_e3_dense, library_ms=None, **k1_e3_dense),
+        *(dict(name="bicubic_window_interp_l2", path="vggnet", channels=C,
+               route="cuda",
+               source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+               replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+               launches=vgg_by_width.get(C, 0), library_ms=None,
+               in_situ_ms=in_situ_vgg[C], **k1_wide[C])
+          for C in (64, 256, 512)),
         dict(name="batched_jacobi_pcg", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/pcg.cu",
              replaces="pixsfm_tpu/ops/cg_pallas.py:88",
@@ -3285,6 +3765,7 @@ def main() -> int:
              library_ms=None, in_situ_ms=in_situ["K3c"],
              in_situ_low_memory_ms=in_situ_lm.get("K3c"), **k3["K3c"]),
     ]}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -113,9 +113,11 @@ class FeatureExtractor:
     # -- main entry ---------------------------------------------------------
     @torch.no_grad()
     def __call__(self, image, keypoints: Optional[np.ndarray] = None,
-                 keypoint_ids: Optional[Sequence[int]] = None) -> List:
+                 keypoint_ids: Optional[Sequence[int]] = None,
+                 overwrite_sparse: Optional[bool] = None) -> List:
         """``image``: path, PIL image or decoded ``[H, W, 3]`` array.
-        Returns one :class:`FeatureMap` per level."""
+        Returns one :class:`FeatureMap` per level. ``overwrite_sparse``
+        replaces ``conf.sparse`` for this call."""
         if isinstance(image, (str, bytes)) or hasattr(image, "__fspath__"):
             image = self.load_image(image)
         img_size = getattr(image, "original_size", self._size(image))
@@ -125,17 +127,18 @@ class FeatureExtractor:
             feats = self.model(self.model.preprocess(img_pyr))
             for fm in feats:
                 fmaps.append(self._to_fmap(fm[0], img_size, keypoints,
-                                           keypoint_ids))
+                                           keypoint_ids, overwrite_sparse))
         return fmaps
 
     def _to_fmap(self, fmap: torch.Tensor, image_size, keypoints,
-                 keypoint_ids) -> FeatureMap:
+                 keypoint_ids, overwrite_sparse=None) -> FeatureMap:
         """Cut, normalize and cast the keypoint windows of one ``[C, h, w]``
         map on the device (``_compiled_extract_patches`` of the JAX
         package; the per-pixel L2 commutes with the window cut, so only
         the windows are normalized), or normalize and cast the whole map
         (``_to_fmap``'s dense branch, ``extractor.py:302-331``)."""
-        sparse = bool(self.conf.sparse)
+        sparse = bool(self.conf.sparse if overwrite_sparse is None
+                      else overwrite_sparse)
         if sparse and keypoints is None:
             raise RuntimeError("sparse extraction requires keypoints")
         if keypoints is not None:

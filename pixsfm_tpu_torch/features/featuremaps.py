@@ -49,13 +49,16 @@ def storage_dtype(name: str) -> torch.dtype:
 
 def window_cut(fmap: torch.Tensor, corners: np.ndarray, ps: int):
     """The ``[N, ps, ps, C]`` windows of a ``[h, w, C]`` map whose origins
-    are the integer ``corners [N, 2]`` (x, y), in one device gather."""
+    are the integer ``corners [N, 2]`` (x, y), in one device gather. On an
+    axis where the map is shorter than ``ps`` the windows span the map
+    (``min(ps, h)`` rows, ``min(ps, w)`` columns), as the JAX package's
+    slices do."""
     cr = torch.as_tensor(np.asarray(corners), device=fmap.device,
                          dtype=torch.int64)
-    off = torch.arange(ps, device=fmap.device)
-    ys = (cr[:, 1, None] + off)[:, :, None]              # [N, ps, 1]
-    xs = (cr[:, 0, None] + off)[:, None, :]              # [N, 1, ps]
-    return fmap[ys, xs]
+    h, w = fmap.shape[:2]
+    ys = (cr[:, 1, None] + torch.arange(min(ps, h), device=fmap.device))
+    xs = (cr[:, 0, None] + torch.arange(min(ps, w), device=fmap.device))
+    return fmap[ys[:, :, None], xs[:, None, :]]
 
 
 class FeatureMap:

@@ -1,27 +1,29 @@
-"""Feature CNN registry (port of ``pixsfm_tpu/features/models/__init__.py``).
-
-S2DNet (the default model), dense SIFT and the identity ``image`` model are
-ported; the other models come with a later slice of the port.
-"""
+"""Feature CNN registry (port of ``pixsfm_tpu/features/models/__init__.py``):
+the dense-feature models (S2DNet, VGGNet, dense SIFT, the identity
+``image`` model) and the detectors (SuperPoint, R2D2, D2-Net), each an
+``nn.Module`` in NCHW."""
 
 from .base_model import BaseModel  # noqa: F401
+from .d2net import D2Net
 from .dsift import DSIFT
 from .image import ImageModel
+from .r2d2 import R2D2
 from .s2dnet import S2DNet
+from .superpoint import SuperPoint
+from .vggnet import VGGNet
 
 MODELS = {
     "s2dnet": S2DNet,
+    "vggnet": VGGNet,
     "dsift": DSIFT,
     "image": ImageModel,
+    "superpoint": SuperPoint,
+    "r2d2": R2D2,
+    "d2net": D2Net,
 }
-
-_LATER = ("vggnet", "superpoint", "r2d2", "d2net")
 
 
 def get_model(name: str):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"feature model {name!r} is not ported to pixsfm_tpu_torch yet")
     if name not in MODELS:
         raise ValueError(f"unknown feature model {name!r}; "
                          f"available: {sorted(MODELS)}")

@@ -1,8 +1,9 @@
 """Feature-model base class (reference: pixsfm/features/models/base_model.py).
 
 Port of ``pixsfm_tpu/features/models/base_model.py``: models are
-``nn.Module``s in NCHW that own their weights on an explicit device and
-expose ``output_dims`` / ``scales`` per returned level.
+``nn.Module``s in NCHW that own their weights on a device (``cuda`` unless
+the caller passes ``device="cpu"``) and expose ``output_dims`` / ``scales``
+per returned level.
 """
 
 from __future__ import annotations
@@ -14,9 +15,41 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import resolve_device
 from ...config import merge
 
-__all__ = ["BaseModel"]
+__all__ = ["BaseModel", "read_checkpoint", "to_nhwc_batch", "oihw", "vec"]
+
+
+def oihw(kernel) -> torch.Tensor:
+    """A Flax HWIO convolution kernel as a torch OIHW weight."""
+    return vec(kernel).permute(3, 2, 0, 1).contiguous()
+
+
+def vec(a) -> torch.Tensor:
+    """A Flax parameter array as a float32 tensor."""
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def read_checkpoint(path, wrappers=("state_dict", "net", "model")):
+    """The state dict of a public checkpoint file: unwrapped from each of
+    ``wrappers`` in turn that holds a dict (as the JAX package's loaders
+    do), ``module.`` prefixes stripped, non-tensor entries dropped."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    for key in wrappers:
+        if isinstance(sd.get(key), dict):
+            sd = sd[key]
+    return {(k[7:] if k.startswith("module.") else k): v
+            for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def to_nhwc_batch(image, device) -> torch.Tensor:
+    """``[B, H, W, c]`` float32 tensor on ``device`` from a numpy array or a
+    tensor in that layout (the detectors' input, as in the JAX package)."""
+    if isinstance(image, torch.Tensor):
+        return image.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(image, np.float32)).to(
+        device)
 
 
 class BaseModel(nn.Module):
@@ -24,7 +57,7 @@ class BaseModel(nn.Module):
     output_dims: Optional[List[int]] = None   # channels per returned level
     scales: Optional[List[int]] = None        # downscale per level vs input
 
-    def __init__(self, conf=None, device="cpu", seed: int = 0):
+    def __init__(self, conf=None, device=None, seed: int = 0):
         super().__init__()
         self.conf = merge({"name": self.__class__.__name__.lower()},
                           self.default_conf, conf or {})
@@ -34,7 +67,7 @@ class BaseModel(nn.Module):
         if self.scales is not None and \
                 len(self.output_dims) != len(self.scales):
             raise ValueError("output_dims and scales differ in length")
-        self.to(torch.device(device))
+        self.to(resolve_device(device))
         self.eval()
 
     @property
@@ -42,6 +75,18 @@ class BaseModel(nn.Module):
         """The device of the model's weights, or of its buffers when it has
         no weights (dense SIFT, the identity model)."""
         return next(itertools.chain(self.parameters(), self.buffers())).device
+
+    def _random_init(self, seed: int):
+        """LeCun-normal conv kernels and zero biases (Flax's defaults),
+        drawn from an explicit generator; BatchNorm stays the identity."""
+        gen = torch.Generator().manual_seed(int(seed))
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Conv2d):
+                    fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                    m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                                   / np.sqrt(fan_in))
+                    m.bias.zero_()
 
     # -- to be implemented --------------------------------------------------
     def _init(self, conf, seed: int):

@@ -17,12 +17,11 @@ import contextlib
 from pathlib import Path
 from typing import Dict, Mapping
 
-import numpy as np
 import torch
 from torch import nn
 
 from ... import logger
-from .base_model import BaseModel
+from .base_model import BaseModel, oihw, vec
 
 __all__ = ["S2DNet", "params_from_flax", "VGG16_LAYERS",
            "HYPERCOLUMN_LAYERS"]
@@ -133,18 +132,6 @@ class S2DNet(BaseModel):
                     "environment); using deterministic random init. Place the "
                     "reference checkpoint there for descriptor parity.", ckpt)
 
-    def _random_init(self, seed: int):
-        """LeCun-normal conv kernels and zero biases (Flax's defaults),
-        drawn from an explicit generator; BatchNorm stays the identity."""
-        gen = torch.Generator().manual_seed(int(seed))
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, nn.Conv2d):
-                    fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-                    m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
-                                   / np.sqrt(fan_in))
-                    m.bias.zero_()
-
     def forward(self, image: torch.Tensor):
         x = (image - self.mean) / self.std
         feats = []
@@ -169,28 +156,22 @@ def params_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     both frameworks)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
     sd: Dict[str, torch.Tensor] = {}
     for name, idx in _conv_indices().items():
         if name in params:
-            sd[f"encoder.{idx}.weight"] = t(params[name]["kernel"]).permute(
-                3, 2, 0, 1).contiguous()
-            sd[f"encoder.{idx}.bias"] = t(params[name]["bias"])
+            sd[f"encoder.{idx}.weight"] = oihw(params[name]["kernel"])
+            sd[f"encoder.{idx}.bias"] = vec(params[name]["bias"])
     i = 0
     while f"adap{i}_conv1" in params:
         pre = f"adaptation_layers.adap_layer_{i}"
         for sub, fl in ((0, f"adap{i}_conv1"), (2, f"adap{i}_conv2")):
-            sd[f"{pre}.{sub}.weight"] = t(params[fl]["kernel"]).permute(
-                3, 2, 0, 1).contiguous()
-            sd[f"{pre}.{sub}.bias"] = t(params[fl]["bias"])
+            sd[f"{pre}.{sub}.weight"] = oihw(params[fl]["kernel"])
+            sd[f"{pre}.{sub}.bias"] = vec(params[fl]["bias"])
         bn = f"adap{i}_bn"
-        sd[f"{pre}.3.weight"] = t(params[bn]["scale"])
-        sd[f"{pre}.3.bias"] = t(params[bn]["bias"])
-        sd[f"{pre}.3.running_mean"] = t(stats[bn]["mean"])
-        sd[f"{pre}.3.running_var"] = t(stats[bn]["var"])
+        sd[f"{pre}.3.weight"] = vec(params[bn]["scale"])
+        sd[f"{pre}.3.bias"] = vec(params[bn]["bias"])
+        sd[f"{pre}.3.running_mean"] = vec(stats[bn]["mean"])
+        sd[f"{pre}.3.running_var"] = vec(stats[bn]["var"])
         sd[f"{pre}.3.num_batches_tracked"] = torch.tensor(0)
         i += 1
     return sd

@@ -22,12 +22,13 @@
 // and with loads alone 24 us of its 44 us. The 64 narrow loads per lane and
 // their address arithmetic set its time, not the FMAs and not the bytes.
 //
-// Two variants; pixsfm_interp_rows picks one from C, the storage type and
-// the pointers' alignment (the Python wrapper does not choose):
+// Two variants, vector (two kernels) and general; pixsfm_interp_rows picks
+// one from C, the storage type and the pointers' alignment (the Python
+// wrapper does not choose):
 //
-// - interp_kernel_vec<T, C>, for C = 128 (what every dense-feature config of
-//   the package produces: S2DNet and DSIFT), bf16 or f32 rows, when rows and
-//   the outputs are 16-byte aligned. A pixel is C * sizeof(T) / 16 = 16
+// - interp_kernel_vec<T, C>, for C = 128 (S2DNet, DSIFT, R2D2), bf16 or f32
+//   rows, when rows and the outputs are 16-byte aligned. A pixel is
+//   C * sizeof(T) / 16 = 16
 //   (bf16) or 32 (f32) 16-byte units and each lane owns one unit (8 bf16 /
 //   4 f32 channels), so one warp-wide ld.global.nc.v4 fetches 2 taps or 1
 //   (bf16: the two half-warps read two taps of one row). All of a query's
@@ -55,11 +56,24 @@
 //   unrolled pair of steps: indexed as one array they went to local memory
 //   and the kernel took twice as long.
 //
-// - interp_kernel_general<T>, everything else the function takes: any
-//   C <= 256 other than 128 (also not a multiple of 8: the 1-3 channels of
-//   the image "features" come here) and misaligned bases. One warp per
-//   query, lane l owns channels l, l + 32, ..., scalar loads. Both variants
-//   take any H and W (W < 4: every column tap clamps) and offsets past 2^31.
+// - interp_kernel_wide<T, C>, the same 16-byte loads for the wider maps of
+//   VGGNet and D2-Net: C = 256 and 512, bf16 or f32, on 16-byte aligned
+//   bases. A pixel is 32 * kPer units (kPer = 1, 2 or 4) and lane l owns
+//   units l, l + 32, ..., so each warp-wide load reads 512 contiguous bytes
+//   of one tap. One warp per query; the taps are requested a batch of rows
+//   at a time, 16 loads per lane in flight (4 rows at kPer = 1, 2 at 2, 1 at
+//   4), and a lane keeps 8 or 16 channels of sums; the L2 norm and the two
+//   chain-rule dots are warp sums. Bound by bytes like the 128-channel
+//   kernel (a query reads 16 taps x 512 or 1024 bytes in bf16); it was
+//   written for being right and simple, not tuned.
+//
+// - interp_kernel_general<T, K>, everything else the function takes: any
+//   C <= 512 that the vector variants do not (also not a multiple of 8: the
+//   1-3 channels of the image "features" come here; VGGNet's 64) and
+//   misaligned bases. One warp per query, lane l owns channels l, l + 32,
+//   ..., scalar loads; K = 8 channels per lane up to C = 256, 16 beyond.
+//   All variants take any H and W (W < 4: every column tap clamps) and
+//   offsets past 2^31.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (pixsfm_tpu_torch/kernels/__init__.py).
@@ -73,7 +87,7 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxChannelsPerLane = 8;  // general variant: C <= 256
+constexpr int kMaxChannels = 512;  // 32 lanes x 16 channels (general)
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
@@ -346,10 +360,138 @@ interp_kernel_vec(const T* __restrict__ rows,
 }
 
 // ---------------------------------------------------------------------------
+// wide vector variant (C = 256, 512)
+// ---------------------------------------------------------------------------
+
+template <typename T, int C>
+struct WideShape {
+  static constexpr int kVec = 16 / sizeof(T);       // channels per unit
+  static constexpr int kUnits = C / kVec;           // units per pixel
+  static constexpr int kPer = kUnits / 32;          // units per lane
+  static constexpr int kCh = kVec * kPer;           // channels per lane
+  static constexpr int kRowsPerBatch = 4 / kPer;    // 16 loads in flight
+  static_assert(C % kVec == 0 && kUnits % 32 == 0 &&
+                    (kPer == 1 || kPer == 2 || kPer == 4),
+                "a pixel must be 32, 64 or 128 16-byte units");
+};
+
+// A lane's V channels of one output as V / 4 float4 stores.
+template <int V>
+__device__ __forceinline__ void store_unit(float* __restrict__ out,
+                                           const float* x) {
+#pragma unroll
+  for (int k = 0; k < V; k += 4)
+    *reinterpret_cast<float4*>(out + k) =
+        make_float4(x[k], x[k + 1], x[k + 2], x[k + 3]);
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+interp_kernel_wide(const T* __restrict__ rows,
+                   const int32_t* __restrict__ row_base,
+                   const float* __restrict__ rq, const float* __restrict__ cq,
+                   int n, int h, int w, int l2, float* __restrict__ f_out,
+                   float* __restrict__ dr_out, float* __restrict__ dc_out) {
+  using S = WideShape<T, C>;
+  constexpr int V = S::kVec;
+  constexpr int B = S::kRowsPerBatch;
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (q >= n) return;  // whole warp leaves together
+
+  const Query s = load_query(row_base, rq, cq, q);
+  const float fr = floorf(s.r);
+  const float fc = floorf(s.c);
+  float wr[4], dwr[4], wc[4], dwc[4];
+  catmull_rom(s.r - fr, wr, dwr);
+  catmull_rom(s.c - fc, wc, dwc);
+  const int br = static_cast<int>(fr);
+  const int bc = static_cast<int>(fc);
+  int64_t col[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    col[j] = static_cast<int64_t>(min(max(bc - 1 + j, 0), w - 1)) *
+                 S::kUnits + lane;
+  const uint4* px = reinterpret_cast<const uint4*>(rows);
+  const int64_t row_units = static_cast<int64_t>(w) * S::kUnits;
+
+  float f[S::kCh], fdr[S::kCh], fdc[S::kCh];
+#pragma unroll
+  for (int k = 0; k < S::kCh; ++k) f[k] = fdr[k] = fdc[k] = 0.f;
+
+#pragma unroll
+  for (int i0 = 0; i0 < 4; i0 += B) {
+    uint4 taps[B][4][S::kPer];
+#pragma unroll
+    for (int ii = 0; ii < B; ++ii) {
+      const int ri = min(max(br - 1 + i0 + ii, 0), h - 1);
+      const int64_t row = (static_cast<int64_t>(s.base) + ri) * row_units;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int p = 0; p < S::kPer; ++p)
+          taps[ii][j][p] = __ldg(px + row + col[j] + 32 * p);
+    }
+#pragma unroll
+    for (int ii = 0; ii < B; ++ii) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float a = wr[i0 + ii] * wc[j];
+        const float b = dwr[i0 + ii] * wc[j];
+        const float d = wr[i0 + ii] * dwc[j];
+#pragma unroll
+        for (int p = 0; p < S::kPer; ++p) {
+          float v[V];
+          unpack(taps[ii][j][p], v, static_cast<const T*>(nullptr));
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            f[p * V + k] = fmaf(a, v[k], f[p * V + k]);
+            fdr[p * V + k] = fmaf(b, v[k], fdr[p * V + k]);
+            fdc[p * V + k] = fmaf(d, v[k], fdc[p * V + k]);
+          }
+        }
+      }
+    }
+  }
+
+  if (l2) {
+    // XLA form of the JAX package: 1 / max(||f||, 1e-20)
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < S::kCh; ++k) ss += f[k] * f[k];
+    const float inv = 1.0f / fmaxf(sqrtf(warp_sum(ss)), 1e-20f);
+    float pr = 0.f, pc = 0.f;
+#pragma unroll
+    for (int k = 0; k < S::kCh; ++k) {
+      f[k] *= inv;
+      fdr[k] *= inv;
+      fdc[k] *= inv;
+      pr += f[k] * fdr[k];
+      pc += f[k] * fdc[k];
+    }
+    pr = warp_sum(pr);
+    pc = warp_sum(pc);
+#pragma unroll
+    for (int k = 0; k < S::kCh; ++k) {
+      fdr[k] -= pr * f[k];
+      fdc[k] -= pc * f[k];
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < S::kPer; ++p) {
+    const int64_t o = static_cast<int64_t>(q) * C + (lane + 32 * p) * V;
+    store_unit<V>(f_out + o, f + p * V);
+    store_unit<V>(dr_out + o, fdr + p * V);
+    store_unit<V>(dc_out + o, fdc + p * V);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // general variant
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int K>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 interp_kernel_general(const T* __restrict__ rows,
                       const int32_t* __restrict__ row_base,
@@ -378,10 +520,10 @@ interp_kernel_general(const T* __restrict__ rows,
   }
   const int64_t base = static_cast<int64_t>(row_base[q]);
 
-  float f[kMaxChannelsPerLane], fdr[kMaxChannelsPerLane],
-      fdc[kMaxChannelsPerLane];
+  float f[K], fdr[K],
+      fdc[K];
 #pragma unroll
-  for (int k = 0; k < kMaxChannelsPerLane; ++k) f[k] = fdr[k] = fdc[k] = 0.f;
+  for (int k = 0; k < K; ++k) f[k] = fdr[k] = fdc[k] = 0.f;
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -393,7 +535,7 @@ interp_kernel_general(const T* __restrict__ rows,
       const float b = dwr[i] * wc[j];
       const float d = wr[i] * dwc[j];
 #pragma unroll
-      for (int k = 0; k < kMaxChannelsPerLane; ++k) {
+      for (int k = 0; k < K; ++k) {
         const int ch = lane + 32 * k;
         if (ch < c) {
           const float v = load_f(px + ch);
@@ -409,11 +551,11 @@ interp_kernel_general(const T* __restrict__ rows,
     // XLA form of the JAX package: 1 / max(||f||, 1e-20)
     float ss = 0.f;
 #pragma unroll
-    for (int k = 0; k < kMaxChannelsPerLane; ++k) ss += f[k] * f[k];
+    for (int k = 0; k < K; ++k) ss += f[k] * f[k];
     const float inv = 1.0f / fmaxf(sqrtf(warp_sum(ss)), 1e-20f);
     float pr = 0.f, pc = 0.f;
 #pragma unroll
-    for (int k = 0; k < kMaxChannelsPerLane; ++k) {
+    for (int k = 0; k < K; ++k) {
       f[k] *= inv;
       fdr[k] *= inv;
       fdc[k] *= inv;
@@ -423,7 +565,7 @@ interp_kernel_general(const T* __restrict__ rows,
     pr = warp_sum(pr);
     pc = warp_sum(pc);
 #pragma unroll
-    for (int k = 0; k < kMaxChannelsPerLane; ++k) {
+    for (int k = 0; k < K; ++k) {
       fdr[k] -= pr * f[k];
       fdc[k] -= pc * f[k];
     }
@@ -431,7 +573,7 @@ interp_kernel_general(const T* __restrict__ rows,
 
   const int64_t o = static_cast<int64_t>(q) * c;
 #pragma unroll
-  for (int k = 0; k < kMaxChannelsPerLane; ++k) {
+  for (int k = 0; k < K; ++k) {
     const int ch = lane + 32 * k;
     if (ch < c) {
       f_out[o + ch] = f[k];
@@ -474,13 +616,41 @@ int launch_vec(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int C>
+int launch_wide(const Args& a) {
+  const int blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  interp_kernel_wide<T, C><<<blocks, 32 * kWarpsPerBlock, 0, a.stream>>>(
+      static_cast<const T*>(a.rows), a.row_base, a.r, a.c, a.n, a.h, a.w,
+      a.l2, a.f, a.dfdr, a.dfdc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_general(const Args& a) {
   const int blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  interp_kernel_general<T><<<blocks, 32 * kWarpsPerBlock, 0, a.stream>>>(
-      static_cast<const T*>(a.rows), a.row_base, a.r, a.c, a.n, a.h, a.w,
-      a.ch, a.l2, a.f, a.dfdr, a.dfdc);
+  if (a.ch <= 256) {
+    interp_kernel_general<T, 8><<<blocks, 32 * kWarpsPerBlock, 0, a.stream>>>(
+        static_cast<const T*>(a.rows), a.row_base, a.r, a.c, a.n, a.h, a.w,
+        a.ch, a.l2, a.f, a.dfdr, a.dfdc);
+  } else {
+    interp_kernel_general<T, 16>
+        <<<blocks, 32 * kWarpsPerBlock, 0, a.stream>>>(
+            static_cast<const T*>(a.rows), a.row_base, a.r, a.c, a.n, a.h,
+            a.w, a.ch, a.l2, a.f, a.dfdr, a.dfdc);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_vector(const Args& a) {
+  switch (a.ch) {
+    case 128:
+      return launch_vec<T, 128>(a);
+    case 256:
+      return launch_wide<T, 256>(a);
+    default:
+      return launch_wide<T, 512>(a);
+  }
 }
 
 bool aligned16(const void* p) {
@@ -491,15 +661,16 @@ bool aligned16(const void* p) {
 
 extern "C" {
 
-int pixsfm_interp_max_channels() { return 32 * kMaxChannelsPerLane; }
+int pixsfm_interp_max_channels() { return kMaxChannels; }
 
-// Which variant pixsfm_interp_rows takes for these arguments: 1 = vector,
-// 0 = general (for tests and the smoke run; same rule as the launch).
+// Which variant pixsfm_interp_rows takes for these arguments: 1 = vector
+// (interp_kernel_vec at C = 128, interp_kernel_wide at 256 and 512), 0 =
+// general (for tests and the smoke run; same rule as the launch).
 int pixsfm_interp_variant(const void* rows, int dtype, int ch, const float* f,
                           const float* dfdr, const float* dfdc) {
   if (!(aligned16(rows) && aligned16(f) && aligned16(dfdr) && aligned16(dfdc)))
     return 0;
-  return (dtype == 0 || dtype == 1) && ch == 128;
+  return (dtype == 0 || dtype == 1) && (ch == 128 || ch == 256 || ch == 512);
 }
 
 // dtype: 0 = float32 rows, 1 = bfloat16 rows. Returns the cudaError_t of
@@ -508,14 +679,14 @@ int pixsfm_interp_rows(const void* rows, int dtype, const int32_t* row_base,
                        const float* r, const float* c, int n, int h, int w,
                        int ch, int l2, float* f, float* dfdr, float* dfdc,
                        void* stream) {
-  if (ch > 32 * kMaxChannelsPerLane || (dtype != 0 && dtype != 1))
+  if (ch > kMaxChannels || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const Args a{rows, row_base, r, c, n, h, w, ch, l2, f, dfdr, dfdc,
                static_cast<cudaStream_t>(stream)};
   if (pixsfm_interp_variant(rows, dtype, ch, f, dfdr, dfdc)) {
-    return dtype == 0 ? launch_vec<float, 128>(a)
-                      : launch_vec<__nv_bfloat16, 128>(a);
+    return dtype == 0 ? launch_vector<float>(a)
+                      : launch_vector<__nv_bfloat16>(a);
   }
   return dtype == 0 ? launch_general<float>(a)
                     : launch_general<__nv_bfloat16>(a);

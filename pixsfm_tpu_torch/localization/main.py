@@ -46,7 +46,7 @@ from ..base.interpolation import (InterpolationConfig,
 from ..base.losses import RobustLoss, make_loss
 from ..base.projection import world_to_pixel
 from ..config import merge
-from ..features.featuremaps import FeatureMap, FeatureView
+from ..features.featuremaps import FeatureMap, FeatureView, kDensePatchId
 from ..keypoint_adjustment.solver import (_run_target_chunk,
                                           evaluate_descriptors,
                                           solve_target_problems)
@@ -187,6 +187,9 @@ def _pack_query_fmap(fmap: FeatureMap, device=None):
 
 
 def _rows_for(row_of, point2D_idxs) -> np.ndarray:
+    """Packed rows of keypoints; a dense map's one row serves them all."""
+    if kDensePatchId in row_of:
+        return np.full(len(point2D_idxs), row_of[kDensePatchId], np.int64)
     return np.asarray([row_of[int(i)] for i in point2D_idxs], np.int64)
 
 
@@ -896,16 +899,13 @@ class QueryLocalizer:
         """Features at the query keypoints that the correspondences use.
         ``image_path``: a file or a decoded ``[H, W, 3]`` uint8 array.
         Extracting a superset of keypoints is safe: QKA and QBA look
-        patches up by keypoint id."""
-        if self.conf.get("overwrite_features_sparse") is False:
-            raise NotImplementedError(
-                "dense query featuremaps (overwrite_features_sparse: false) "
-                "are not ported yet; see ROADMAP.md section 1, 'Features, "
-                "rest'")
+        patches up by keypoint id. ``overwrite_features_sparse: false``
+        keeps the query's whole map (a dense ``FeatureMap``)."""
         keypoints = np.array(keypoints, np.float64)
         required = sorted(set(int(i) for i in pnp_point2D_idxs))
-        return self._extractor()(image_path, keypoints=keypoints[required],
-                                 keypoint_ids=required)
+        return self._extractor()(
+            image_path, keypoints=keypoints[required], keypoint_ids=required,
+            overwrite_sparse=self.conf.get("overwrite_features_sparse"))
 
     def _drop_unreferenced(self, p2D, p3D):
         """Drop correspondences to points without references (tracks whose

@@ -8,9 +8,11 @@ PyTorch version (``base.interpolation.bicubic_window_eval_rows`` +
 kernel that fails to build or launch raises.
 
 The CUDA source holds two variants, a vector one (16-byte loads, for bf16 or
-f32 rows of 128 channels on a 16-byte aligned base) and a general one
-(everything else up to 256 channels). The C entry
-point chooses between them; :func:`kernel_variant` reports its choice.
+f32 rows of 128, 256 or 512 channels on a 16-byte aligned base: S2DNet,
+DSIFT and R2D2 at 128, VGGNet's and D2-Net's wider maps) and a general one
+(everything else up to 512 channels, e.g. VGGNet's 64 and the images' 1-3).
+The C entry point chooses between them; :func:`kernel_variant` reports its
+choice.
 
 :func:`interpolate_node_rows` reads node windows (patch-warp BA and its
 references): the node offsets of every query expand into one launch on
@@ -28,10 +30,13 @@ from ..base.interpolation import (bicubic_window_eval_rows,
                                   l2_normalize_with_grad, node_queries)
 
 __all__ = ["interpolate_rows", "interpolate_rows_plain",
-           "interpolate_node_rows", "kernel_variant", "launches"]
+           "interpolate_node_rows", "kernel_variant", "launches",
+           "launches_by_channels"]
 
-# Number of kernel launches since the last reset (set it to 0 to reset).
+# Number of kernel launches since the last reset (set it to 0 to reset),
+# and the same split by channel count (clear it to reset).
 launches = 0
+launches_by_channels = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -116,6 +121,7 @@ def interpolate_rows(rows, H: int, W: int, C: int, row_base, r, c,
         raise RuntimeError(f"interpolate_rows: kernel launch failed "
                            f"(cudaError {err})")
     launches += 1
+    launches_by_channels[C] = launches_by_channels.get(C, 0) + 1
     return f, dfdr, dfdc
 
 

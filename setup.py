@@ -35,7 +35,8 @@ setup(
                        "native/build.sh"],
         # the PyTorch/CUDA port: kernels are built from these sources with
         # nvcc at first use
-        "pixsfm_tpu_torch": ["configs/*.yaml", "kernels/csrc/*.cu"],
+        "pixsfm_tpu_torch": ["configs/*.yaml", "kernels/csrc/*.cu",
+                             "kernels/csrc/*.h"],
     },
     python_requires=">=3.10",
     install_requires=[

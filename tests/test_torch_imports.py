@@ -45,7 +45,12 @@ def test_every_module_imports_without_jax():
                  "localization.pnp", "sfm.two_view", "sfm.mapper",
                  "features.models.dsift", "features.models.image",
                  "localization.main", "localize",
-                 "bundle_adjustment.costmaps"):
+                 "bundle_adjustment.costmaps", "features.detectors",
+                 "features.models.superpoint", "features.models.r2d2",
+                 "features.models.d2net", "features.models.vggnet",
+                 "eval.eth3d.config", "eval.eth3d.utils",
+                 "eval.eth3d.synthetic", "eval.eth3d.triangulation",
+                 "eval.eth3d.localization"):
         assert f"pixsfm_tpu_torch.{name}" in _module_names()
 
 
@@ -176,3 +181,48 @@ def test_weight_free_presets_load():
     sfm = PixSfM(confs["norefine"], device="cpu")
     assert sfm.extractor.model.output_dims == [3]
     assert not sfm.keypoint_adjuster.conf.apply
+
+
+def test_detectors_and_eth3d_entry_points_raise_without_gpu(tmp_path):
+    """The detectors, the matcher and the ETH3D harnesses run on ``cuda``
+    unless given ``device="cpu"`` / ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the refusal path is not reachable")
+    from pixsfm_tpu_torch.eval.eth3d.synthetic import make_synthetic_scene
+    from pixsfm_tpu_torch.eval.eth3d.triangulation import main as tri_main
+    from pixsfm_tpu_torch.eval.eth3d.triangulation import run_scene
+    from pixsfm_tpu_torch.features.detectors import (detect_directory,
+                                                     mutual_nn_ratio_match)
+    from pixsfm_tpu_torch.features.models import get_model
+    for name in ("superpoint", "r2d2", "d2net", "vggnet", "s2dnet"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_model(name)({"pretrained": None})
+    d = np.eye(4, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mutual_nn_ratio_match(d, d, np.ones(4, bool), np.ones(4, bool))
+    make_synthetic_scene(tmp_path / "s", n_images=2, n_points=10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect_directory(tmp_path / "s" / "images", ["image1.jpg"],
+                         method="superpoint")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_scene(tmp_path / "s", tmp_path / "o")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tri_main(["--dataset_dir", str(tmp_path), "--output_dir",
+                  str(tmp_path / "o"), "--scenes", "s"])
+
+
+@pytest.mark.parametrize("name,dims,scales", [
+    ("superpoint", [256], [8]), ("r2d2", [128], [1]), ("d2net", [512], [4]),
+    ("vggnet", [64, 256, 512], [1, 4, 16])])
+def test_detector_models_are_registered(name, dims, scales):
+    """``get_model`` builds the detectors and VGGNet (no JAX: see
+    ``test_every_module_imports_without_jax``); their submodules carry the
+    public checkpoints' names."""
+    from pixsfm_tpu_torch.features.models import get_model
+    model = get_model(name)({"pretrained": None}, device="cpu")
+    assert model.output_dims == dims and model.scales == scales
+    keys = set(model.state_dict())
+    want = {"superpoint": "convDb.weight", "r2d2": "ops.1.running_var",
+            "d2net": "dense_feature_extraction.model.21.weight",
+            "vggnet": "encoder.28.weight"}[name]
+    assert want in keys

@@ -88,12 +88,72 @@ def test_k1_edge_shapes_match_plain(dev, dtype, l2, C, ps, misaligned,
 
 def test_k1_variant_by_width_and_type(dev):
     """The C entry point picks the vector variant for bf16 and f32 rows of
-    128 channels, the general one otherwise."""
+    128, 256 and 512 channels, the general one otherwise."""
     for dtype in (torch.bfloat16, torch.float32):
-        for C in (8, 20, 32, 64, 128, 136, 256):
+        for C in (8, 20, 32, 64, 128, 136, 256, 384, 512):
             rows = torch.zeros((16, 16, C), device=dev, dtype=dtype)
-            want = "vector" if C == 128 else "general"
+            want = "vector" if C in (128, 256, 512) else "general"
             assert interpolate_cuda.kernel_variant(rows) == want, (dtype, C)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l2", [False, True])
+@pytest.mark.parametrize("C,misaligned,variant", [
+    (64, False, "general"),     # VGGNet's conv1_2
+    (256, False, "vector"),     # VGGNet's conv3_3
+    (256, True, "general"),
+    (512, False, "vector"),     # VGGNet's conv5_3, D2-Net
+    (512, True, "general"),
+    (384, False, "general"),    # past 256, no vector width
+])
+def test_k1_wide_maps_match_plain(dev, dtype, l2, C, misaligned, variant):
+    """K1 at the widths of VGGNet's and D2-Net's maps, both variants."""
+    rows, row_base, r, c = _k1_inputs(dev, dtype, n_patches=24, n=777,
+                                      C=C, misaligned=misaligned)
+    assert interpolate_cuda.kernel_variant(rows) == variant
+    before = interpolate_cuda.launches
+    out = interpolate_cuda.interpolate_rows(rows, 16, 16, C, row_base, r, c,
+                                            l2)
+    ref = interpolate_cuda.interpolate_rows_plain(rows, 16, 16, C, row_base,
+                                                  r, c, l2)
+    torch.cuda.synchronize()
+    assert interpolate_cuda.launches == before + 1
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=K1_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l2", [False, True])
+def test_k1_dense_query_map_matches_plain(dev, dtype, l2):
+    """K1 on one whole 1200x1600x128 map read as a single patch, as QKA and
+    QBA read a query's dense map (``overwrite_features_sparse: false``, the
+    ETH3D preset's), queries over the map and past its border."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    H, W, C, n = 1200, 1600, 128, 1000
+    rows = torch.randn((H, W, C), generator=gen, device=dev).to(dtype)
+    r = torch.rand(n, generator=gen, device=dev) * (H + 2.0) - 1.5
+    c = torch.rand(n, generator=gen, device=dev) * (W + 2.0) - 1.5
+    r[:2] = torch.tensor([0.0, H - 1.0])
+    c[:2] = torch.tensor([W - 1.0, 0.0])
+    row_base = torch.zeros(n, device=dev, dtype=torch.int32)
+    assert interpolate_cuda.kernel_variant(rows) == "vector"
+    before = interpolate_cuda.launches
+    out = interpolate_cuda.interpolate_rows(rows, H, W, C, row_base, r, c,
+                                            l2)
+    ref = interpolate_cuda.interpolate_rows_plain(rows, H, W, C, row_base,
+                                                  r, c, l2)
+    torch.cuda.synchronize()
+    assert interpolate_cuda.launches == before + 1
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=K1_ATOL[dtype], rtol=0)
+
+
+def test_k1_rejects_more_than_512_channels(dev):
+    rows, row_base, r, c = _k1_inputs(dev, torch.bfloat16, n_patches=2, n=8,
+                                      C=520)
+    with pytest.raises(ValueError):
+        interpolate_cuda.interpolate_rows(rows, 16, 16, 520, row_base, r, c,
+                                          True)
 
 
 def test_k1_rejects_bad_layout(dev):
@@ -855,3 +915,46 @@ def test_patch_warp_cuda_matches_cpu(dev, joint):
     assert abs(out_d["final_cost"] - out_c["final_cost"]) \
         <= 1e-4 * out_c["final_cost"]
     assert float(abs(x_d - x_c).max()) <= 1e-3
+
+
+@pytest.mark.parametrize("method", ["superpoint", "r2d2", "d2net"])
+def test_detector_cuda_matches_cpu(dev, method):
+    """Each detector on the card against the CPU on one seeded 96x128 image
+    (convolutions with TF32 off on both), as ``chip_smoke.py`` phase 21(a)
+    holds them: valid keypoint sets equal (D2-Net's detection cells; its
+    sub-pixel Newton step moves positions by up to 1e-2 px), scores within
+    1e-5 relative, descriptors within 1e-4 where positions agree within
+    1e-3 px, which all but 1 % of the cells (at least one) must."""
+    import numpy as np
+
+    from pixsfm_tpu_torch.features.models import get_model
+
+    conf = {"pretrained": None, "max_keypoints": 256}
+    if method == "r2d2":
+        conf.update(reliability_threshold=0.0, repeatability_threshold=0.0)
+    img = np.random.default_rng(3).uniform(0, 1, (1, 96, 128, 3)).astype(
+        np.float32)
+    out = [get_model(method)(conf, device=d).detect(img)
+           for d in ("cuda", "cpu")]
+    stride, offset = (4, 1.5) if method == "d2net" else (1, 0.0)
+
+    def keyed(o):
+        v = o["valid"][0]
+        kp, sc, de = (o[k][0][v] for k in ("keypoints", "scores",
+                                           "descriptors"))
+        cells = np.rint((kp - offset) / stride).astype(np.int64)
+        return {tuple(c): (k, s, d) for c, k, s, d in zip(cells, kp, sc, de)}
+
+    a, b = (keyed(o) for o in out)
+    assert set(a) == set(b) and len(a) > 0
+    top = max(abs(s) for _, s, _ in a.values())
+    far = 0
+    for c in a:
+        dpos = float(np.abs(a[c][0] - b[c][0]).max())
+        assert dpos <= (1e-2 if method == "d2net" else 0.0)
+        assert abs(a[c][1] - b[c][1]) <= 1e-5 * top
+        if dpos <= 1e-3:
+            np.testing.assert_allclose(a[c][2], b[c][2], atol=1e-4)
+        else:
+            far += 1
+    assert far <= max(1, 0.01 * len(a)), (far, len(a))
