@@ -205,12 +205,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``D2NET_FAR_SHARE`` of the common cells must. (b) ``run_scene`` with
    ``method="superpoint"`` with ``configs/pixsfm_eth3d.yaml`` as shipped
    (S2DNet, featuremetric KA, feature-reference BA of 10 LM iterations,
-   poses fixed) and as the ``norefine`` control: accuracy and
-   completeness at ``ETH3D_TOLERANCES``, ``accuracy_delta``, points,
-   reprojection error, stage times, launches (counters zeroed just before
-   each run, read just after): K1 and K2 launched, the KA and BA costs
-   fell, at least ``ETH3D_MIN_POINTS`` points, mean reprojection error
-   under 3 px. (c) ``run_scene_localization`` on the same scene, 3
+   poses fixed): accuracy and completeness at ``ETH3D_TOLERANCES``,
+   points, reprojection error, stage times, launches (counters zeroed just
+   before the run, read just after): K1 and K2 launched, the KA and BA
+   costs fell, at least ``ETH3D_MIN_POINTS`` points, mean reprojection
+   error under 3 px. (c) ``run_scene_localization`` on the same scene, 3
    held-out queries, the same preset: the AUC at ``ETH3D_LOC_THRESHOLDS``,
    the median error and the stage times; at least 2 of the 3 queries
    localize. The preset extracts each query's whole dense map, which QKA
@@ -220,9 +219,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    inputs (as stored and in float32, L2 on and off) and timed there. (d) ``PixSfM.run_ka`` with ``dense_features.model.name:
    vggnet`` on phase 5's scene (three levels of 64 / 256 / 512 channels,
    bf16 16 px patches): K1 launched at each width (counters zeroed just
-   before), each level's cost fell. (b)'s refined run runs under the
-   profiler (device activity only), (d) again under it: device-idle share
+   before), each level's cost fell. (b) runs under the profiler (device
+   activity only), (d) again under it: device-idle share
    and K1's in-situ time (in (d) per width).
+22. The detector-free ETH3D path (LoFTR, ``features/models/loftr.py``) on
+   phase 21's scene, random weights. (a) One pair of its views, decoded as
+   ``match_loftr_dir`` decodes them (grayscale, 1024x768), at full width:
+   ms per pair (CUDA events, outputs copied to the host), peak device
+   memory, valid matches at the default threshold (0.2) and at 0; then
+   cuda against cpu on a 256x320 crop of the pair at threshold 0: coarse
+   tokens within ``LOFTR_TOKEN_RTOL`` of the largest, the valid coarse
+   index pairs equal but for at most ``LOFTR_PAIR_SHARE`` of them
+   (near-ties of the mutual maximum), fine positions within
+   ``LOFTR_POS_TOL`` px and confidences within ``LOFTR_CONF_TOL`` of the
+   largest on the common matches. (b) ``run_scene(method="loftr")`` on all
+   ``ETH3D_VIEWS`` views with ``configs/pixsfm_eth3d.yaml``, through the
+   harness's own entry point at its defaults: it must run to its end (the
+   random network passes no pair at 0.2: 0 points). (c) The detector-free
+   path at threshold 0 on ``LOFTR_VIEWS`` views, in ``run_scene``'s stage
+   order: ``match_loftr_dir`` -> ``verify_all_pairs`` ->
+   ``build_matching_graph`` -> ``PixSfM(pixsfm_eth3d).run_ka`` ->
+   ``triangulate_reconstruction`` -> ``run_ba``, counters zeroed just
+   before and read just after: K1 and K2 launched, the KA cost fell, at
+   least ``LOFTR_MIN_POINTS`` points; the stage times.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA, BA, triangulation), its error against the plain version, its
@@ -244,10 +263,11 @@ path's launches and the figures at its shape (``"low_memory"``: the
 launches of 19(c) and 19(d), split in ``launches_by_run``, and K1 timed
 at 19(a); ``"photometric"``: the launches of 20(c) and 20(d), K1 timed at
 20(a), its ``general_ms`` the same variant; ``"eth3d"``: the launches of
-21(b)'s refined run and of 21(c) on 16x16 patches, with phase 2's figures
+21(b) and of 21(c) on 16x16 patches, with phase 2's figures
 at the KA shape; ``"eth3d_dense_query"``: 21(c)'s launches on the queries'
 dense maps, with the figures on the first such launch's inputs;
-``"vggnet"``: one entry per width, ``channels`` 64 / 256 / 512, with
+``"eth3d_loftr"``: the launches of 22(c), with phase 2's figures at the
+KA shape; ``"vggnet"``: one entry per width, ``channels`` 64 / 256 / 512, with
 21(d)'s launches at that width and phase 2's figures at it); K2's and
 K3a/b/c's entries sum their launches over the paths and list them in ``launches_by_path`` (K3's ``in_situ_low_memory_ms``
 from 19(c)); and last ``{"ok": true, "device": {...}}``.
@@ -268,9 +288,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 # depth of the full-size BA (the default config allows 100 LM iterations;
-# 15 keeps the whole run inside its time limit with a margin for slower
-# hosts, whose host-bound stages take tens of percent longer)
-BA_ITERATIONS = 15
+# 8 keeps the whole run, phase 22 included, inside its time limit with a
+# margin for slower hosts, whose host-bound stages take tens of percent
+# longer)
+BA_ITERATIONS = 8
 BA_PROFILE_ITERATIONS = 2
 # least share of the triangulation scene's tracks that must survive the
 # acceptance rules (8000 of 8000 on an H100 with 1 px keypoint noise and the
@@ -300,7 +321,7 @@ RECON_NOISE_PX = 0.5
 # alike (15 px x 1600 / 480 -> 51 px), so that they cover the same extent
 # of the scene. With random SuperPoint weights the harness triangulates
 # ~2000 points from ETH3D_POINTS = 100 scene points (2007 in a CPU run of
-# the norefine and refined arms, 2010); more scene points overlap their
+# the refined harness); more scene points overlap their
 # textures and triangulate fewer (200 -> 149 at 8 views), and 15 px textures
 # at this size triangulate < 70 (the random network is not shift-equivariant
 # below its stride of 8 px)
@@ -320,6 +341,24 @@ D2NET_POS_TOL = 1e-2
 # an H100): a fault that moved every position would otherwise leave no
 # descriptor compared
 D2NET_FAR_SHARE = 0.01
+# phase 22: LoFTR on phase 21's scene. cuda against cpu on a crop: the
+# coarse tokens (float32, TF32 off on both; cuDNN and the CPU sum the
+# convolutions in different orders), the share of valid coarse index pairs
+# that may differ (the mutual maximum is an equality on the confidence
+# matrix: two near-equal entries can trade places), fine positions
+LOFTR_TOKEN_RTOL = 1e-4
+LOFTR_PAIR_SHARE = 0.01
+LOFTR_POS_TOL = 1e-3
+# ... and the confidences, relative to the largest: a product of two
+# softmaxes over logits divided by the temperature 0.1, so the tokens'
+# rounding (1.2e-6 of the largest on an H100) reaches the confidences
+# ten-fold and more (7.8e-5 of the largest on the crop, an H100)
+LOFTR_CONF_TOL = 1e-3
+# (c): views of the threshold-0 path, and its least number of points: half
+# of the 254 that the same stages triangulate on the CPU (the card
+# machine's, 8 cores; the card: 254 too)
+LOFTR_VIEWS = 8
+LOFTR_MIN_POINTS = 127
 
 
 def _smi():
@@ -1937,11 +1976,11 @@ def localization_phase(torch, np, interpolate_cuda, profile_out=None):
 LOWMEM_CPU_BA_ITERATIONS = 10
 # (b): the observation chunk of the same-device witness (8192 otherwise)
 LOWMEM_WITNESS_CHUNK = 1024
-# (c): LM iterations of costmap BA on phase 9's scene, kept at 15 to hold
-# phase 19 near 150 s (each takes 0.8-1.7 s of host), and of its profiled
-# run (tabulating the profile of one LM iteration, ~200 000 launches,
-# takes ~30 s)
-LOWMEM_BA_ITERATIONS = 15
+# (c): LM iterations of costmap BA on phase 9's scene, kept at 8 (as
+# BA_ITERATIONS) to hold phase 19 near 125 s (each takes 0.8-1.7 s of
+# host), and of its profiled run (tabulating the profile of one LM
+# iteration, ~200 000 launches, takes ~30 s)
+LOWMEM_BA_ITERATIONS = 8
 LOWMEM_PROFILE_ITERATIONS = 1
 
 
@@ -2613,27 +2652,10 @@ def detector_agreement(np, a, b, stride=1, offset=0.0):
                  default=0.0))
 
 
-def eth3d_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
-                schur_cuda, profile_out=None):
-    """Phase 21: the ETH3D evaluation flow on a rendered synthetic scene.
-    Returns the launches of (b)+(c) on patches, K1's launches in (c) on
-    the queries' dense maps and K1's figures there, the launches of (d)
-    and of (d) by channel count, and the in-situ device ms per launch of
-    K1 / K2 in (b) and of K1 per channel count in (d)."""
-    import tempfile
-
-    from pixsfm_tpu_torch.eval.eth3d.localization import \
-        run_scene_localization
-    from pixsfm_tpu_torch.eval.eth3d.synthetic import make_synthetic_scene
-    from pixsfm_tpu_torch.eval.eth3d.triangulation import run_scene
-    from pixsfm_tpu_torch.features.detectors import load_rgb
-    from pixsfm_tpu_torch.features.models import get_model
-    t21 = time.perf_counter()
-    tmp21 = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    tmp = Path(tmp21.name)
-    torch.cuda.empty_cache()
-
-    def zero_counts():
+def kernel_counts(torch, interpolate_cuda, cg_cuda, schur_cuda):
+    """(zero, read): set every kernel's launch count to 0 / read them all,
+    each after the queued work has finished."""
+    def zero():
         torch.cuda.synchronize()
         interpolate_cuda.launches = 0
         interpolate_cuda.launches_by_channels.clear()
@@ -2641,21 +2663,50 @@ def eth3d_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
         for name in schur_cuda.launches:
             schur_cuda.launches[name] = 0
 
-    def read_counts():
+    def read():
         torch.cuda.synchronize()
         return {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches,
                 "K3a": schur_cuda.launches["matvec"],
                 "K3b": schur_cuda.launches["rhs"],
                 "K3c": schur_cuda.launches["backsub"]}
 
+    return zero, read
+
+
+def make_eth3d_scene(tmp):
+    """Phases 21 and 22's scene under ``tmp / "scene"``: its ground truth."""
+    from pixsfm_tpu_torch.eval.eth3d.synthetic import make_synthetic_scene
     t0 = time.perf_counter()
-    scene = tmp / "scene"
-    gt = make_synthetic_scene(scene, n_images=ETH3D_VIEWS,
+    gt = make_synthetic_scene(tmp / "scene", n_images=ETH3D_VIEWS,
                               n_points=ETH3D_POINTS, seed=5, width=1600,
                               height=1200, patch=ETH3D_PATCH)
     print(f"phase 21: synthetic ETH3D scene of {len(gt.images)} rendered "
           f"1600x1200 views, {len(gt.points3D)} points with {ETH3D_PATCH} "
           f"px textures, made in {time.perf_counter() - t0:.1f} s")
+    return gt
+
+
+def eth3d_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
+                schur_cuda, scene, gt, profile_out=None):
+    """Phase 21: the ETH3D evaluation flow on the rendered synthetic
+    ``scene`` (ground truth ``gt``). Returns the launches of (b)+(c) on
+    patches, K1's launches in (c) on the queries' dense maps and K1's
+    figures there, the launches of (d) and of (d) by channel count, and
+    the in-situ device ms per launch of K1 / K2 in (b) and of K1 per
+    channel count in (d)."""
+    import tempfile
+
+    from pixsfm_tpu_torch.eval.eth3d.localization import \
+        run_scene_localization
+    from pixsfm_tpu_torch.eval.eth3d.triangulation import run_scene
+    from pixsfm_tpu_torch.features.detectors import load_rgb
+    from pixsfm_tpu_torch.features.models import get_model
+    t21 = time.perf_counter()
+    tmp21 = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = Path(tmp21.name)
+    torch.cuda.empty_cache()
+    zero_counts, read_counts = kernel_counts(torch, interpolate_cuda,
+                                             cg_cuda, schur_cuda)
 
     # (a) the detectors at full width on one view, then cuda against cpu
     # on a 640x480 crop of it
@@ -2701,52 +2752,37 @@ def eth3d_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
     del full
     torch.cuda.empty_cache()
 
-    # (b) the triangulation harness, refined and the norefine control; the
-    # refined run under the profiler (device activity only: its overhead
-    # is the tracing of each launch)
-    arms = {}
-    for arm, conf in (("norefine", load_config("norefine")),
-                      ("refined", load_config("pixsfm_eth3d"))):
-        stats = {}
-        zero_counts()
+    # (b) the triangulation harness under the profiler (device activity
+    # only: its overhead is the tracing of each launch)
+    stats = {}
+    zero_counts()
 
-        def run(arm=arm, conf=conf, stats=stats):
-            return run_scene(scene, tmp / arm, conf=conf,
-                             tolerances=ETH3D_TOLERANCES,
-                             method="superpoint", device="cuda",
-                             stats=stats)
+    def run():
+        return run_scene(scene, tmp / "refined",
+                         conf=load_config("pixsfm_eth3d"),
+                         tolerances=ETH3D_TOLERANCES, method="superpoint",
+                         device="cuda", stats=stats)
 
-        t0 = time.perf_counter()
-        if arm == "refined":
-            metrics, _, busy_p, kern_p, tab_p = profile_stage(torch, run,
-                                                              cpu=False)
-        else:
-            metrics = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        arms[arm] = (metrics, stats, launches, wall)
-        stage = {k: round(v, 3) for k, v in stats.items()
-                 if k.endswith("_s")}
-        print(f"phase 21(b): run_scene superpoint, {arm}: {wall:.2f} s; "
-              f"accuracy {metrics['accuracy']}, completeness "
-              f"{metrics['completeness']} at {list(ETH3D_TOLERANCES)}; "
-              f"{metrics['num_points']} points, mean reprojection error "
-              f"{metrics['mean_reproj_error']:.4f} px; "
-              f"{stats['keypoints_per_image']:.0f} keypoints per image, "
-              f"{stats['num_pairs']} verified pairs; stages {stage}; "
-              f"launches {launches}")
-    metrics, stats, launches_tri, _ = arms["refined"]
-    raw = arms["norefine"][0]
-    delta = [round(f - r, 2) for r, f in zip(raw["accuracy"],
-                                             metrics["accuracy"])]
+    t0 = time.perf_counter()
+    metrics, _, busy_p, kern_p, tab_p = profile_stage(torch, run, cpu=False)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    launches_tri = read_counts()
+    stage = {k: round(v, 3) for k, v in stats.items() if k.endswith("_s")}
+    print(f"phase 21(b): run_scene superpoint: {t_p:.2f} s; accuracy "
+          f"{metrics['accuracy']}, completeness {metrics['completeness']} "
+          f"at {list(ETH3D_TOLERANCES)}; {metrics['num_points']} points, "
+          f"mean reprojection error {metrics['mean_reproj_error']:.4f} px; "
+          f"{stats['keypoints_per_image']:.0f} keypoints per image, "
+          f"{stats['num_pairs']} verified pairs; stages {stage}; launches "
+          f"{launches_tri}")
     oka = {k: v[0] for k, v in stats["KA"].items()}
     oba = {k: v[0] for k, v in stats["BA"].items()}
-    print(f"phase 21(b): accuracy_delta (refined - norefine) {delta}; KA "
-          f"{oka['iterations']} LM iterations on {oka['num_problems']} "
-          f"problems, cost {oka['initial_cost']:.4f} -> "
-          f"{oka['final_cost']:.4f}; BA {oba['iterations']} LM iterations, "
-          f"cost {oba['initial_cost']:.4f} -> {oba['final_cost']:.4f}")
+    print(f"phase 21(b): KA {oka['iterations']} LM iterations on "
+          f"{oka['num_problems']} problems, cost {oka['initial_cost']:.4f} "
+          f"-> {oka['final_cost']:.4f}; BA {oba['iterations']} LM "
+          f"iterations, cost {oba['initial_cost']:.4f} -> "
+          f"{oba['final_cost']:.4f}")
     if launches_tri["K1"] <= 0 or launches_tri["K2"] <= 0:
         raise SystemExit(f"K1 or K2 did not launch on the ETH3D path: "
                          f"{launches_tri}")
@@ -2758,11 +2794,10 @@ def eth3d_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
         raise SystemExit(f"ETH3D harness: {metrics['num_points']} points "
                          f"(at least {ETH3D_MIN_POINTS}), mean reprojection "
                          f"error {metrics['mean_reproj_error']} (< 3 px)")
-    # where its time goes: the refined run's profile
-    t_p = arms["refined"][3]
+    # where its time goes: the run's profile
     in_situ = _in_situ(kern_p, {"K1": "interp_kernel", "K2": "pcg_kernel"},
                        launches_tri)
-    print(f"phase 21(b) (the refined run's profile): {t_p:.3f} s wall, "
+    print(f"phase 21(b) (the run's profile): {t_p:.3f} s wall, "
           f"{busy_p:.3f} s device busy (idle share {1 - busy_p / t_p:.2f}); "
           f"in-situ device ms per launch {in_situ}")
     for name, calls, dev_ms in kern_p[:8]:
@@ -2883,7 +2918,7 @@ def eth3d_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
           f"K1 in-situ device ms per launch by channel count {in_situ_vgg}")
     if profile_out:
         with open(Path(profile_out) / "chip_smoke_profile.txt", "a") as fh:
-            fh.write(f"\n\n== ETH3D triangulation harness (refined) ==\n"
+            fh.write(f"\n\n== ETH3D triangulation harness ==\n"
                      f"{tab_p}\n\n== VGGNet KA ==\n{tab_v}\n")
     del sfm, images
     torch.cuda.empty_cache()
@@ -2892,6 +2927,179 @@ def eth3d_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
     print(f"phase 21: {time.perf_counter() - t21:.1f} s")
     return (launches, dense["launches"], k1_dense, launches_vgg, by_width,
             in_situ, in_situ_vgg)
+
+
+def loftr_agreement(np, a, b):
+    """cuda against cpu ``LoFTR.match_pair`` results, the valid matches
+    keyed by their coarse index pair (image 0's cell ``mk0 / 8``, image 1's
+    ``rint(mk1 / 8)``: the fine offset stays within +-4 px). On the common
+    matches the largest fine position difference and the largest
+    confidence difference relative to the largest confidence; ``differ``
+    counts the pairs found on one device only, ``allowed`` how many may."""
+    def keyed(out):
+        mk0, mk1, conf, valid = out
+        return {(tuple(m0.astype(np.int64) // 8),
+                 tuple(np.rint(m1 / 8).astype(np.int64))): (m1, c)
+                for m0, m1, c in zip(mk0[valid], mk1[valid], conf[valid])}
+
+    A, B = keyed(a), keyed(b)
+    common = set(A) & set(B)
+    top = max((c for _, c in B.values()), default=1.0)
+    return dict(
+        n_cuda=len(A), n_cpu=len(B), common=len(common),
+        differ=len(set(A) ^ set(B)),
+        allowed=max(1, int(LOFTR_PAIR_SHARE * len(set(A) | set(B)))),
+        pos=max((float(np.abs(A[k][0] - B[k][0]).max()) for k in common),
+                default=0.0),
+        conf_rel=max((abs(float(A[k][1] - B[k][1])) / top for k in common),
+                     default=0.0))
+
+
+def detector_free_path(np, PixSfM, load_config, scene, gt, names, device,
+                       stats):
+    """Phase 22(c)'s stages in ``run_scene``'s order on the views
+    ``names`` of ``scene``, LoFTR at threshold 0: the reconstruction, the
+    KA and BA summaries; ``stats`` receives the stage times and counts."""
+    from pixsfm_tpu_torch.features.detectors import match_loftr_dir
+    from pixsfm_tpu_torch.keypoint_adjustment import build_matching_graph
+    from pixsfm_tpu_torch.sfm.triangulation import \
+        triangulate_reconstruction
+    from pixsfm_tpu_torch.sfm.two_view import verify_all_pairs
+    image_dir = scene / "images"
+    ref = gt.copy()
+    for im in list(ref.images.values()):
+        if im.name not in names:
+            del ref.images[im.image_id]
+    t0 = time.perf_counter()
+    kps, matches, scores = match_loftr_dir(
+        image_dir, names, max_edge=1024,
+        matcher_conf={"match_threshold": 0.0}, device=device, stats=stats)
+    t1 = time.perf_counter()
+    matches, scores = verify_all_pairs(matches, kps, scores)
+    stats["verification_s"] = time.perf_counter() - t1
+    stats["num_pairs"] = len(matches)
+    sfm = PixSfM(load_config("pixsfm_eth3d"), device=device)
+    t1 = time.perf_counter()
+    graph = build_matching_graph(matches, scores)
+    keypoints, oka = sfm.run_ka(kps, image_dir, graph=graph)
+    stats["ka_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rec = triangulate_reconstruction(ref, graph, keypoints, device=device)
+    stats["triangulation_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    oba = sfm.run_ba(rec, image_dir)
+    stats["ba_s"] = time.perf_counter() - t1
+    stats["total_s"] = time.perf_counter() - t0
+    return rec, oka, oba
+
+
+def loftr_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
+                schur_cuda, scene, gt):
+    """Phase 22: the detector-free ETH3D path on phase 21's ``scene``.
+    Returns the launches of (c)."""
+    import tempfile
+
+    from pixsfm_tpu_torch.eval.eth3d.triangulation import run_scene
+    from pixsfm_tpu_torch.features.detectors import load_gray
+    from pixsfm_tpu_torch.features.models.loftr import LoFTR
+    t22 = time.perf_counter()
+    tmp22 = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = Path(tmp22.name)
+    zero_counts, read_counts = kernel_counts(torch, interpolate_cuda,
+                                             cg_cuda, schur_cuda)
+    names = sorted(im.name for im in gt.images.values())
+
+    # (a) one pair at full width, as match_loftr_dir decodes it (1600x1200
+    # x 0.64: 1024x768, a multiple of 64, so no padding), then cuda
+    # against cpu on a 256x320 crop of it
+    (im0, _), (im1, _) = (load_gray(scene / "images" / n, 1024)
+                          for n in names[:2])
+    model = LoFTR({"pretrained": None}, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n_02 = int(model.match_pair(im0, im1)[3].sum())
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ms = _time_ms(lambda: model.match_pair(im0, im1), reps=5, warmup=1)
+    model.conf["match_threshold"] = 0.0
+    out_0 = model.match_pair(im0, im1)
+    print(f"phase 22(a): LoFTR on one {im0.shape[1]}x{im0.shape[0]} pair: "
+          f"{ms:.2f} ms per pair (CUDA events, outputs copied to the host, "
+          f"TF32 off), peak device memory {peak:.2f} GB above the "
+          f"{base / 1e9:.2f} GB allocated before; valid matches "
+          f"{n_02} at threshold 0.2, {int(out_0[3].sum())} of "
+          f"{len(out_0[3])} at 0")
+    crop = (slice(256, 512), slice(352, 672))
+    c0, c1 = (np.ascontiguousarray(im[crop]) for im in (im0, im1))
+    cpu = LoFTR({"pretrained": None, "match_threshold": 0.0}, device="cpu")
+    tok_d = model.coarse_features(model._image(c0), model._image(c1))[0]
+    tok_c = cpu.coarse_features(cpu._image(c0), cpu._image(c1))[0]
+    tok_err = float((tok_d.cpu() - tok_c).abs().max() / tok_c.abs().max())
+    agree = loftr_agreement(np, model.match_pair(c0, c1),
+                            cpu.match_pair(c0, c1))
+    print(f"phase 22(a): cuda vs cpu on a 256x320 crop at threshold 0: "
+          f"coarse tokens {tok_err:.2e} of the largest (limit "
+          f"{LOFTR_TOKEN_RTOL}); matches {agree} (limits: at most "
+          f"'allowed' pairs differ, positions {LOFTR_POS_TOL} px, "
+          f"confidences {LOFTR_CONF_TOL} of the largest)")
+    if not (tok_err <= LOFTR_TOKEN_RTOL and agree["common"] > 0
+            and agree["differ"] <= agree["allowed"]
+            and agree["pos"] <= LOFTR_POS_TOL
+            and agree["conf_rel"] <= LOFTR_CONF_TOL):
+        raise SystemExit("LoFTR: cuda and cpu disagree")
+    del model, cpu, tok_d
+    torch.cuda.empty_cache()
+
+    # (b) the triangulation harness at its defaults on every view
+    stats_b = {}
+    t0 = time.perf_counter()
+    metrics = run_scene(scene, tmp / "loftr",
+                        conf=load_config("pixsfm_eth3d"),
+                        tolerances=ETH3D_TOLERANCES, method="loftr",
+                        device="cuda", stats=stats_b)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    stage = {k: round(v, 3) for k, v in stats_b.items() if k.endswith("_s")}
+    print(f"phase 22(b): run_scene loftr on {len(names)} views: "
+          f"{wall_b:.2f} s; {stats_b['matched_pairs']} matched pairs of "
+          f"{len(names) * (len(names) - 1) // 2}, {stats_b['num_pairs']} "
+          f"verified; {metrics['num_points']} points, accuracy "
+          f"{metrics['accuracy']}; stages {stage}")
+    if not (tmp / "loftr" / "results.json").exists():
+        raise SystemExit("run_scene loftr wrote no results.json")
+
+    # (c) the detector-free path at threshold 0 on LOFTR_VIEWS views
+    stats_c = {}
+    zero_counts()
+    rec, oka, oba = detector_free_path(np, PixSfM, load_config, scene, gt,
+                                       names[:LOFTR_VIEWS], "cuda", stats_c)
+    launches = read_counts()
+    oka = {k: v[0] for k, v in oka.items()}
+    oba = {k: v[0] for k, v in oba.items()}
+    stage = {k: round(v, 3) for k, v in stats_c.items() if k.endswith("_s")}
+    print(f"phase 22(c): the detector-free path at threshold 0 on "
+          f"{LOFTR_VIEWS} views: {stats_c['matched_pairs']} matched pairs, "
+          f"{stats_c['num_pairs']} verified, "
+          f"{stats_c['keypoints_per_image']:.0f} keypoints per image; KA "
+          f"{oka['iterations']} LM iterations on {oka['num_problems']} "
+          f"problems, cost {oka['initial_cost']:.4f} -> "
+          f"{oka['final_cost']:.4f}; {len(rec.points3D)} points (at least "
+          f"{LOFTR_MIN_POINTS}), mean reprojection error "
+          f"{rec.mean_reprojection_error():.4f} px; BA {oba['iterations']} "
+          f"LM iterations, cost {oba['initial_cost']:.4f} -> "
+          f"{oba['final_cost']:.4f}; stages {stage}; launches {launches}")
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        raise SystemExit(f"K1 or K2 did not launch on the detector-free "
+                         f"path: {launches}")
+    if not oka["final_cost"] < oka["initial_cost"]:
+        raise SystemExit("detector-free path: the KA cost did not fall")
+    if not len(rec.points3D) >= LOFTR_MIN_POINTS:
+        raise SystemExit(f"detector-free path: {len(rec.points3D)} points "
+                         f"(at least {LOFTR_MIN_POINTS})")
+    tmp22.cleanup()
+    torch.cuda.empty_cache()
+    print(f"phase 22: {time.perf_counter() - t22:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -3653,10 +3861,19 @@ def main() -> int:
         profile_out=args.profile_out)
 
     # -- phase 21: the ETH3D evaluation flow --------------------------------
+    tmp_e3 = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    scene_e3 = Path(tmp_e3.name) / "scene"
+    gt_e3 = make_eth3d_scene(Path(tmp_e3.name))
     (launches_e3, launches_e3_dense, k1_e3_dense, launches_vgg, vgg_by_width,
      in_situ_e3, in_situ_vgg) = eth3d_phase(
         torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
-        schur_cuda, profile_out=args.profile_out)
+        schur_cuda, scene_e3, gt_e3, profile_out=args.profile_out)
+
+    # -- phase 22: the detector-free ETH3D path (LoFTR) ----------------------
+    launches_lf = loftr_phase(torch, np, PixSfM, load_config,
+                              interpolate_cuda, cg_cuda, schur_cuda,
+                              scene_e3, gt_e3)
+    tmp_e3.cleanup()
 
     # -- report ----------------------------------------------------------------
     # K1 runs on both paths at different shapes: one entry per path, each
@@ -3666,7 +3883,7 @@ def main() -> int:
              "localization": launches_loc, "low_memory": launches_lm,
              "photometric": launches_ph, "eth3d": launches_e3,
              "eth3d_dense_query": {"K1": launches_e3_dense},
-             "vggnet": launches_vgg}
+             "vggnet": launches_vgg, "eth3d_loftr": launches_lf}
     both = {k: sum(n.get(k, 0) for n in paths.values())
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
     print(f"launches on the main paths: {paths}")
@@ -3726,6 +3943,12 @@ def main() -> int:
              source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
              replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
              launches=launches_e3_dense, library_ms=None, **k1_e3_dense),
+        dict(name="bicubic_window_interp_l2", path="eth3d_loftr",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_lf["K1"], library_ms=None,
+             timed_at="the KA shape of phase 2 (C = 128)", **k1),
         *(dict(name="bicubic_window_interp_l2", path="vggnet", channels=C,
                route="cuda",
                source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",

@@ -42,15 +42,19 @@ def detect_and_match(image_dir: Path, names: List[str], max_edge=1600,
     """Front end of one scene: detection + exhaustive matching + geometric
     verification. ``method`` is one of ``config.METHODS`` /
     ``EXTRA_METHODS``; the learned ones run on ``device`` (``cuda`` unless
-    ``"cpu"``). ``stats``, when given, receives the three stages' wall
-    times (``detection_s``, ``matching_s``, ``verification_s``).
-    Returns ``(kps, (matches, scores))``."""
+    ``"cpu"``). ``loftr`` is detector-free: matches come first and are
+    aggregated into keypoints (reference eval config.py:90-92, :120-131:
+    resize_max 1024, cell_size 1). ``stats``, when given, receives the
+    stages' wall times (``detection_s`` and ``matching_s``, or LoFTR's
+    ``matching_s``; ``verification_s``). Returns ``(kps, (matches,
+    scores))``."""
     from ...features.detectors import detect_and_match_dir, match_loftr_dir
 
     stats = {} if stats is None else stats
     if method == "loftr":
         kps, matches, scores = match_loftr_dir(image_dir, names,
-                                               max_edge=1024)
+                                               max_edge=1024, device=device,
+                                               stats=stats)
     else:
         kps, matches, scores = detect_and_match_dir(
             image_dir, names, method=method, max_edge=max_edge,

@@ -10,11 +10,15 @@ first-class:
   (``features/models/``) with static-K detection on the device, and
   matching as one float32 matrix product per pair on the device (mutual
   nearest neighbour + ratio or similarity test, masked for padded slots).
+- ``loftr`` (:func:`match_loftr_dir`): detector-free; LoFTR matches each
+  pair on the device, and the matches are aggregated into keypoints.
 
-Images are decoded with PIL and shrunk to ``max_edge`` by
-:func:`resize_area`, which reproduces OpenCV's ``INTER_AREA`` (the JAX
-package reads with ``cv2.imread`` and ``cv2.resize``). All detectors return
-COLMAP-convention keypoints (pixel centres at +0.5).
+Images are decoded with PIL, upright by their EXIF orientation as
+``cv2.imread`` makes them, and shrunk to ``max_edge`` by :func:`resize_area`
+(RGB, OpenCV's ``INTER_AREA``) or :func:`resize_linear` (grayscale for
+LoFTR, OpenCV's ``INTER_LINEAR``), each reproducing OpenCV bit for bit
+(the JAX package reads with ``cv2.imread`` and ``cv2.resize``). All
+detectors return COLMAP-convention keypoints (pixel centres at +0.5).
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from .. import logger, resolve_device
 
 __all__ = ["detect_directory", "match_exhaustive", "detect_and_match_dir",
            "mutual_nn_ratio_match", "match_loftr_dir",
-           "aggregate_semidense_matches", "resize_area", "load_rgb"]
+           "aggregate_semidense_matches", "resize_area", "resize_linear",
+           "load_rgb", "load_gray"]
 
 
 def _area_taps(ssize: int, dsize: int, scale: float):
@@ -110,16 +115,101 @@ def resize_area(img: np.ndarray, fx: float, fy: float) -> np.ndarray:
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
-def load_rgb(path, max_edge: int):
-    """Decode an image with PIL as RGB and shrink it to ``max_edge`` with
-    :func:`resize_area`: (``[H, W, 3]`` float32 in [0, 1], scale)."""
-    import PIL.Image
+_COEF_BITS = 11
 
-    img = np.asarray(PIL.Image.open(path).convert("RGB"))
+
+def _linear_taps(ssize: int, dsize: int, scale: float, clamp: bool):
+    """OpenCV's ``INTER_LINEAR`` taps for one axis: (first source index
+    ``[d]``, the two 11-bit fixed-point weights ``[d]`` each) at positions
+    ``(d + 0.5) scale - 0.5`` in float32. ``clamp`` (the columns): a tap
+    past either end takes the end pixel with weights (1, 0); the rows keep
+    their weights and only their indices are clipped (by the caller)."""
+    f = ((np.arange(dsize) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if clamp:
+        f[(s < 0) | (s >= ssize - 1)] = 0.0
+        s = np.clip(s, 0, ssize - 1)
+    one = np.float32(1 << _COEF_BITS)
+    return (s, np.rint((np.float32(1.0) - f) * one).astype(np.int64),
+            np.rint(f * one).astype(np.int64))
+
+
+def resize_linear(img: np.ndarray, fx: float, fy: float) -> np.ndarray:
+    """Shrink a uint8 ``[H, W]`` or ``[H, W, c]`` image as
+    ``cv2.resize(img, None, fx=fx, fy=fy)`` (``INTER_LINEAR``) does on
+    x86: 11-bit fixed-point weights, exact integer rows, and OpenCV's
+    vector column pass, which drops 4 bits of each row sum before a
+    16-bit high multiply. A factor of exactly 1/2 is OpenCV's
+    ``INTER_AREA`` (:func:`resize_area`), as ``cv2.resize`` switches."""
+    H, W = img.shape[:2]
+    dw, dh = int(round(W * fx)), int(round(H * fy))
+    if (dh, dw) == (H, W):
+        return img.copy()
+    sx, sy = 1.0 / fx, 1.0 / fy
+    if sx == sy == 2.0:
+        return resize_area(img, fx, fy)
+    xs, a0, a1 = _linear_taps(W, dw, sx, clamp=True)
+    ys, b0, b1 = _linear_taps(H, dh, sy, clamp=False)
+    src = img.astype(np.int64)
+    cshape = (1, -1) + (1,) * (img.ndim - 2)
+    rows = src[:, xs] * a0.reshape(cshape) \
+        + src[:, np.minimum(xs + 1, W - 1)] * a1.reshape(cshape)
+    rshape = (-1,) + (1,) * (img.ndim - 1)
+    top = ((rows[np.clip(ys, 0, H - 1)] >> 4) * b0.reshape(rshape)) >> 16
+    bot = ((rows[np.clip(ys + 1, 0, H - 1)] >> 4)
+           * b1.reshape(rshape)) >> 16
+    return np.clip((top + bot + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def load_rgb(path, max_edge: int):
+    """Decode an image with PIL as RGB (upright by its EXIF orientation)
+    and shrink it to ``max_edge`` with :func:`resize_area`: (``[H, W, 3]``
+    float32 in [0, 1], scale)."""
+    import PIL.Image
+    import PIL.ImageOps
+
+    img = PIL.ImageOps.exif_transpose(PIL.Image.open(path))
+    img = np.asarray(img.convert("RGB"))
     scale = 1.0
     if max(img.shape[:2]) > max_edge:
         scale = max_edge / max(img.shape[:2])
         img = resize_area(img, scale, scale)
+    return img.astype(np.float32) / 255.0, scale
+
+
+def _gray_u8(path) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` without OpenCV, upright
+    by the EXIF tag: a JPEG decodes to its luma plane (libjpeg's grayscale
+    output); a colour PNG takes libpng's ``rgb_to_gray`` with OpenCV's
+    coefficients (0.299, 0.587 in 15-bit fixed point, truncated; grey
+    pixels kept); other images take PIL's ``L`` conversion."""
+    import PIL.Image
+    import PIL.ImageOps
+
+    img = PIL.Image.open(path)
+    fmt = img.format
+    if fmt == "JPEG" and img.mode in ("L", "RGB", "YCbCr"):
+        img.draft("L", img.size)
+    img = PIL.ImageOps.exif_transpose(img)
+    if fmt == "PNG" and img.mode in ("RGB", "RGBA", "P", "PA"):
+        rgb = np.asarray(img.convert("RGB")).astype(np.int64)
+        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        gray = (9797 * r + 19234 * g + 3737 * b) >> 15
+        return np.where((r == g) & (g == b), r, gray).astype(np.uint8)
+    return np.asarray(img.convert("L"))
+
+
+def load_gray(path, max_edge: int):
+    """Decode an image as 8-bit grayscale (:func:`_gray_u8`) and shrink it
+    to ``max_edge`` with :func:`resize_linear`, as the JAX package's LoFTR
+    front end does with ``cv2.imread`` and ``cv2.resize``: (``[H, W]``
+    float32 in [0, 1], scale)."""
+    img = _gray_u8(path)
+    scale = 1.0
+    if max(img.shape) > max_edge:
+        scale = max_edge / max(img.shape)
+        img = resize_linear(img, scale, scale)
     return img.astype(np.float32) / 255.0, scale
 
 
@@ -394,10 +484,64 @@ def aggregate_semidense_matches(pair_matches: Dict, cell_size: float = 1.0):
 
 def match_loftr_dir(image_dir: Path, names: List[str],
                     max_edge: int = 1024, matcher_conf: Optional[dict] = None,
-                    cell_size: float = 1.0, min_matches: int = 15):
-    """Detector-free front end (exhaustive LoFTR pair matching +
-    :func:`aggregate_semidense_matches`): not ported yet."""
-    raise NotImplementedError(
-        "match_loftr_dir: the LoFTR matcher is not ported to "
-        "pixsfm_tpu_torch yet (ROADMAP.md section 1, item 'Detectors and "
-        "matchers')")
+                    cell_size: float = 1.0, min_matches: int = 15,
+                    device=None, stats: Optional[Dict] = None):
+    """Detector-free front end: exhaustive LoFTR pair matching on
+    ``device`` (``cuda`` unless ``"cpu"``) + semi-dense aggregation. Same
+    return contract as :func:`detect_and_match_dir` (kps, matches, scores)
+    with full-resolution +0.5 keypoints, so the graph / KA / SfM stages
+    downstream do not depend on the method.
+
+    Images decode as ``cv2.imread(..., IMREAD_GRAYSCALE)`` and shrink as
+    ``cv2.resize`` do (:func:`load_gray`), and are padded to one shared /64
+    size; matches that land in the padding are rejected. ``stats``, when
+    given, receives ``matching_s``, ``keypoints_per_image`` and
+    ``matched_pairs`` (pairs with at least ``min_matches`` matches)."""
+    from .models.loftr import LoFTR
+
+    stats = {} if stats is None else stats
+    t0 = time.time()
+    image_dir = Path(image_dir)
+    matcher = LoFTR(matcher_conf or {}, device=resolve_device(device))
+    loaded = {}
+    for name in names:
+        try:
+            loaded[name] = load_gray(image_dir / name, max_edge)
+        except OSError as e:     # missing, or PIL cannot identify it
+            raise FileNotFoundError(
+                f"cannot read image {image_dir / name} (missing or not a "
+                "decodable image)") from e
+    H = max(im.shape[0] for im, _ in loaded.values())
+    W = max(im.shape[1] for im, _ in loaded.values())
+    H, W = -(-H // 64) * 64, -(-W // 64) * 64
+    padded = {n: _pad_to(im[..., None], H, W)[..., 0]
+              for n, (im, _) in loaded.items()}
+
+    pair_matches = {}
+    for i in range(len(names)):
+        for j in range(i + 1, len(names)):
+            n0, n1 = names[i], names[j]
+            (im0, s0), (im1, s1) = loaded[n0], loaded[n1]
+            mk0, mk1, conf, valid = matcher.match_pair(padded[n0],
+                                                       padded[n1])
+            keep = valid \
+                & (mk0[:, 0] < im0.shape[1] - 0.5) \
+                & (mk0[:, 1] < im0.shape[0] - 0.5) \
+                & (mk1[:, 0] < im1.shape[1] - 0.5) \
+                & (mk1[:, 1] < im1.shape[0] - 0.5)
+            if keep.sum() < min_matches:
+                continue
+            pair_matches[(n0, n1)] = ((mk0[keep] + 0.5) / s0,
+                                      (mk1[keep] + 0.5) / s1,
+                                      conf[keep])
+    kps, matches, scores = aggregate_semidense_matches(pair_matches,
+                                                       cell_size=cell_size)
+    for n in names:
+        kps.setdefault(n, np.zeros((0, 2), np.float64))
+    stats["matching_s"] = time.time() - t0
+    stats["keypoints_per_image"] = float(np.mean([len(kps[n])
+                                                  for n in names]))
+    stats["matched_pairs"] = len(matches)
+    logger.info("loftr: %d images, %.0f keypoints/image, %d matched pairs",
+                len(names), stats["keypoints_per_image"], len(matches))
+    return kps, matches, scores

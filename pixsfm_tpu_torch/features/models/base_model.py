@@ -31,16 +31,25 @@ def vec(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def read_checkpoint(path, wrappers=("state_dict", "net", "model")):
+def read_checkpoint(path, wrappers=("state_dict", "net", "model"),
+                    prefixes=("module.",)):
     """The state dict of a public checkpoint file: unwrapped from each of
     ``wrappers`` in turn that holds a dict (as the JAX package's loaders
-    do), ``module.`` prefixes stripped, non-tensor entries dropped."""
+    do), the first of ``prefixes`` that a key starts with stripped,
+    non-tensor entries dropped."""
     sd = torch.load(path, map_location="cpu", weights_only=False)
     for key in wrappers:
         if isinstance(sd.get(key), dict):
             sd = sd[key]
-    return {(k[7:] if k.startswith("module.") else k): v
-            for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+    def strip(k):
+        for p in prefixes:
+            if k.startswith(p):
+                return k[len(p):]
+        return k
+
+    return {strip(k): v for k, v in sd.items()
+            if isinstance(v, torch.Tensor)}
 
 
 def to_nhwc_batch(image, device) -> torch.Tensor:

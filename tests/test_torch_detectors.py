@@ -230,13 +230,18 @@ def test_aggregate_semidense_matches_matches_jax():
         np.testing.assert_array_equal(st[p], sj[p])
 
 
-def test_loftr_front_end_names_its_roadmap_item():
+def test_loftr_front_end_names_its_roadmap_item(tmp_path):
+    """The detector-free front end is ported: a missing image raises
+    ``FileNotFoundError`` naming it, through ``match_loftr_dir`` and
+    through the harness's ``detect_and_match``, as in the JAX package."""
     from pixsfm_tpu_torch.eval.eth3d.triangulation import detect_and_match
     from pixsfm_tpu_torch.features.detectors import match_loftr_dir
-    with pytest.raises(NotImplementedError, match="Detectors and matchers"):
-        match_loftr_dir(".", ["a.png"])
-    with pytest.raises(NotImplementedError, match="LoFTR"):
-        detect_and_match(".", ["a.png"], method="loftr", device="cpu")
+    conf = {"pretrained": None}
+    with pytest.raises(FileNotFoundError, match="a.png"):
+        match_loftr_dir(tmp_path, ["a.png"], matcher_conf=conf,
+                        device="cpu")
+    with pytest.raises(FileNotFoundError, match="a.png"):
+        detect_and_match(tmp_path, ["a.png"], method="loftr", device="cpu")
 
 
 def test_eth3d_utils_match_jax(tmp_path):
@@ -326,6 +331,40 @@ def test_load_rgb_matches_opencv_loader(tmp_path):
         b, sb = _load_rgb(tmp_path / "a.png", max_edge)
         assert sa == sb
         np.testing.assert_array_equal(a, b)
+
+
+def _exif_jpeg(path):
+    """A 160x120 JPEG whose EXIF orientation tag (6) turns it upright as
+    120x160 rotated."""
+    import PIL.Image
+    img = np.random.default_rng(9).integers(0, 256, (120, 160, 3)).astype(
+        np.uint8)
+    exif = PIL.Image.Exif()
+    exif[0x0112] = 6
+    PIL.Image.fromarray(img).save(path, exif=exif.tobytes())
+
+
+def test_load_rgb_applies_exif_orientation(tmp_path):
+    pytest.importorskip("cv2")
+    from pixsfm_tpu.features.detectors import _load_rgb
+    from pixsfm_tpu_torch.features.detectors import load_rgb
+    _exif_jpeg(tmp_path / "o.jpg")
+    a, sa = load_rgb(tmp_path / "o.jpg", 1600)
+    b, sb = _load_rgb(tmp_path / "o.jpg", 1600)
+    assert a.shape == b.shape == (160, 120, 3) and sa == sb
+    np.testing.assert_array_equal(a, b)
+
+
+def test_load_gray_applies_exif_orientation(tmp_path):
+    """The LoFTR front end's loader against the JAX package's decode
+    (``cv2.imread`` grayscale) on the same file."""
+    cv2 = pytest.importorskip("cv2")
+    from pixsfm_tpu_torch.features.detectors import load_gray
+    _exif_jpeg(tmp_path / "o.jpg")
+    ref = cv2.imread(str(tmp_path / "o.jpg"), cv2.IMREAD_GRAYSCALE)
+    out, scale = load_gray(tmp_path / "o.jpg", 1024)
+    assert out.shape == ref.shape == (160, 120) and scale == 1.0
+    np.testing.assert_array_equal(np.rint(out * 255).astype(np.uint8), ref)
 
 
 def test_sift_branch_matches_jax(tmp_path):

@@ -50,7 +50,9 @@ def test_every_module_imports_without_jax():
                  "features.models.d2net", "features.models.vggnet",
                  "eval.eth3d.config", "eval.eth3d.utils",
                  "eval.eth3d.synthetic", "eval.eth3d.triangulation",
-                 "eval.eth3d.localization"):
+                 "eval.eth3d.localization", "features.models.loftr",
+                 "configs", "eval.eth3d.plot_triangulation",
+                 "eval.eth3d.plot_localization"):
         assert f"pixsfm_tpu_torch.{name}" in _module_names()
 
 
@@ -209,6 +211,28 @@ def test_detectors_and_eth3d_entry_points_raise_without_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tri_main(["--dataset_dir", str(tmp_path), "--output_dir",
                   str(tmp_path / "o"), "--scenes", "s"])
+
+
+def test_loftr_entry_points_raise_without_gpu(tmp_path):
+    """LoFTR, ``match_loftr_dir`` and both harnesses with ``--method
+    loftr`` run on ``cuda`` unless given ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the refusal path is not reachable")
+    from pixsfm_tpu_torch.eval.eth3d.localization import \
+        run_scene_localization
+    from pixsfm_tpu_torch.eval.eth3d.synthetic import make_synthetic_scene
+    from pixsfm_tpu_torch.eval.eth3d.triangulation import run_scene
+    from pixsfm_tpu_torch.features.detectors import match_loftr_dir
+    from pixsfm_tpu_torch.features.models.loftr import LoFTR
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LoFTR({"pretrained": None})
+    make_synthetic_scene(tmp_path / "s", n_images=2, n_points=10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        match_loftr_dir(tmp_path / "s" / "images",
+                        ["image1.jpg", "image2.jpg"])
+    for run in (run_scene, run_scene_localization):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(tmp_path / "s", tmp_path / "o", method="loftr")
 
 
 @pytest.mark.parametrize("name,dims,scales", [

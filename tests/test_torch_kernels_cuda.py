@@ -958,3 +958,43 @@ def test_detector_cuda_matches_cpu(dev, method):
         else:
             far += 1
     assert far <= max(1, 0.01 * len(a)), (far, len(a))
+
+
+@pytest.mark.parametrize("pair", ["identical", "shifted"])
+def test_loftr_cuda_matches_cpu(dev, pair):
+    """LoFTR on the card against the CPU (float32, TF32 off on both) on a
+    smooth seeded 96x128 pair at threshold 0, as ``chip_smoke.py`` phase
+    22(a) holds it: coarse tokens within 1e-4 of the largest; the valid
+    coarse index pairs equal but for at most 1 % of them (at least one:
+    near-ties of the mutual maximum); on the common matches fine positions
+    within 1e-3 px and confidences within 1e-4 of the largest."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pixsfm_tpu_torch.features.models.loftr import LoFTR
+
+    g = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (14, 18)))
+    big = F.interpolate(g[None, None], size=(112, 144), mode="bicubic",
+                        align_corners=False)[0, 0].clamp(0, 1).float()
+    img0 = big[:96, :128].contiguous()
+    img1 = img0 if pair == "identical" else big[16:, 16:].contiguous()
+    conf = {"pretrained": None, "max_matches": 1024, "match_threshold": 0.0}
+    models = [LoFTR(conf, device=d) for d in ("cuda", "cpu")]
+    toks = [m.coarse_features(m._image(img0), m._image(img1))[0].cpu()
+            for m in models]
+    top = float(toks[1].abs().max())
+    assert float((toks[0] - toks[1]).abs().max()) <= 1e-4 * top
+
+    def keyed(out):
+        mk0, mk1, c, v = out
+        return {(tuple(a.astype(int) // 8), tuple(np.rint(b / 8).astype(
+            int))): (b, s) for a, b, s in zip(mk0[v], mk1[v], c[v])}
+
+    a, b = (keyed(m.match_pair(img0, img1)) for m in models)
+    common = set(a) & set(b)
+    assert len(common) > 0
+    assert len(set(a) ^ set(b)) <= max(1, 0.01 * len(set(a) | set(b)))
+    top = max(s for _, s in b.values())
+    for k in common:
+        assert float(np.abs(a[k][0] - b[k][0]).max()) <= 1e-3
+        assert abs(a[k][1] - b[k][1]) <= 1e-4 * top
