@@ -169,7 +169,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (a) K1 at the preset's shape: one query per observation of (c) over
    one bf16 8x8x128 patch each (the references' launch), as phase 2
    checks it. (d) The body of ``PixSfM("low_memory").triangulation`` on
-   phase 11's scene: stage times, the keypoint error to the true
+   phase 11's scene, its BA capped at ``LOWMEM_TRI_BA_ITERATIONS`` LM
+   iterations (100 as shipped): stage times, the keypoint error to the true
    projections and the point error to the truth, K1 launches (counters
    zeroed just before, read just after).
 20. The ``photometric`` preset (dense ``image``-model maps, bf16, 3
@@ -181,7 +182,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (``PHOTO_CPU_BA_ITERATIONS`` LM iterations) with joint source poses
    (``refine_extrinsics`` on: the dense step with ``src_idx``) and with
    constant ones, within phase 8's limits. (c) The body of
-   ``PixSfM("photometric").triangulation`` as shipped on phase 11's scene:
+   ``PixSfM("photometric").triangulation`` on phase 11's scene, its BA
+   capped at ``PHOTO_TRI_BA_ITERATIONS`` LM iterations (30 as shipped):
    stage times, LM iterations, costs, the point error to the truth before
    and after BA beside the default config's, K1 launches (counters zeroed
    just before, read just after); the cost must fall and the points stay
@@ -242,6 +244,39 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``triangulate_reconstruction`` -> ``run_ba``, counters zeroed just
    before and read just after: K1 and K2 launched, the KA cost fell, at
    least ``LOFTR_MIN_POINTS`` points; the stage times.
+23. Every interpolation config and solver option of the refinement.
+   (a) The body of ``PixSfM.triangulation`` on phase 11's scene with the
+   default config and 2x2 node windows at +-0.5 px (``OPT_NODES4``, L2
+   on; BA capped at ``BA_ITERATIONS``): KA and feature-reference BA read
+   K1's node rows at 128 channels (512 floats per keypoint and
+   observation). Counters zeroed just before and read just after: K1 and
+   K2 launched, the KA and BA costs fell, the points finite; the first
+   node-rows launch is watched (its inputs kept) and K1 is held to its
+   plain version on them (as stored and in float32, L2 on and off,
+   ``check_k1``'s tolerances) and timed there. (b) The ``photometric``
+   preset with ``mapping.KA.apply: true`` on phase 11's scene: KA with 16
+   nodes, NCC on, L2 off on the dense RGB maps, then patch-warp BA capped
+   at ``OPT_PHOTO_BA_ITERATIONS``: K1 and K2 launched, both costs fell.
+   (c) Phase 18's model and queries with ``target_reference: full``
+   (``compute_offsets3D``, 2x2 nodes, QKA off, patch-warp QBA of
+   ``OPT_QBA_STEPS`` steps) through ``localize_queries``: all but one
+   query localized; each within phase 18's bounds (0.5 deg, 1e-2 of the
+   extent) where its PnP pose kept the f64 polish (QKA, which phase 18
+   runs first, cannot run on "full" references, so a tied raw RANSAC
+   pose, ROADMAP.md section 3, stays as far off as PnP left it: patch-warp
+   QBA's basin is the node window); no QBA raised its cost or added 0.05
+   deg to a query's error; one query on cuda and on cpu (QBA capped at
+   ``OPT_CPU_QBA_STEPS``): the final poses within phase 14's polished
+   limit, patch-warp QBA from identical inputs within 1e-4. (d) cuda
+   against cpu on phase 4's scene through ``run_ka``, one run per option
+   (BILINEAR, NEARESTNEIGHBOR, BICUBICCHAIN, ``cg_block_size: 2`` on the
+   CG path, ``compaction_segment: 5``): keypoints within phase 4's 0.05
+   px; feature-reference BA with 2x2 NCC nodes (the forward-mode Jacobian)
+   on phase 12's scene with the ``image`` maps, poses free, through
+   ``refine_reconstruction``: the points within phase 8's 1e-3, the cost
+   within ``OPT_NCC_COST_RTOL``. Then ``run_ka`` on phase
+   5's scene at full width with the default solve, with compaction and
+   with block-Jacobi CG, timed in one call.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA, BA, triangulation), its error against the plain version, its
@@ -267,7 +302,9 @@ at 19(a); ``"photometric"``: the launches of 20(c) and 20(d), K1 timed at
 at the KA shape; ``"eth3d_dense_query"``: 21(c)'s launches on the queries'
 dense maps, with the figures on the first such launch's inputs;
 ``"eth3d_loftr"``: the launches of 22(c), with phase 2's figures at the
-KA shape; ``"vggnet"``: one entry per width, ``channels`` 64 / 256 / 512, with
+KA shape; ``"interp_options"``: the launches of 23(a), 23(b) and 23(c),
+split in ``launches_by_run``, with the figures on 23(a)'s first node-rows
+launch; ``"vggnet"``: one entry per width, ``channels`` 64 / 256 / 512, with
 21(d)'s launches at that width and phase 2's figures at it); K2's and
 K3a/b/c's entries sum their launches over the paths and list them in ``launches_by_path`` (K3's ``in_situ_low_memory_ms``
 from 19(c)); and last ``{"ok": true, "device": {...}}``.
@@ -1728,7 +1765,8 @@ def _pnp_hook(np, modules):
 
 def localization_phase(torch, np, interpolate_cuda, profile_out=None):
     """Phase 18 (see the module docstring). Returns the K1 entry's
-    launches, its figures at the QKA shape and its in-situ time."""
+    launches, its figures at the QKA shape, its in-situ time, and the
+    scene (``localization_scene``'s tuple, which phase 23 reuses)."""
     from pixsfm_tpu_torch.config import load_config
     from pixsfm_tpu_torch.features.featuremaps import FeatureMap
     from pixsfm_tpu_torch.localization import QueryLocalizer
@@ -1957,13 +1995,14 @@ def localization_phase(torch, np, interpolate_cuda, profile_out=None):
     in_situ = _in_situ(prof["QKA"][3], {"K1": "interp_kernel"}, launches)
     print(f"phase 18: in-situ device ms per launch {in_situ}")
     n_kp = len(fm[0])
-    del views, ref_views, loc, locs, fm
+    del loc, locs, fm
     torch.cuda.empty_cache()
     # K1 at this path's QKA shape: one query's correspondences over its
     # bf16 patches
     k1 = check_k1(torch, interpolate_cuda, n_patches=n_kp,
                   n_queries=len(p2D), dtypes=(torch.bfloat16,))
-    return launches, k1, in_situ
+    return launches, k1, in_situ, (views, ref_views, rec, queries, keypoints,
+                                   pairs, matches, gt, extent)
 
 
 # ---------------------------------------------------------------------------
@@ -1981,6 +2020,10 @@ LOWMEM_WITNESS_CHUNK = 1024
 # host), and of its profiled run (tabulating the profile of one LM
 # iteration, ~200 000 launches, takes ~30 s)
 LOWMEM_BA_ITERATIONS = 8
+# 19(d)'s points-only costmap BA on phase 11's scene (100 LM iterations as
+# shipped, 18.58 s on an NVIDIA H100 80GB HBM3 at 700 W; cut to make room
+# for phase 23)
+LOWMEM_TRI_BA_ITERATIONS = 30
 LOWMEM_PROFILE_ITERATIONS = 1
 
 
@@ -2283,7 +2326,10 @@ def low_memory_phase(torch, np, PixSfM, load_config, interpolate_cuda,
             np.linalg.norm(kps[n] - proj_t[n], axis=1) for n in names_t])))
 
     kp_err0 = kp_error(kps_t)
-    sfm_pre = PixSfM(load_config("low_memory"), device="cuda")
+    sfm_pre = PixSfM(load_config("low_memory", extra={"mapping": {"BA": {
+        "optimizer": {"solver": {
+            "max_num_iterations": LOWMEM_TRI_BA_ITERATIONS}}}}}),
+        device="cuda")
     kps_d = {k: v.copy() for k, v in kps_t.items()}
     torch.cuda.synchronize()
     interpolate_cuda.launches = 0
@@ -2347,6 +2393,10 @@ def low_memory_phase(torch, np, PixSfM, load_config, interpolate_cuda,
 PHOTO_CPU_BA_ITERATIONS = 5
 # (d): LM iterations of run_ba with poses free (~1.1 s of host each)
 PHOTO_BA_ITERATIONS = 10
+# 20(c)'s patch-warp BA on phase 11's scene (30 LM iterations as shipped,
+# 18.43 s for the 28 it ran on an NVIDIA H100 80GB HBM3 at 700 W; cut to
+# make room for phase 23)
+PHOTO_TRI_BA_ITERATIONS = 15
 
 
 def photometric_cuda_vs_cpu(torch, np, PixSfM, load_config, tmp):
@@ -2488,8 +2538,11 @@ def photometric_phase(torch, np, PixSfM, load_config, interpolate_cuda,
                 "K3b": schur_cuda.launches["rhs"],
                 "K3c": schur_cuda.launches["backsub"]}
 
-    # (c) the preset as shipped on phase 11's scene
-    sfm = PixSfM(load_config("photometric"), device="cuda")
+    # (c) the preset on phase 11's scene, its BA capped
+    sfm = PixSfM(load_config("photometric", extra={"mapping": {"BA": {
+        "optimizer": {"solver": {
+            "max_num_iterations": PHOTO_TRI_BA_ITERATIONS}}}}}),
+        device="cuda")
     zero_counts()
     t0 = time.perf_counter()
     rec_p, out_p = sfm._triangulation(
@@ -3100,6 +3153,426 @@ def loftr_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
     torch.cuda.empty_cache()
     print(f"phase 22: {time.perf_counter() - t22:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 23: every interpolation config and solver option
+# ---------------------------------------------------------------------------
+
+# 2x2 node windows at +-0.5 px: (a)'s KA and BA, (c)'s references and QBA
+OPT_NODES4 = [[-0.5, -0.5], [0.5, -0.5], [-0.5, 0.5], [0.5, 0.5]]
+# (b): the photometric preset with KA on; its patch-warp BA capped
+OPT_PHOTO_BA_ITERATIONS = 8
+# (c): patch-warp QBA steps per query on the card, and on both devices for
+# the query held cuda against cpu (fewer there: the card machine's CPU is
+# slower per step)
+OPT_QBA_STEPS = 20
+OPT_CPU_QBA_STEPS = 10
+# (d): LM iterations of the small-scene BA held cuda against cpu, and the
+# limit on its final cost: NCC divides float32 rounding by each node
+# window's spread, and 2x2 windows at +-0.5 px on smooth rendered maps
+# spread little, so the NCC cases' limit of ROADMAP.md section 3 (5e-4)
+# holds it (1.25e-5 and 2.0e-4 apart in two runs on an NVIDIA H100 80GB
+# HBM3 at 700 W, the points 8.1e-5 and 4.3e-5), where phase 8 holds a
+# geometric cost at 1e-4
+OPT_BA_ITERATIONS = 5
+OPT_NCC_COST_RTOL = 5e-4
+
+
+def node_rows_watch(interpolate_cuda):
+    """Swap ``interpolate_cuda.interpolate_node_rows`` for a watcher that
+    keeps the first call's K1 inputs (the node queries expanded as the
+    wrapper launches them). Returns (first, restore)."""
+    from pixsfm_tpu_torch.base.interpolation import node_queries
+    orig = interpolate_cuda.interpolate_node_rows
+    first = {}
+
+    def watch(rows, H, W, C, row_base, r, c, nodes, l2):
+        if not first:
+            first["args"] = (rows, H, W, C, *node_queries(row_base, r, c,
+                                                          nodes))
+            first["l2"] = bool(l2)
+        return orig(rows, H, W, C, row_base, r, c, nodes, l2)
+
+    interpolate_cuda.interpolate_node_rows = watch
+
+    def restore():
+        interpolate_cuda.interpolate_node_rows = orig
+    return first, restore
+
+
+def _levels0(out):
+    return {k: v[0] for k, v in out.items()}
+
+
+def options_ka_cuda_vs_cpu(np, PixSfM):
+    """23(d), KA: phase 4's small scene through ``run_ka`` on cuda and cpu
+    with each KA option; the keypoints within phase 4's limit."""
+    images, kps, _, matches, scores = make_scene(
+        np, seed=3, n_views=3, n_points=40, W=320, H=240, margin=60)
+    cases = {
+        "BILINEAR": {"interpolation": {"mode": "BILINEAR"}},
+        "NEARESTNEIGHBOR": {"interpolation": {"mode": "NEARESTNEIGHBOR"}},
+        "BICUBICCHAIN": {"interpolation": {"mode": "BICUBICCHAIN"}},
+        "cg_block_size 2": {"mapping": {"KA": {"optimizer": {"solver": {
+            "cg_block_size": 2, "linear_solver": "cg"}}}}},
+        "compaction_segment 5": {"mapping": {"KA": {
+            "compaction_segment": 5}}},
+    }
+    lines, bad = [], []
+    for label, conf in cases.items():
+        outs = {}
+        for d in ("cuda", "cpu"):
+            kp, out = PixSfM(conf, device=d).run_ka(
+                {k: v.copy() for k, v in kps.items()}, images,
+                matches=matches, scores=scores)
+            outs[d] = (kp, _levels0(out))
+        diff = max(float(np.abs(outs["cuda"][0][n] - outs["cpu"][0][n])
+                         .max()) for n in kps)
+        o = outs["cuda"][1]
+        lines.append(f"{label}: {o['iterations']} LM iterations, cost "
+                     f"{o['initial_cost']:.4f} -> {o['final_cost']:.4f}, "
+                     f"max |kp(cuda) - kp(cpu)| = {diff:.2e} px")
+        if not (diff <= 0.05 and np.isfinite(o["final_cost"])
+                and o["final_cost"] <= o["initial_cost"]):
+            bad.append(label)
+    print("phase 23(d): run_ka on phase 4's scene, cuda against cpu (limit "
+          "0.05 px, the cost must not rise): " + "; ".join(lines))
+    if bad:
+        raise SystemExit(f"KA options: cuda and cpu disagree or the cost "
+                         f"rose: {bad}")
+
+
+def options_ba_cuda_vs_cpu(torch, np, PixSfM, load_config, tmp):
+    """23(d), BA: feature-reference BA with 2x2 NCC node windows (no
+    closed-form Jacobian: forward mode over the residual) on phase 12's
+    scene with the deterministic ``image`` maps, poses free, through
+    ``refine_reconstruction`` on cuda and cpu: the points within phase
+    8's 1e-3, the final cost within ``OPT_NCC_COST_RTOL``."""
+    from pixsfm_tpu_torch.ops import schur as schur_mod
+    rec, views, _ = make_ba_scene(torch, np, seed=13, n_views=12,
+                                  n_points=1500, W=640, H=480,
+                                  device="cuda", min_track=3, max_track=3)
+    conf = load_config("photometric", extra={"mapping": {"BA": {
+        "strategy": "feature_reference",
+        "interpolation": {"mode": "BICUBIC", "l2_normalize": False,
+                          "ncc_normalize": True, "nodes": OPT_NODES4},
+        "optimizer": {"refine_extrinsics": True, "solver": {
+            "max_num_iterations": OPT_BA_ITERATIONS}}}}})
+    src = Path(tmp) / "options_ba_in"
+    rec.write(src)
+    pids = sorted(rec.points3D)
+    seen = []
+    orig = schur_mod.jacfwd_residual_jac
+    schur_mod.jacfwd_residual_jac = lambda *a: seen.append(a) or orig(*a)
+    runs = {}
+    try:
+        for d in ("cuda", "cpu"):
+            if d == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_rec, out = PixSfM(conf, device=d).refine_reconstruction(
+                Path(tmp) / f"options_ba_{d}", src, views)
+            if d == "cuda":
+                torch.cuda.synchronize()
+            runs[d] = (_levels0(out), np.stack(
+                [out_rec.points3D[p].xyz for p in pids]),
+                time.perf_counter() - t0)
+    finally:
+        schur_mod.jacfwd_residual_jac = orig
+    (o_d, x_d, w_d), (o_c, x_c, w_c) = runs["cuda"], runs["cpu"]
+    dx = float(np.abs(x_d - x_c).max())
+    print(f"phase 23(d): feature_reference BA, 2x2 NCC nodes on image maps "
+          f"(forward-mode Jacobian, {len(seen)} solves took it), "
+          f"{len(views)} views, {len(pids)} points: regime "
+          f"{o_d['linear_solver']} / {o_c['linear_solver']}, "
+          f"{o_d['iterations']} / {o_c['iterations']} LM iterations, cost "
+          f"cuda {o_d['initial_cost']:.6f} -> {o_d['final_cost']:.6f} / cpu "
+          f"{o_c['final_cost']:.6f}, max |xyz(cuda) - xyz(cpu)| = {dx:.2e} "
+          f"(limits: cost rtol {OPT_NCC_COST_RTOL:g}, xyz 1e-3); {w_d:.2f} s "
+          f"on cuda (BA "
+          f"solve {o_d['time']:.3f} s), {w_c:.2f} s on cpu (BA solve "
+          f"{o_c['time']:.3f} s)")
+    if len(seen) < 2:
+        raise SystemExit("NCC feature_reference BA did not take the "
+                         "forward-mode Jacobian")
+    if not (abs(o_d["final_cost"] - o_c["final_cost"])
+            <= OPT_NCC_COST_RTOL * abs(o_c["final_cost"]) and dx <= 1e-3
+            and o_d["final_cost"] < o_d["initial_cost"]):
+        raise SystemExit("NCC feature_reference BA: cuda and cpu disagree "
+                         "or the cost did not fall")
+
+
+def options_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
+                  schur_cuda, tri, loc_scene):
+    """Phase 23 (see the module docstring). Returns the launches of (a),
+    (b) and (c), and K1's figures on (a)'s first node-rows launch."""
+    import tempfile
+    from pixsfm_tpu_torch.localization import QueryLocalizer
+    from pixsfm_tpu_torch.bundle_adjustment.references import Reference
+    from pixsfm_tpu_torch.localize import (build_query_correspondences,
+                                           localize_queries)
+    (reference, views_t, kps_t, matches_t, scores_t, truth_t, err_raw,
+     err_tri, n_tri_pts) = tri
+    zero, read = kernel_counts(torch, interpolate_cuda, cg_cuda, schur_cuda)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = Path(tmp_dir.name)
+    sync = torch.cuda.synchronize
+
+    # (a) node windows in KA and feature-reference BA at full width
+    # (a dict over PixSfM's defaults: PixSfM(load_config("default")) recurses
+    # in both packages, ROADMAP.md section 3)
+    conf_a = {"interpolation": {"nodes": OPT_NODES4},
+              "mapping": {"BA": {"optimizer": {"solver": {
+                  "max_num_iterations": BA_ITERATIONS}}}}}
+    sfm = PixSfM(conf_a, device="cuda")
+    first, restore = node_rows_watch(interpolate_cuda)
+    zero()
+    t0 = time.perf_counter()
+    try:
+        rec_a, out_a = sfm._triangulation(
+            tmp / "nodes", reference, views_t,
+            {k: v.copy() for k, v in kps_t.items()}, matches_t, scores_t)
+        sync()
+    finally:
+        restore()
+    wall_a = time.perf_counter() - t0
+    launches_a = read()
+    oka, oba = _levels0(out_a["KA"]), _levels0(out_a["BA"])
+    err_a = triangulated_error(np, rec_a, truth_t)
+    print(f"phase 23(a): PixSfM(default + 2x2 nodes at +-0.5 px, L2 on)."
+          f"_triangulation on phase 11's scene {wall_a:.2f} s (KA "
+          f"{oka['time']:.2f} s, {oka['num_problems']} problems, "
+          f"{oka['iterations']} LM iterations, cost "
+          f"{oka['initial_cost']:.4f} -> {oka['final_cost']:.4f}; "
+          f"triangulation {out_a['triangulation']['time']:.2f} s, "
+          f"{len(rec_a.points3D)} points; BA references "
+          f"{oba['references_time']:.2f} s, solve {oba['time']:.2f} s, "
+          f"{oba['linear_solver']} step, {oba['iterations']} LM / "
+          f"{oba['cg_iterations']} CG iterations, cost "
+          f"{oba['initial_cost']:.4f} -> {oba['final_cost']:.4f}); point "
+          f"error to truth {err_raw:.5f} (unrefined) -> {err_a:.5f} (one "
+          f"node, phase 11: {err_tri:.5f}); launches {launches_a}")
+    if not all(np.isfinite(p.xyz).all() for p in rec_a.points3D.values()):
+        raise SystemExit("non-finite points on the node-window path")
+    if not (oka["final_cost"] < oka["initial_cost"]
+            and oba["final_cost"] < oba["initial_cost"]):
+        raise SystemExit("node windows: the KA or BA cost did not fall")
+    if launches_a["K1"] <= 0 or launches_a["K2"] <= 0 or not first:
+        raise SystemExit(f"node windows: K1 or K2 did not launch "
+                         f"({launches_a})")
+    del rec_a, sfm
+    rows, H, W, C, rb, r, c = first["args"]
+    print(f"phase 23(a): K1 on the path's first node-rows launch "
+          f"({r.shape[0]} queries = {r.shape[0] // 4} keypoints x 4 nodes, "
+          f"{rows.shape[0] // H} patches of {H}x{W}x{C})")
+    k1 = check_k1_recorded(torch, interpolate_cuda, rows, H, W, C, rb, r, c,
+                           first["l2"])
+    del first, rows, rb, r, c
+    torch.cuda.empty_cache()
+
+    # (b) the photometric preset with KA: 16 NCC nodes on dense RGB maps
+    conf_b = load_config("photometric", extra={"mapping": {
+        "KA": {"apply": True},
+        "BA": {"optimizer": {"solver": {
+            "max_num_iterations": OPT_PHOTO_BA_ITERATIONS}}}}})
+    sfm = PixSfM(conf_b, device="cuda")
+    ka_interp = sfm.keypoint_adjuster.conf.interpolation
+    zero()
+    t0 = time.perf_counter()
+    rec_b, out_b = sfm._triangulation(
+        tmp / "photometric_ka", reference, views_t,
+        {k: v.copy() for k, v in kps_t.items()}, matches_t, scores_t)
+    sync()
+    wall_b = time.perf_counter() - t0
+    launches_b = read()
+    okb, obb = _levels0(out_b["KA"]), _levels0(out_b["BA"])
+    err_b = triangulated_error(np, rec_b, truth_t)
+    print(f"phase 23(b): PixSfM(photometric, KA on)._triangulation on phase "
+          f"11's scene {wall_b:.2f} s (KA with {len(ka_interp.nodes)} nodes, "
+          f"NCC {ka_interp.ncc_normalize}, L2 {ka_interp.l2_normalize} on "
+          f"the dense RGB maps: {okb['time']:.2f} s, "
+          f"{okb['num_problems']} problems, {okb['iterations']} LM "
+          f"iterations, cost {okb['initial_cost']:.4f} -> "
+          f"{okb['final_cost']:.4f}; {len(rec_b.points3D)} points; "
+          f"patch_warp BA solve {obb['time']:.2f} s, {obb['iterations']} LM "
+          f"/ {obb['cg_iterations']} CG iterations, cost "
+          f"{obb['initial_cost']:.6f} -> {obb['final_cost']:.6f}); point "
+          f"error to truth {err_raw:.5f} (unrefined) -> {err_b:.5f}; "
+          f"launches {launches_b}")
+    if not (len(ka_interp.nodes) == 16 and ka_interp.ncc_normalize
+            and not ka_interp.l2_normalize):
+        raise SystemExit("photometric KA did not take the preset's nodes")
+    if not (okb["final_cost"] < okb["initial_cost"]
+            and obb["final_cost"] < obb["initial_cost"]):
+        raise SystemExit("photometric with KA: a cost did not fall")
+    if launches_b["K1"] <= 0 or launches_b["K2"] <= 0:
+        raise SystemExit(f"photometric with KA: K1 or K2 did not launch "
+                         f"({launches_b})")
+    if not all(np.isfinite(p.xyz).all() for p in rec_b.points3D.values()):
+        raise SystemExit("non-finite points on the photometric KA path")
+    del rec_b, sfm
+    torch.cuda.empty_cache()
+
+    # (c) localization with "full" references: patch-warp QBA
+    (views, ref_views, rec, queries, keypoints, pairs, matches, gt,
+     extent) = loc_scene
+
+    def loc_conf(steps):
+        return load_config("default", extra={
+            "interpolation": {"nodes": OPT_NODES4},
+            "localization": {
+                "target_reference": "full",
+                "references": {"compute_offsets3D": True},
+                "QKA": {"apply": False},
+                "QBA": {"optimizer": {"solver": {
+                    "max_num_iterations": steps}}}}})
+
+    zero()
+    t0 = time.perf_counter()
+    loc = QueryLocalizer(rec, loc_conf(OPT_QBA_STEPS), image_dir=ref_views,
+                         device="cuda")
+    sync()
+    t_refs = time.perf_counter() - t0
+    some = next(iter(loc.references[0].values()))
+    from pixsfm_tpu_torch.localization import main as loc_main
+    from pixsfm_tpu_torch.localization import pnp as pnp_mod
+    times, _, restore_t = _stage_timers(sync, loc, loc_main)
+    calls, restore_p = _pnp_hook(np, (loc_main, pnp_mod))
+    t0 = time.perf_counter()
+    try:
+        serial = localize_queries(loc, queries, keypoints, pairs, matches,
+                                  image_dir=views)
+        sync()
+    finally:
+        restore_p()
+        restore_t()
+    wall_c = time.perf_counter() - t0
+    launches_c = read()
+    n_ok = sum(bool(res.get("success")) for res in serial.values())
+    # per query: its PnP pose (one PnP call each, QKA being off), whether
+    # that pose kept the f64 polish, and the errors to the truth before
+    # and after patch-warp QBA
+    rows_c, bad = [], []
+    polished = ([c["polished"] for c in calls] if len(calls) == len(queries)
+                else [True] * len(queries))
+    for (qname, _), pnp, pol in zip(queries, calls, polished):
+        res = serial[qname]
+        if not res.get("success"):
+            rows_c.append(f"{qname} failed")
+            continue
+        e0 = pose_error(np, pnp["qvec"], pnp["tvec"], gt[qname])
+        e1 = pose_error(np, res["qvec"], res["tvec"], gt[qname])
+        rows_c.append(f"{qname} {e0[0]:.3f} -> {e1[0]:.3f} deg, "
+                      f"{e0[1] / extent:.2e} -> {e1[1] / extent:.2e} "
+                      f"({'polished' if pol else 'unpolished'} PnP pose, "
+                      f"QBA cost {res['QBA']['initial_cost']:.3f} -> "
+                      f"{res['QBA']['final_cost']:.3f})")
+        if (pol and not (e1[0] < 0.5 and e1[1] / extent < 1e-2)) \
+                or e1[0] > e0[0] + 0.05 \
+                or not res["QBA"]["final_cost"] <= res["QBA"]["initial_cost"]:
+            bad.append(qname)
+    print(f"phase 23(c): localization with target_reference full "
+          f"(compute_offsets3D, 2x2 nodes, QKA off, patch-warp QBA of "
+          f"{OPT_QBA_STEPS} steps): references {t_refs:.2f} s (node "
+          f"offsets {tuple(some.node_offsets3D.shape)}, descriptors "
+          f"{some.descriptor.shape[0]}), localize_queries {wall_c:.2f} s for "
+          f"{len(queries)} queries ({len(queries) / wall_c:.3f} queries/s; "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in times.items()
+                      if k in ("query extraction", "PnP", "QBA"))
+          + f"); {n_ok} of {len(queries)} localized; errors to the truth "
+          f"after PnP -> after QBA: " + "; ".join(rows_c)
+          + f" (phase 18's limits 0.5 deg, 1e-2 of the extent, held where "
+          f"the PnP pose kept its polish; QBA may not raise the cost nor "
+          f"add 0.05 deg); launches {launches_c}")
+    if not isinstance(some, Reference) or some.node_offsets3D is None:
+        raise SystemExit("full mode: the references carry no node offsets")
+    if n_ok < len(queries) - 1:
+        raise SystemExit(f"full mode: only {n_ok} of {len(queries)} "
+                         f"queries localized")
+    if bad:
+        raise SystemExit(f"full mode: {bad} off the truth or made worse "
+                         f"by QBA")
+
+    # one query on cuda and on cpu: the whole flow (QBA capped) within
+    # phase 14's polished limit, patch-warp QBA from identical inputs
+    # within phase 18's 1e-4
+    from pixsfm_tpu_torch.features.featuremaps import FeatureMap
+    locs = {d: QueryLocalizer(rec, loc_conf(OPT_CPU_QBA_STEPS),
+                              references=loc.references, device=d)
+            for d in ("cuda", "cpu")}
+    qname, cam = queries[0]
+    p2D, p3D = build_query_correspondences(rec, qname, pairs, matches)
+    X = np.asarray([rec.points3D[p].xyz for p in p3D])
+    fm = loc.extract_query_fmaps(keypoints[qname], p2D, views[qname])
+    maps = {"cuda": fm, "cpu": [FeatureMap(f.patches.cpu(), f.keypoint_ids(),
+                                           f.corners, f.scale) for f in fm]}
+    refs = locs["cuda"].get_query_references(p3D)[0]
+    out, qba, walls = {}, {}, {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[d] = locs[d].localize(keypoints[qname], p2D, p3D, cam,
+                                  query_fmaps=maps[d])
+        walls[d] = time.perf_counter() - t0
+    start = serial[qname]
+    for d in ("cuda", "cpu"):
+        qba[d] = locs[d].qba.refine(start["qvec"], start["tvec"], cam, X,
+                                    maps[d][0], refs,
+                                    inliers=start["inliers"],
+                                    point2D_idxs=p2D)
+    same = bool(out["cuda"].get("success")) == bool(out["cpu"].get(
+        "success"))
+    fin_r, fin_t = pose_agreement(np, out["cuda"], out["cpu"], X)
+    q_r, q_t = pose_agreement(np, qba["cuda"], qba["cpu"], X)
+    print(f"phase 23(c): {qname} on cuda / cpu (QBA {OPT_CPU_QBA_STEPS} "
+          f"steps) {walls['cuda']:.2f} / {walls['cpu']:.2f} s: successes "
+          f"equal {same}, inliers {out['cuda'].get('num_inliers')} / "
+          f"{out['cpu'].get('num_inliers')}, final poses within "
+          f"{fin_r:.2e} rad, {fin_t:.2e} relative (limits "
+          f"{PNP_POLISHED_TOL:g}); patch-warp QBA from identical inputs "
+          f"(costs {qba['cuda']['initial_cost']:.4f} -> "
+          f"{qba['cuda']['final_cost']:.4f} / "
+          f"{qba['cpu']['final_cost']:.4f}) within {q_r:.2e} rad, "
+          f"{q_t:.2e} relative (limits 1e-4)")
+    if not (same and max(fin_r, fin_t) <= PNP_POLISHED_TOL
+            and max(q_r, q_t) <= 1e-4):
+        raise SystemExit("full mode: cuda and cpu disagree")
+    del loc, locs, fm, maps
+    torch.cuda.empty_cache()
+
+    # (d) cuda against cpu on small scenes, one run per option
+    options_ka_cuda_vs_cpu(np, PixSfM)
+    options_ba_cuda_vs_cpu(torch, np, PixSfM, load_config, tmp)
+
+    # ... and at phase 5's full width: KA with compaction and with
+    # block-Jacobi CG beside the default solve, in one call
+    images5, kps5, _, matches5, scores5 = make_scene(
+        np, seed=0, n_views=10, n_points=2000, W=1600, H=1200, margin=150)
+    lines = []
+    for label, extra in (
+            ("default", {}),
+            ("compaction_segment 5", {"mapping": {"KA": {
+                "compaction_segment": 5}}}),
+            ("cg_block_size 2", {"mapping": {"KA": {"optimizer": {
+                "solver": {"cg_block_size": 2}}}}})):
+        sfm = PixSfM(extra, device="cuda")
+        sync()
+        t0 = time.perf_counter()
+        _, o = sfm.run_ka({k: v.copy() for k, v in kps5.items()}, images5,
+                          matches=matches5, scores=scores5)
+        sync()
+        o = _levels0(o)
+        lines.append(f"{label}: run_ka {time.perf_counter() - t0:.2f} s, "
+                     f"KA {o['time']:.3f} s, {o['iterations']} LM "
+                     f"iterations, cost {o['initial_cost']:.4f} -> "
+                     f"{o['final_cost']:.4f}")
+        if not o["final_cost"] < o["initial_cost"]:
+            raise SystemExit(f"KA {label} at full width: the cost did not "
+                             f"fall")
+    print("phase 23(d): run_ka on phase 5's scene at full width: "
+          + "; ".join(lines))
+    tmp_dir.cleanup()
+    return launches_a, launches_b, launches_c, k1
 
 
 def main() -> int:
@@ -3839,7 +4312,7 @@ def main() -> int:
     del sfm_ds
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    launches_loc, k1_loc, in_situ_loc = localization_phase(
+    launches_loc, k1_loc, in_situ_loc, loc_scene = localization_phase(
         torch, np, interpolate_cuda, profile_out=args.profile_out)
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
@@ -3875,6 +4348,17 @@ def main() -> int:
                               scene_e3, gt_e3)
     tmp_e3.cleanup()
 
+    # -- phase 23: every interpolation config and solver option -------------
+    t0 = time.perf_counter()
+    launches_op_a, launches_op_b, launches_op_c, k1_op = options_phase(
+        torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
+        schur_cuda, (reference, views_t, kps_t, matches_t, scores_t,
+                     truth_t, err_raw, err_tri, n_tri_pts), loc_scene)
+    del loc_scene
+    launches_op = {k: launches_op_a[k] + launches_op_b[k] + launches_op_c[k]
+                   for k in launches_op_a}
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+
     # -- report ----------------------------------------------------------------
     # K1 runs on both paths at different shapes: one entry per path, each
     # with that path's launches and the figures measured at its shape
@@ -3883,7 +4367,8 @@ def main() -> int:
              "localization": launches_loc, "low_memory": launches_lm,
              "photometric": launches_ph, "eth3d": launches_e3,
              "eth3d_dense_query": {"K1": launches_e3_dense},
-             "vggnet": launches_vgg, "eth3d_loftr": launches_lf}
+             "vggnet": launches_vgg, "eth3d_loftr": launches_lf,
+             "interp_options": launches_op}
     both = {k: sum(n.get(k, 0) for n in paths.values())
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
     print(f"launches on the main paths: {paths}")
@@ -3949,6 +4434,16 @@ def main() -> int:
              replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
              launches=launches_lf["K1"], library_ms=None,
              timed_at="the KA shape of phase 2 (C = 128)", **k1),
+        dict(name="bicubic_window_interp_l2", path="interp_options",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_op["K1"],
+             launches_by_run={"node windows (23a)": launches_op_a["K1"],
+                              "photometric KA (23b)": launches_op_b["K1"],
+                              "full-mode localization (23c)":
+                                  launches_op_c["K1"]},
+             library_ms=None, **k1_op),
         *(dict(name="bicubic_window_interp_l2", path="vggnet", channels=C,
                route="cuda",
                source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",

@@ -24,14 +24,24 @@ evaluated at ``config.nodes`` offsets ``(dx, dy)`` around it, and with
 ``ncc_normalize`` each channel is brought to mean 0 / std 1 across the
 nodes with the chain rule through the derivatives
 (:func:`ncc_normalize_with_grad`, the reference's sigma := 1 where sigma
-is 0). Patch-warp BA and its references read them; one K1 launch serves
-all nodes of a batch (``ops/interpolate_cuda.interpolate_node_rows``).
+is 0). KA, QKA, QBA, feature-reference and patch-warp BA and the
+references read them; for BICUBIC one K1 launch serves all nodes of a
+batch (``ops/interpolate_cuda.interpolate_node_rows``).
 
-The feature window path takes BICUBIC / CERES_BICUBIC only
-(:func:`check_window_config`); node windows and NCC only where the caller
-reads them (``nodes=True``). Bilinear, nearest and BICUBICCHAIN come with
-ROADMAP.md item 'The other BA strategies', node windows and NCC in KA, QKA
-and QBA with item 'The rest of KA', and raise ``NotImplementedError``.
+The other feature modes (BILINEAR, NEARESTNEIGHBOR, BICUBICCHAIN) are
+plain PyTorch on every device, as they are XLA in the JAX package:
+:func:`mode_eval_rows` gives their value and derivatives (bilinear and
+nearest with the reference's forward differences, BICUBICCHAIN's value
+from channel 0 and its derivatives from channels 1 and 2 of a bicubic
+read). :func:`interpolate_rows_with_grad` is the JAX package's node-aware
+``interpolate_with_grad`` over a flat row view: the flattened ``[N,
+n_nodes * C]`` node window when ``n_nodes > 1`` (NCC across the nodes when
+configured), the single point otherwise (where NCC is ignored, as there);
+:func:`interpolate_nodes_with_grad` evaluates the node window for one node
+too (``interpolate_nodes``, the reference extraction's read).
+
+:func:`check_window_config` refuses the gradient-field modes on feature
+patches (``ValueError``): they read the cost patches of costmap BA.
 """
 
 from __future__ import annotations
@@ -48,7 +58,14 @@ __all__ = [
     "bicubic_window_eval_rows_d2", "check_window_config",
     "bounds_violation", "gradient_field_eval", "ncc_normalize",
     "ncc_normalize_with_grad", "node_queries", "interpolate_nodes_with_grad",
+    "GRADIENT_FIELD_MODES", "output_dim", "mode_eval_rows",
+    "point_eval_rows", "interpolate_rows_with_grad", "check_residual_config",
 ]
+
+# scalar-output modes, which ignore node windows and the L2 normalization
+# (``GRADIENT_FIELD_MODES`` of the JAX package)
+GRADIENT_FIELD_MODES = ("POLYGRADIENTFIELD", "BICUBICGRADIENTFIELD",
+                        "BICUBICCHAIN")
 
 INTERPOLATOR_TYPES = (
     "BICUBIC", "BILINEAR", "NEARESTNEIGHBOR",
@@ -96,23 +113,36 @@ class InterpolationConfig:
         return np.asarray(self.nodes, dtype=np.float32)
 
 
-def check_window_config(interp: InterpolationConfig,
-                        nodes: bool = False) -> None:
-    """Raise for configs outside the ported bicubic window path; node
-    windows and NCC pass only for a caller that reads them (``nodes``)."""
+def check_window_config(interp: InterpolationConfig) -> None:
+    """Raise ``ValueError`` for the gradient-field modes, which interpolate
+    the cost patches of costmap BA (:func:`gradient_field_eval`), not
+    feature patches. Every other config is read by the feature paths."""
     if interp.mode in ("POLYGRADIENTFIELD", "BICUBICGRADIENTFIELD"):
         raise ValueError(
             f"interpolation mode {interp.mode} interpolates the cost patches "
             "of costmap BA (gradient_field_eval), not feature patches")
-    if interp.mode not in ("BICUBIC", "CERES_BICUBIC"):
+
+
+def check_residual_config(interp: InterpolationConfig) -> None:
+    """The refusal of the JAX package's ``interpolate_residual_with_grad``
+    (``base/interpolation.py:607-610``): single-point NCC has no analytic
+    residual path there."""
+    if interp.ncc_normalize and not _node_path(interp):
         raise NotImplementedError(
-            f"interpolation mode {interp.mode} is not ported yet; see "
-            "ROADMAP.md section 1, 'The other BA strategies'")
-    if not nodes and (interp.ncc_normalize or interp.n_nodes != 1):
-        raise NotImplementedError(
-            "NCC normalization and multi-node interpolation are ported for "
-            "patch-warp BA and its references only; see ROADMAP.md section "
-            "1, 'The rest of KA'")
+            "interpolate_residual_with_grad: single-point NCC configs use "
+            "the autodiff path")
+
+
+def output_dim(mode: str, channels: int, n_nodes: int = 1) -> int:
+    """Descriptor length of a read (gradient-field modes are scalar; node
+    windows concatenate), as the JAX package's ``output_dim``."""
+    return 1 if mode in GRADIENT_FIELD_MODES else channels * max(n_nodes, 1)
+
+
+def _node_path(interp: InterpolationConfig) -> bool:
+    """Whether a read evaluates the node window (``interpolate`` of the JAX
+    package: more than one node, and not a scalar mode)."""
+    return interp.n_nodes > 1 and interp.mode not in GRADIENT_FIELD_MODES
 
 
 def catmull_rom_weights(t):
@@ -268,24 +298,108 @@ def node_queries(row_base, r, c, nodes):
             .reshape(-1), (c[:, None] + nodes[:, 0]).reshape(-1))
 
 
+def _cell_rows(rows, H: int, W: int, row_base, ri, ci):
+    """``rows[row_base + clamp(ri), clamp(ci)]`` as float32: the pixels at
+    integer patch coordinates ``ri [N, a]``, ``ci [N, b]`` -> ``[N, a, b,
+    C]``, clamped into the patch (Grid2D's clamped reads)."""
+    ri = torch.clamp(ri, 0, H - 1)
+    ci = torch.clamp(ci, 0, W - 1)
+    idx = row_base.to(torch.int64)[:, None] + ri
+    return rows[idx[:, :, None], ci[:, None, :]].to(torch.float32)
+
+
+def _bilinear_value_rows(rows, H: int, W: int, row_base, r, c):
+    """Bilinear value ``[N, C]`` with clamped taps (a duplicated border tap
+    reads the border pixel with both weights, as the JAX package's dense
+    taps do)."""
+    fr, fc = torch.floor(r), torch.floor(c)
+    taps = torch.arange(0, 2, device=r.device)
+    tr, tc = r - fr, c - fc
+    win = _cell_rows(rows, H, W, row_base, fr.to(torch.int64)[:, None] + taps,
+                     fc.to(torch.int64)[:, None] + taps)      # [N, 2, 2, C]
+    wr = torch.stack([1.0 - tr, tr], dim=1)
+    wc = torch.stack([1.0 - tc, tc], dim=1)
+    return torch.einsum("nabc,na,nb->nc", win, wr, wc)
+
+
+def _nearest_value_rows(rows, H: int, W: int, row_base, r, c):
+    """The pixel nearest to ``(r, c)`` (rounded half to even, clamped)."""
+    ri = torch.round(r).to(torch.int64)[:, None]
+    ci = torch.round(c).to(torch.int64)[:, None]
+    return _cell_rows(rows, H, W, row_base, ri, ci)[:, 0, 0]
+
+
+def mode_eval_rows(rows, H: int, W: int, C: int, row_base, r, c, mode: str):
+    """``(f, dfdr, dfdc)`` of one feature mode at patch coordinates ``(r,
+    c)`` of a flat row view (``row_base`` as for
+    :func:`bicubic_window_eval_rows`), before any normalization
+    (``_MODE_FULL`` of the JAX package, batched): BICUBIC / CERES_BICUBIC
+    the Catmull-Rom window with analytic derivatives; BILINEAR and
+    NEARESTNEIGHBOR the value and forward differences ``f(r + 1, c) - f``,
+    ``f(r, c + 1) - f`` (interpolation.h:543-560); BICUBICCHAIN ``[N, 1]``
+    outputs, the bicubic read's channels 0, 1, 2."""
+    if mode in ("BICUBIC", "CERES_BICUBIC"):
+        return bicubic_window_eval_rows(rows, H, W, C, row_base, r, c)
+    if mode == "BICUBICCHAIN":
+        f3, _, _ = bicubic_window_eval_rows(rows, H, W, C, row_base, r, c)
+        return f3[:, :1], f3[:, 1:2], f3[:, 2:3]
+    if mode == "BILINEAR":
+        value = _bilinear_value_rows
+    elif mode == "NEARESTNEIGHBOR":
+        value = _nearest_value_rows
+    else:
+        check_window_config(InterpolationConfig(mode=mode))
+        raise ValueError(f"unknown feature interpolation mode {mode!r}")
+    f = value(rows, H, W, row_base, r, c)
+    return (f, value(rows, H, W, row_base, r + 1.0, c) - f,
+            value(rows, H, W, row_base, r, c + 1.0) - f)
+
+
+def point_eval_rows(rows, H: int, W: int, C: int, row_base, r, c,
+                    config: InterpolationConfig):
+    """One point per query, L2-normalized with the chain rule when the
+    config asks and the mode is not scalar (``_interpolate_point_with_grad``
+    of the JAX package): ``(f, dfdr, dfdc)``, each ``[N, D]``."""
+    f, dfdr, dfdc = mode_eval_rows(rows, H, W, C, row_base, r, c,
+                                   config.mode)
+    if config.l2_normalize and config.mode not in GRADIENT_FIELD_MODES:
+        f, (dfdr, dfdc) = l2_normalize_with_grad(f, (dfdr, dfdc))
+    return f, dfdr, dfdc
+
+
 def interpolate_nodes_with_grad(rows, H: int, W: int, C: int, row_base, r,
                                 c, config: InterpolationConfig):
-    """Node windows ``(f, dfdr, dfdc)``, each ``[N, n_nodes, C]`` float32,
+    """Node windows ``(f, dfdr, dfdc)``, each ``[N, n_nodes, D]`` float32,
     at patch coordinates ``(r, c)`` of the flat row view ``rows [NR, W,
     C]`` (``row_base`` as for :func:`bicubic_window_eval_rows`): every node
-    L2-normalized when ``config.l2_normalize``, then NCC-normalized across
-    the nodes when ``config.ncc_normalize`` (the JAX package's
-    ``interpolate_nodes_with_grad``, batched). The plain version of
-    ``ops/interpolate_cuda.interpolate_node_rows``."""
+    read by :func:`point_eval_rows`, then NCC-normalized across the nodes
+    when ``config.ncc_normalize`` (the JAX package's
+    ``interpolate_nodes_with_grad``, batched). For BICUBIC and
+    CERES_BICUBIC it is the plain version of
+    ``ops/interpolate_cuda.interpolate_node_rows`` plus the NCC."""
     n = config.n_nodes
-    f, dfdr, dfdc = bicubic_window_eval_rows(
-        rows, H, W, C, *node_queries(row_base, r, c, config.nodes))
-    if config.l2_normalize:
-        f, (dfdr, dfdc) = l2_normalize_with_grad(f, (dfdr, dfdc))
-    f, dfdr, dfdc = (a.reshape(-1, n, C) for a in (f, dfdr, dfdc))
+    out = point_eval_rows(rows, H, W, C,
+                          *node_queries(row_base, r, c, config.nodes), config)
+    f, dfdr, dfdc = (a.reshape(-1, n, a.shape[-1]) for a in out)
     if config.ncc_normalize:
         f, (dfdr, dfdc) = ncc_normalize_with_grad(f, (dfdr, dfdc))
     return f, dfdr, dfdc
+
+
+def interpolate_rows_with_grad(rows, H: int, W: int, C: int, row_base, r, c,
+                               config: InterpolationConfig):
+    """The JAX package's node-aware ``interpolate_with_grad`` over a flat
+    row view: ``(f, dfdr, dfdc)``, each ``[N, D]`` with ``D =
+    output_dim(mode, C, n_nodes)``: the flattened node window (node-major,
+    NCC chain-ruled) when there are several nodes and the mode is not
+    scalar, else one point (NCC has no effect on one point, as there).
+    Plain PyTorch on any device; ``ops/interpolate_cuda.interpolate`` routes
+    BICUBIC reads on the card through kernel K1."""
+    if _node_path(config):
+        out = interpolate_nodes_with_grad(rows, H, W, C, row_base, r, c,
+                                          config)
+        return tuple(a.reshape(a.shape[0], -1) for a in out)
+    return point_eval_rows(rows, H, W, C, row_base, r, c, config)
 
 
 def bounds_violation(r, c, H: int, W: int):
@@ -414,9 +528,8 @@ def gradient_field_eval(patches, row, r, c, mode: str):
     one query at a time). Cell corners are read clamped into the patch;
     POLYGRADIENTFIELD gives dfdrc = 0."""
     if mode not in _GRADIENT_FIELDS:
-        raise NotImplementedError(
-            f"interpolation mode {mode} is not a ported gradient field; "
-            "see ROADMAP.md section 1, 'The other BA strategies'")
+        raise ValueError(f"interpolation mode {mode} is not a gradient "
+                         "field of cost patches")
     return tuple(o[:, None] for o in _GRADIENT_FIELDS[mode](patches, row,
                                                              r, c))
 

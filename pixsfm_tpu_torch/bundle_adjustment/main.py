@@ -4,8 +4,14 @@ Port of ``pixsfm_tpu/bundle_adjustment/main.py`` for the ``geometric``,
 ``feature_reference``, ``costmaps`` and ``patch_warp`` strategies. All
 funnel into :func:`pixsfm_tpu_torch.ops.schur.ba_solve` with batched
 residual closures and closed-form Jacobians (``project_with_jac`` + the
-analytic interpolation derivatives). The featuremetric window reads go through
-kernel K1 (``ops/interpolate_cuda.py``), one query per observation; the
+analytic interpolation derivatives). The featuremetric reads take
+``ops/interpolate_cuda.interpolate`` for any feature config: kernel K1 for
+BICUBIC (one query per observation, or one per node and observation with
+node windows), plain PyTorch for BILINEAR, NEARESTNEIGHBOR and
+BICUBICCHAIN. Under NCC ``feature_reference`` has no closed-form Jacobian
+(as in the JAX package, whose builder returns None there): ``ba_solve``
+takes forward mode over the residual, whose read
+(``interpolate_fwd``) carries its own derivatives. The
 costmap residual interpolates the float32 cost patches with the gradient
 field of ``base/interpolation.py`` (``bundle_adjustment/costmaps.py``
 extracts them); the patch-warp residual (``bundle_adjustment/
@@ -39,14 +45,15 @@ from .. import logger, resolve_device
 from ..base import interpolation_default_conf, solver_default_conf
 from ..base.cameras import CAMERA_MODELS, img_from_cam
 from ..base.geometry import apply_pose
-from ..base.interpolation import (InterpolationConfig, check_window_config,
-                                  gradient_field_eval)
+from ..base.interpolation import (InterpolationConfig, check_residual_config,
+                                  check_window_config, gradient_field_eval,
+                                  output_dim)
 from ..base.losses import make_loss
 from ..base.projection import project_with_jac
 from ..config import merge
 from ..features.featuremaps import FeatureView
 from ..ops import schur
-from ..ops.interpolate_cuda import interpolate_rows
+from ..ops.interpolate_cuda import interpolate, interpolate_fwd
 from ..util.misc import bucket
 from ..ops.schur import (BAObservations, BAOptions, BAState, ba_solve,
                          make_pair_list)
@@ -57,6 +64,15 @@ from .problem import PackedBA, pack_ba_problem
 __all__ = ["BundleAdjuster", "GeometricBundleAdjuster",
            "FeatureReferenceBundleAdjuster", "CostMapBundleAdjuster",
            "PatchWarpBundleAdjuster"]
+
+
+# Bytes of float32 temporaries a featuremetric BA evaluation chunk may hold
+# (the residual's Jacobian J [n, D, 6+k+3], J with the residual column and
+# its weighted copy, i.e. ~3 * 4 * D * (10 + k) bytes per observation). A
+# node window multiplies D (16 nodes at 128 channels: D = 2048, ~0.9 GB for
+# the default 8192 observations): the chunk is cut to the largest power of
+# two under this budget; at one node (D = 128) the default chunk fits.
+_EVAL_CHUNK_BYTES = 1 << 30
 
 
 def _not_ported(what: str, item: str):
@@ -95,12 +111,15 @@ def _project(model, cam, qvec, tvec, X, mi=None):
     in order, ``cam`` padded to the widest model)."""
     if mi is None:
         return _safe_project(model, cam, qvec, tvec, X)
-    pix = X.new_empty(X.shape[:-1] + (2,))
+    parts, order = [], []
     for m, idx in _model_groups(mi, len(model)):
         km = CAMERA_MODELS[model[m]].num_params
-        pix[idx] = _safe_project(model[m], cam[idx, :km], qvec[idx],
-                                 tvec[idx], X[idx])
-    return pix
+        parts.append(_safe_project(model[m], cam[idx, :km], qvec[idx],
+                                   tvec[idx], X[idx]))
+        order.append(idx)
+    # out of place (a concatenation put back in order), so forward mode
+    # under torch.func.vmap sees no in-place write
+    return torch.cat(parts)[torch.argsort(torch.cat(order))]
 
 
 def _project_jac(model, cam, qvec, tvec, X, mi=None):
@@ -167,8 +186,8 @@ class _Patches:
 
 
 class _PatchRows(_Patches):
-    """The packed feature patches as K1 reads them: the flat ``[B*H, W,
-    C]`` row view."""
+    """The packed feature patches as the reads take them: the flat ``[B*H,
+    W, C]`` row view."""
 
     def __init__(self, pf, dev):
         super().__init__(pf, dev)
@@ -176,12 +195,18 @@ class _PatchRows(_Patches):
 
     def read(self, row, pix, interp: InterpolationConfig):
         """``(pc [n, 2], d pc / d pix [n, 2], f, dfdr, dfdc)``: the patch
-        coords of ``pix`` and the K1 read there."""
+        coords of ``pix`` and the read there (``[n, D]`` each)."""
         pc, su = self.coords(row, pix)
-        f, dfdr, dfdc = interpolate_rows(self.rows, self.H, self.W, self.C,
-                                         row * self.H, pc[:, 1], pc[:, 0],
-                                         interp.l2_normalize)
+        f, dfdr, dfdc = interpolate(self.rows, self.H, self.W, self.C,
+                                    row * self.H, pc[:, 1], pc[:, 0], interp)
         return pc, su, f, dfdr, dfdc
+
+    def value(self, row, pix, interp: InterpolationConfig):
+        """``(pc, f)``: the read's value, forward-differentiable in ``pix``
+        through its own derivatives (``interpolate_fwd``)."""
+        pc, _ = self.coords(row, pix)
+        return pc, interpolate_fwd(self.rows, self.H, self.W, self.C,
+                                   row * self.H, pc[:, 1], pc[:, 0], interp)
 
 
 class _CostPatches(_Patches):
@@ -198,6 +223,10 @@ class _CostPatches(_Patches):
                                                pc[:, 0], interp.mode)
         return pc, su, f, dfdr, dfdc
 
+    def value(self, row, pix, interp: InterpolationConfig):
+        pc, _, f, _, _ = self.read(row, pix, interp)
+        return pc, f
+
 
 def _bounds_violation(pc, H: int, W: int):
     """Hinge distance (patch pixels) outside [0, H-1] x [0, W-1] (the
@@ -211,7 +240,7 @@ def _interp_residual(interp: InterpolationConfig, ctx, row, pix,
                      target=None):
     """The interpolated patch value at ``pix`` ``[n, D]`` (less ``target``
     when given), with the ``check_bounds`` violation as one more column."""
-    pc, _, f, _, _ = ctx.read(row, pix, interp)
+    pc, f = ctx.value(row, pix, interp)
     if target is not None:
         f = f - target
     if interp.check_bounds:
@@ -225,13 +254,18 @@ def _interp_residual_jac(interp: InterpolationConfig, ctx, row, pix, Jpix,
     """:func:`_interp_residual` and its Jacobian ``[n, D(+1), 6+k+3]``
     from the pixel Jacobian ``Jpix [n, 2, 6+k+3]``: the shared tail of the
     featuremetric builders (``_interp_residual_jac``, ``main.py:297`` of
-    the JAX package)."""
+    the JAX package, which reads ``interpolate_residual_with_grad`` there
+    and refuses its single-point NCC)."""
+    check_residual_config(interp)
     pc, su, f, dfdr, dfdc = ctx.read(row, pix, interp)
     if target is not None:
         f = f - target
     Jc_ = (su[:, 0, None] * Jpix[:, 0])[:, None, :]
     Jr_ = (su[:, 1, None] * Jpix[:, 1])[:, None, :]
     J = dfdc[:, :, None] * Jc_ + dfdr[:, :, None] * Jr_
+    if J.shape[1] != f.shape[1]:
+        # a scalar read against a longer target broadcasts, as in JAX
+        J = J.expand(-1, f.shape[1], -1)
     if interp.check_bounds:
         H, W = ctx.H, ctx.W
         r_, c_ = pc[:, 1], pc[:, 0]
@@ -252,6 +286,12 @@ def _build_feature_reference(model, interp: InterpolationConfig):
 
 
 def _build_feature_reference_jac(model, interp: InterpolationConfig):
+    """The closed-form Jacobian builder; None under NCC, whose normalization
+    it does not chain (``main.py:324-330`` of the JAX package): ``ba_solve``
+    then takes forward mode over the residual."""
+    if interp.ncc_normalize:
+        return None
+
     def residual_jac_fn(qvec, tvec, cam, X, obs_slice, ctx):
         m, (row, target), mi = _split_models(model, obs_slice, 2)
         pix, Jpix = _project_jac(m, cam, qvec, tvec, X, mi)  # [n, 2, 6+k+3]
@@ -361,11 +401,16 @@ class BundleAdjuster:
 
     def _run_ba_cached(self, reconstruction, packed: PackedBA, residual_key,
                        obs_data, ctx, loss, opts: BAOptions,
-                       obs_valid=None, src_idx=None) -> Dict:
+                       obs_valid=None, src_idx=None,
+                       eval_bytes_per_obs: int = 0) -> Dict:
         """Lay the problem out as the JAX package does and run
         :func:`ba_solve` (``pixsfm_tpu/bundle_adjustment/main.py:540``).
         ``src_idx``: each observation's second pose block (patch-warp
-        joint source poses); the grid layout is not taken with it."""
+        joint source poses); the grid layout is not taken with it.
+        ``eval_bytes_per_obs``: the float32 temporaries one observation's
+        Jacobian evaluation holds; once the layout is chosen (with
+        ``obs_chunk``, as in the JAX package) the evaluation chunk is cut
+        to the largest power of two under ``_EVAL_CHUNK_BYTES``."""
         t0 = time.time()
         dev = self.device
         O = len(packed.obs_img)
@@ -428,6 +473,11 @@ class BundleAdjuster:
                 return np.concatenate([a, np.zeros((O_pad - O,) + a.shape[1:],
                                                    a.dtype)])
             pt_idx = prep(packed.obs_pt)
+
+        if eval_bytes_per_obs:
+            fit = max(_EVAL_CHUNK_BYTES // int(eval_bytes_per_obs), 1)
+            opts = dataclasses.replace(opts, obs_chunk=int(max(min(
+                opts.obs_chunk, 1 << (int(fit).bit_length() - 1)), 256)))
 
         def put(a, dtype=None):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -605,8 +655,8 @@ class FeatureReferenceBundleAdjuster(BundleAdjuster):
         rows = np.asarray([pf.row_or(names[int(iid)], int(p2d)) for iid, p2d
                            in zip(packed.obs_image_id, packed.obs_p2D_idx)],
                           np.int64).reshape(O)
-        C = pf.channels
-        desc = np.zeros((len(packed.point_ids), C), np.float32)
+        D = output_dim(interp.mode, pf.channels, interp.n_nodes)
+        desc = np.zeros((len(packed.point_ids), D), np.float32)
         has_ref = np.zeros(len(packed.point_ids), bool)
         for s, pid in enumerate(packed.point_ids):
             ref = references.get(int(pid))
@@ -626,7 +676,9 @@ class FeatureReferenceBundleAdjuster(BundleAdjuster):
             obs_data if mi is None else obs_data + (mi,),
             _PatchRows(pf, self.device),
             make_loss(self.conf.optimizer.get("loss")), self._ba_options(),
-            obs_valid=obs_valid)
+            obs_valid=obs_valid,
+            eval_bytes_per_obs=4 * (D + int(interp.check_bounds))
+            * (10 + packed.cams.shape[1]) * 3)
         out["references_time"] = t_ref
         return out
 

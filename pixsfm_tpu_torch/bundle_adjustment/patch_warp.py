@@ -7,9 +7,10 @@ observation: project the 3D point into the *source* view (the track's
 reference observation), offset the interpolation nodes by ``node /
 source_scale`` in source pixels, lift each node to 3D at the source depth
 (fronto-parallel, ``PixelToWorld``), reproject the lifted nodes into the
-*target* view and read the target window there (kernel K1,
-``ops/interpolate_cuda.interpolate_rows``, one launch for all nodes of a
-chunk, each on its observation's window row),
+*target* view and read the target window there, one point per node
+(``ops/interpolate_cuda.interpolate``: for BICUBIC kernel K1, one launch
+for all nodes of a chunk, each on its observation's window row; the other
+feature modes in plain PyTorch),
 NCC-normalized across the nodes when the config asks, less the reference's
 node descriptor, times the observation's validity ``v``; with
 ``check_bounds`` the summed node violation of the window's extent is one
@@ -51,7 +52,7 @@ from ..base.interpolation import (InterpolationConfig, bounds_violation,
                                   ncc_normalize_with_grad)
 from ..base.losses import make_loss
 from ..features.featuremaps import FeatureView
-from ..ops.interpolate_cuda import interpolate_rows
+from ..ops.interpolate_cuda import interpolate
 from .references import extract_references
 
 __all__ = ["patch_warp_ba", "build_patch_warp_residual",
@@ -212,12 +213,15 @@ def _residual(interp: InterpolationConfig, model, joint: bool, with_jac,
     su = (sc * up[:, None])[:, None]                              # [n, 1, 2]
     pc = (pix * sc[:, None] - 0.5 - ctx.corners[row][:, None]) \
         * up[:, None, None]
-    # K1 at every warped node of each observation's target window: one
-    # launch, N queries on the observation's row
-    n, C = row.shape[0], ctx.C
-    f, dfdr, dfdc = (a.reshape(n, N, C) for a in interpolate_rows(
-        ctx.rows, ctx.H, ctx.W, C, (row * ctx.H).repeat_interleave(N),
-        pc[..., 1].reshape(-1), pc[..., 0].reshape(-1), interp.l2_normalize))
+    # one point read at every warped node of each observation's target
+    # window (for BICUBIC one K1 launch, N queries on the observation's row)
+    n = row.shape[0]
+    single = InterpolationConfig(mode=interp.mode,
+                                 l2_normalize=interp.l2_normalize)
+    f, dfdr, dfdc = (a.reshape(n, N, -1) for a in interpolate(
+        ctx.rows, ctx.H, ctx.W, ctx.C, (row * ctx.H).repeat_interleave(N),
+        pc[..., 1].reshape(-1), pc[..., 0].reshape(-1), single))
+    C = f.shape[-1]
     if with_jac:
         Jpc = su[..., None] * Jpix                                # [n,N,2,P]
         Jf = (dfdc[:, None] * Jpc[:, :, 0].transpose(1, 2)[..., None]
@@ -300,7 +304,7 @@ def patch_warp_ba(adjuster, reconstruction, feature_set,
     if interp.n_nodes < 2:
         raise ValueError("patch_warp BA needs n_nodes > 1 interpolation "
                          "nodes")
-    check_window_config(interp, nodes=True)
+    check_window_config(interp)
     loss = make_loss(conf.optimizer.get("loss"))
     opts = adjuster._ba_options()
     flags = adjuster._optimizer_flags()

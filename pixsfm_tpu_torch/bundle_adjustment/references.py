@@ -7,15 +7,15 @@ interpolate each track observation's descriptor at the point's reprojected
 location, compute a robust (IRLS) mean over the track, and keep the
 observation whose descriptor is closest to that mean.
 
-The descriptor reads go through kernel K1 (``ops/interpolate_cuda.py``),
-one launch for all observations straight from the packed patch rows: one
-query per observation, or with node windows (patch-warp BA) one per node
-and observation, the ``n_nodes x C`` descriptor NCC-normalized across the
-nodes when the config asks. The IRLS runs batched over all points at once
-on the device. ``compute_offsets3D`` lifts each node at the source
-observation's depth (``Reference.node_offsets3D``), vectorised over points
-per camera model. BICUBIC / CERES_BICUBIC only: other modes raise
-``NotImplementedError``.
+The descriptor reads take ``ops/interpolate_cuda.interpolate_nodes`` (the
+JAX package's ``interpolate_nodes``), once for all observations straight
+from the packed patch rows: for BICUBIC one K1 launch, one query per
+observation, or with node windows one per node and observation; BILINEAR,
+NEARESTNEIGHBOR and BICUBICCHAIN in plain PyTorch. The ``n_nodes x D``
+descriptor is NCC-normalized across the nodes when the config asks. The
+IRLS runs batched over all points at once on the device.
+``compute_offsets3D`` lifts each node at the source observation's depth
+(``Reference.node_offsets3D``), vectorised over points per camera model.
 """
 
 from __future__ import annotations
@@ -30,11 +30,10 @@ import torch
 from .. import logger
 from ..base.cameras import img_from_cam
 from ..base.geometry import apply_pose, quat_normalize
-from ..base.interpolation import (InterpolationConfig, check_window_config,
-                                  ncc_normalize)
+from ..base.interpolation import InterpolationConfig, check_window_config
 from ..base.losses import RobustLoss, make_loss
 from ..base.projection import pixel_to_world, project_np
-from ..ops.interpolate_cuda import interpolate_node_rows
+from ..ops.interpolate_cuda import interpolate_nodes
 from ..util.misc import bucket
 
 __all__ = ["Reference", "extract_references", "node_offsets3D",
@@ -93,7 +92,7 @@ def extract_references(reconstruction, feature_set, view, conf,
     if keep_observations is None:
         keep_observations = bool(get("keep_observations", False))
     compute_offsets = bool(get("compute_offsets3D", False))
-    check_window_config(interp, nodes=True)
+    check_window_config(interp)
 
     pids = list(point3D_ids if point3D_ids is not None
                 else sorted(reconstruction.points3D.keys()))
@@ -128,8 +127,8 @@ def extract_references(reconstruction, feature_set, view, conf,
     obs_row = np.asarray(obs_row, np.int64)
     obs_xy = np.asarray(obs_xy, np.float64)
 
-    # descriptor at each reprojection: one K1 launch over the node queries
-    # of every observation (one node by default)
+    # descriptor at each reprojection: one read over the node queries of
+    # every observation (one node by default)
     dev = pf.patches.device
     B, H, W, C = pf.patches.shape
     # patch coordinates in float32, as the JAX package rounds them (a
@@ -141,15 +140,12 @@ def extract_references(reconstruction, feature_set, view, conf,
           * pf.upsampling[obs_row].astype(f32)[:, None])
     rows_view = pf.patches.reshape(B * H, W, C)
     row_base = torch.as_tensor(obs_row * H, dtype=torch.int32, device=dev)
-    desc, _, _ = interpolate_node_rows(
+    desc, _, _ = interpolate_nodes(
         rows_view, H, W, C, row_base,
         torch.as_tensor(pc[:, 1], device=dev),
-        torch.as_tensor(pc[:, 0], device=dev), interp.nodes,
-        bool(interp.l2_normalize))
-    if interp.ncc_normalize:
-        desc = ncc_normalize(desc)
-    C = interp.n_nodes * C
-    desc = desc.reshape(-1, C)
+        torch.as_tensor(pc[:, 0], device=dev), interp)
+    desc = desc.reshape(desc.shape[0], -1)
+    C = desc.shape[1]
 
     # pad tracks to T (power of two) and run IRLS batched over points
     counts = np.bincount(obs_pt, minlength=len(pids))

@@ -141,8 +141,9 @@ class KeypointAdjuster:
         "split_in_subproblems": True,
         # device batching: problems solved lock-stepped per chunk
         "problem_chunk_size": 128,
-        # accepted for config parity; only the defaults (0 / disabled) are
-        # ported, anything else raises
+        # LM segment length between convergence compactions (0 = off):
+        # unconverged problems are re-packed into fresh chunks every this
+        # many iterations, their damping warm-started
         "compaction_segment": 0,
         "parallel": {"enabled": False, "n_devices": None},
     }

@@ -10,20 +10,30 @@ Port of ``pixsfm_tpu/localization/main.py``:
 - ``QueryBundleAdjuster`` (QBA): refine the query pose (points constant)
   after PnP — a fixed number of damped Newton steps over the 6-DoF tangent
   (plus the intrinsics the config frees). Its Hessian is the exact one of
-  the cost, as ``jax.hessian`` gives it in the JAX package, built from
-  analytic second derivatives of the window, the L2 normalization, the
-  loss and the rotation, and ``torch.func`` derivatives of the camera
-  model (:func:`_qba_system_fn`). K1 returns first derivatives only, so
-  QBA launches no hand-written kernel.
+  the cost, as ``jax.hessian`` gives it in the JAX package. For one
+  BICUBIC node (the default) it is built from analytic second derivatives
+  of the window, the L2 normalization, the loss and the rotation, and
+  ``torch.func`` derivatives of the camera model (:func:`_qba_system_fn`);
+  for node windows, NCC and the other modes by ``torch.func`` forward mode
+  over the gradient (:func:`_autodiff_system`), whose read carries its own
+  first derivatives and differentiates them once more, as ``jax.hessian``
+  does through the JAX package's custom JVP. The second derivatives are
+  plain PyTorch reads on every device (K1 returns first derivatives only).
+- The "full" reference mode (``target_reference: full``): the references
+  are ``Reference`` objects with ``node_offsets3D``, and QBA is the
+  patch-warp pose refinement (:meth:`QueryBundleAdjuster.
+  _refine_patch_warp`): the query is read at the reprojections of ``X +
+  node_offsets3D`` (NCC across the nodes when configured) against each
+  reference's node descriptor. ``refine_batch`` runs such queries one by
+  one, as the JAX package does.
 - ``QueryLocalizer``: reference management (nearest / robust_mean /
-  all_observations), unique-inlier selection and the ``localize`` flow
-  (QKA -> RANSAC PnP -> QBA), single-query and batched.
+  all_observations / full), unique-inlier selection and the ``localize``
+  flow (QKA -> RANSAC PnP -> QBA), single-query and batched.
 
 The JAX package pads correspondences, patches and queries to power-of-two
 buckets (its compile keys); eager torch pads only where queries of one
 batch differ in size, with weight-0 copies of a real row. Not ported: the
-"full" reference mode (patch-warp QBA, ROADMAP.md 'The other BA
-strategies'), dense query featuremaps, and the device mesh ('Sharding').
+device mesh ('Sharding').
 """
 
 from __future__ import annotations
@@ -42,7 +52,9 @@ from ..base.cameras import (CAMERA_MODELS, Camera, img_from_cam,
 from ..base.geometry import exp_quat, quat_mul, quat_normalize, quat_rotate
 from ..base.interpolation import (InterpolationConfig,
                                   bicubic_window_eval_rows_d2,
-                                  bounds_violation, check_window_config)
+                                  bounds_violation, check_window_config,
+                                  interpolate_rows_with_grad,
+                                  ncc_normalize)
 from ..base.losses import RobustLoss, make_loss
 from ..base.projection import world_to_pixel
 from ..config import merge
@@ -61,9 +73,6 @@ __all__ = [
     "find_unique_inliers", "find_unique_min_reproj_inliers",
     "compute_reprojection_errors", "find_nearest_references",
 ]
-
-_FULL_MODE = ("the 'full' reference mode (patch-warp QBA) is not ported "
-              "yet; see ROADMAP.md section 1, 'The other BA strategies'")
 
 
 # ---------------------------------------------------------------------------
@@ -555,26 +564,153 @@ def _qba_system_fn(model: str, interp: InterpolationConfig,
     return system
 
 
-def _qba_run(model: str, interp: InterpolationConfig, loss: RobustLoss,
-             max_iters: int, q0, t0, cams, cam_mask, patches, *data):
+def _autodiff_system(coords, read, psi, n_params: int):
+    """The Newton system ``system(*state) -> (cost [B], g [B, NP], H [B,
+    NP, NP])`` at the tangent ``d = 0`` of a cost ``psi(f, pc)`` over a
+    feature read, by ``torch.func``: ``coords(d, *state) -> pc [M, 2]``
+    the patch coordinates ``(c, r)`` of every read, ``read(pc) -> (f,
+    dfdr, dfdc)`` in differentiable plain PyTorch, ``psi(f, pc) -> cost
+    [B]``. The gradient routes through the read's own derivatives (``d
+    cost / d pc = psi_f . (dfdc, dfdr) + psi_pc``, then the transpose of
+    ``d pc / d d``), as the JAX package's custom JVP does; the Hessian is
+    forward mode over that gradient, which differentiates ``f``, ``dfdr``
+    and ``dfdc`` as plain functions, as ``jax.hessian`` differentiates the
+    custom rule's body (for BICUBIC the two derivatives of ``f`` agree;
+    bilinear's forward differences do not). The tangents ``e_j`` go into
+    every query at once (queries are independent, so the column ``j`` of
+    each query's Hessian comes out of one pass): ``jax.hessian``'s
+    forward-over-reverse, ``H[p, q] = d g_p / d d_q``."""
+
+    def grad_fn(d, state):
+        pc = coords(d, *state)
+        f, dfdr, dfdc = read(pc)
+        g_f, g_pc = torch.func.grad(lambda f_, p_: psi(f_, p_).sum(),
+                                    argnums=(0, 1))(f, pc)
+        g_pc = g_pc + torch.stack([torch.sum(g_f * dfdc, -1),
+                                   torch.sum(g_f * dfdr, -1)], -1)
+        _, pull = torch.func.vjp(lambda d_: coords(d_, *state), d)
+        return pull(g_pc)[0]
+
+    def system(*state):
+        B = state[0].shape[0]
+        d0 = state[0].new_zeros((B, n_params))
+        basis = torch.eye(n_params, dtype=d0.dtype, device=d0.device)[
+            :, None, :].expand(n_params, B, n_params)
+        g, Hcols = torch.func.vmap(
+            lambda tan: torch.func.jvp(lambda d: grad_fn(d, state), (d0,),
+                                       (tan,)),
+            out_dims=(None, 0))(basis)
+        pc = coords(d0, *state)
+        cost = psi(read(pc)[0], pc)
+        return cost, g, Hcols.permute(1, 2, 0)
+
+    return system
+
+
+def _read_fn(patches, rows, interp: InterpolationConfig):
+    """``read(pc [M, 2]) -> (f, dfdr, dfdc)`` for :func:`_autodiff_system`
+    on the query patches ``[Np, H, W, C]`` at the patch rows ``rows
+    [M]``."""
+    Np, H, W, C = patches.shape
+    rows_view = patches.reshape(Np * H, W, C)
+    row_base = rows.reshape(-1) * H
+
+    def read(pc):
+        return interpolate_rows_with_grad(rows_view, H, W, C, row_base,
+                                          pc[:, 1], pc[:, 0], interp)
+
+    return read
+
+
+def _qba_autodiff_system_fn(model: str, interp: InterpolationConfig,
+                            loss: RobustLoss, cam_mask, patches, rows,
+                            corner, scale, up, X, targets, tw):
+    """:func:`_qba_system_fn`'s system for any feature config (node
+    windows, NCC, BILINEAR, NEARESTNEIGHBOR, BICUBICCHAIN): the JAX
+    package's ``residual_cost`` of ``_qba_inner`` with ``jax.grad`` /
+    ``jax.hessian``, through :func:`_autodiff_system`. The data as
+    :func:`_qba_system_fn` takes it; ``targets [B, n, T, D]`` with ``D`` the
+    read's length (``n_nodes * C`` with node windows)."""
+    Np, H, W, C = patches.shape
+    B, n = rows.shape
+    T = targets.shape[2]
+    NP = 6 + cam_mask.shape[0]
+
+    def coords(d, q, t, c):
+        qd = quat_normalize(quat_mul(exp_quat(d[:, :3]), q))
+        td = t + d[:, 3:6]
+        cd = c + d[:, 6:] * cam_mask
+        xy = world_to_pixel(model, cd[:, None], qd[:, None], td[:, None], X)
+        return ((xy * scale - 0.5 - corner) * up[..., None]).reshape(-1, 2)
+
+    def psi(f, pc):
+        e = f.reshape(B, n, 1, -1) - targets
+        s = torch.sum(e * e, dim=-1)                         # [B, n, T]
+        if interp.check_bounds:
+            v = bounds_violation(pc[:, 1], pc[:, 0], H, W).reshape(B, n, 1)
+            s = s + v * v
+        return 0.5 * torch.sum(tw * loss(s), dim=(1, 2))
+
+    return _autodiff_system(coords, _read_fn(patches, rows, interp), psi,
+                            NP)
+
+
+def _patch_warp_system_fn(model: str, interp: InterpolationConfig,
+                          loss: RobustLoss, cam_params, patches, rows,
+                          corner, scale, up, X, offs, targets, w):
+    """The patch-warp QBA system of one query (``_compiled_patch_warp_qba``
+    of the JAX package): per correspondence the one-point reads (mode and
+    L2 of ``interp``) at the reprojections of ``X + offs`` (``offs [n,
+    n_nodes, 3]``), NCC-normalized across the nodes when configured, less
+    the reference's node descriptor ``targets [n, n_nodes * D]``, weighted
+    ``w [n]`` and robustified; the tangent is the 6-DoF pose (``system(q
+    [1, 4], t [1, 3])``), the camera constant."""
+    n, N = offs.shape[:2]
+    single = InterpolationConfig(mode=interp.mode,
+                                 l2_normalize=interp.l2_normalize)
+    Xn = (X[:, None] + offs).reshape(1, n * N, 3)
+    sc = scale.repeat_interleave(N, 0)
+    co = corner.repeat_interleave(N, 0)
+    u = up.repeat_interleave(N, 0)[:, None]
+
+    def coords(d, q, t):
+        qd = quat_normalize(quat_mul(exp_quat(d[:, :3]), q))
+        xy = world_to_pixel(model, cam_params[None, None], qd[:, None],
+                            (t + d[:, 3:6])[:, None], Xn)[0]
+        return (xy * sc - 0.5 - co) * u
+
+    def psi(f, pc):
+        f = f.reshape(n, N, -1)
+        if interp.ncc_normalize:
+            f = ncc_normalize(f)
+        r = f.reshape(n, -1) - targets
+        return 0.5 * torch.sum(w * loss(torch.sum(r * r, -1)))[None]
+
+    return _autodiff_system(coords, _read_fn(
+        patches, rows.repeat_interleave(N, 0), single), psi, 6)
+
+
+def _qba_run(system, max_iters: int, q0, t0, cams, cam_mask):
     """Damped Newton on the query poses (and the intrinsics ``cam_mask``
     frees) of ``B`` queries at once (``_qba_inner`` of the JAX package,
-    vmapped there as ``_compiled_qba_batch``); ``data`` as
-    :func:`_qba_system_fn` takes it. ``max_iters`` steps, each: the
-    LM-damped step from the gradient and exact Hessian at the current
-    state (lambda_0 = 1e-4, diagonal clipped to [1e-8, 1e32], / 3 on
-    acceptance, x 4 on rejection), kept where it lowers the cost; the
-    system at the new state is computed once and carried where it is
-    kept. No host sync in the loop. Returns one ``[B, 4 + 3 + k + 2]``
-    tensor: q, t, intrinsics, initial and final cost."""
-    system = _qba_system_fn(model, interp, loss, cam_mask, patches, *data)
+    vmapped there as ``_compiled_qba_batch``); ``system(q, t, c) -> (cost
+    [B], g [B, NP], H [B, NP, NP])`` at the tangent 0 (or ``system(q, t)``
+    when ``cams`` has no column, the patch-warp pose refinement).
+    ``max_iters`` steps, each: the LM-damped step from the gradient and
+    exact Hessian at the current state (lambda_0 = 1e-4, diagonal clipped
+    to [1e-8, 1e32], / 3 on acceptance, x 4 on rejection), kept where it
+    lowers the cost; the system at the new state is computed once and
+    carried where it is kept. No host sync in the loop. Returns one ``[B,
+    4 + 3 + k + 2]`` tensor: q, t, intrinsics, initial and final cost."""
     NP = 6 + cams.shape[1]
     free = torch.cat([cam_mask.new_ones(6), cam_mask])
     ff = free[:, None] * free[None, :]
     fixed = torch.diag(1.0 - free) + 1e-8 * torch.eye(NP, device=free.device)
+    state = (lambda q, t, c: (q, t, c)) if cams.shape[1] else \
+        (lambda q, t, c: (q, t))
     q, t, c = q0, t0, cams
     lam = q0.new_full((q0.shape[0],), 1e-4)
-    cost0, g, Hm = system(q, t, c)
+    cost0, g, Hm = system(*state(q, t, c))
     cost = cost0
     for _ in range(max_iters):
         gf, Hf = g * free, Hm * ff
@@ -584,7 +720,7 @@ def _qba_run(model: str, interp: InterpolationConfig, loss: RobustLoss,
         q_new = quat_normalize(quat_mul(exp_quat(d[:, :3]), q))
         t_new = t + d[:, 3:6]
         c_new = c + d[:, 6:] * cam_mask
-        new_cost, g_new, H_new = system(q_new, t_new, c_new)
+        new_cost, g_new, H_new = system(*state(q_new, t_new, c_new))
         accept = new_cost < cost
         a1 = accept[:, None]
         q = torch.where(a1, q_new, q)
@@ -595,6 +731,12 @@ def _qba_run(model: str, interp: InterpolationConfig, loss: RobustLoss,
         lam = torch.where(accept, lam / 3.0, lam * 4.0)
         cost = torch.where(accept, new_cost, cost)
     return torch.cat([q, t, c, cost0[:, None], cost[:, None]], dim=1)
+
+
+def _analytic_qba(interp: InterpolationConfig) -> bool:
+    """Whether :func:`_qba_system_fn` (one BICUBIC node) covers the config;
+    NCC has no effect on one node, as in the JAX package."""
+    return interp.mode in ("BICUBIC", "CERES_BICUBIC") and interp.n_nodes == 1
 
 
 class QueryBundleAdjuster:
@@ -623,7 +765,7 @@ class QueryBundleAdjuster:
 
     def _options(self):
         interp = InterpolationConfig.from_conf(self.conf.get("interpolation"))
-        check_window_config(interp)     # QBA reads the window path only
+        check_window_config(interp)
         opt = self.conf.optimizer
         return (interp, make_loss(opt.get("loss")),
                 int(opt.solver.get("max_num_iterations", 100)))
@@ -644,10 +786,7 @@ class QueryBundleAdjuster:
     def _build_arrays(self, points3D, query_fmap, references, sel,
                       point2D_idxs):
         """Per-query QBA arrays (patches, rows, corner, scale, up, X,
-        targets [n, T, C], tw [n, T])."""
-        from ..bundle_adjustment.references import Reference
-        if isinstance(references[sel[0]], Reference):
-            raise NotImplementedError(_FULL_MODE)
+        targets [n, T, D], tw [n, T])."""
         patches, corners, scales, ups, row_of = _pack_query_fmap(
             query_fmap, self.device)
         rows = _rows_for(row_of, [point2D_idxs[i] for i in sel]
@@ -688,6 +827,7 @@ class QueryBundleAdjuster:
             raise NotImplementedError(
                 "sharding QBA over a device mesh is not ported yet; see "
                 "ROADMAP.md section 1, 'Sharding'")
+        from ..bundle_adjustment.references import Reference
         interp, loss, max_iters = self._options()
         prepared, results = [], [None] * len(items)
         for qi, it in enumerate(items):
@@ -697,6 +837,13 @@ class QueryBundleAdjuster:
             if not sel:
                 results[qi] = dict(qvec=it["qvec"], tvec=it["tvec"],
                                    skipped=True)
+                continue
+            if isinstance(it["references"][sel[0]], Reference):
+                # the "full" mode: one query at a time, as the JAX package
+                results[qi] = self._refine_patch_warp(
+                    it["qvec"], it["tvec"], it["camera"], it["points3D"],
+                    it["query_fmap"], it["references"], sel,
+                    it.get("point2D_idxs"), interp, loss, max_iters)
                 continue
             prepared.append((qi, it, self._build_arrays(
                 it["points3D"], it["query_fmap"], it["references"], sel,
@@ -747,11 +894,14 @@ class QueryBundleAdjuster:
             return torch.as_tensor(a, device=self.device)
 
         pose_d = put(pose_b)
+        system_fn = _qba_system_fn if _analytic_qba(interp) \
+            else _qba_autodiff_system_fn
         packed = _qba_run(
-            camera0.model, interp, loss, max_iters, pose_d[:, :4],
-            pose_d[:, 4:7], pose_d[:, 7:], put(cam_mask), patches_all,
-            put(rows_b), put(corner_b), put(scale_b), put(up_b), put(X_b),
-            put(tgt_b), put(tw_b))
+            system_fn(camera0.model, interp, loss, put(cam_mask),
+                      patches_all, put(rows_b), put(corner_b), put(scale_b),
+                      put(up_b), put(X_b), put(tgt_b), put(tw_b)),
+            max_iters, pose_d[:, :4], pose_d[:, 4:7], pose_d[:, 7:],
+            put(cam_mask))
         packed = packed.cpu().numpy().astype(np.float64)   # one fetch
         q, t, c = packed[:, :4], packed[:, 4:7], packed[:, 7:7 + k]
         c0, c1 = packed[:, 7 + k], packed[:, 8 + k]
@@ -762,6 +912,52 @@ class QueryBundleAdjuster:
                                initial_cost=float(c0[j]),
                                final_cost=float(c1[j]))
         return results
+
+    def _refine_patch_warp(self, qvec, tvec, camera: Camera, points3D,
+                           query_fmap, references, sel, point2D_idxs,
+                           interp: InterpolationConfig, loss,
+                           max_iters: int) -> Dict:
+        """Patch-warp QBA of one query ("full" reference mode,
+        ``_refine_patch_warp`` of the JAX package): the correspondences
+        ``sel`` whose references carry ``node_offsets3D``, each read at the
+        reprojections of ``X + node_offsets3D`` against the reference's
+        node descriptor, over damped Newton steps in the 6-DoF pose with
+        the JAX package's lambda schedule (:func:`_patch_warp_system_fn`).
+        Skipped when no reference has offsets
+        (``references.compute_offsets3D: false``)."""
+        patches, corners, scales, ups, row_of = _pack_query_fmap(
+            query_fmap, self.device)
+        rows = _rows_for(row_of, [point2D_idxs[i] for i in sel]
+                         if point2D_idxs is not None else sel)
+        keep = [j for j, i in enumerate(sel)
+                if references[i].node_offsets3D is not None]
+        if not keep:
+            logger.warning("patch-warp QBA: references carry no "
+                           "node_offsets3D (set references."
+                           "compute_offsets3D=True); skipping")
+            return dict(qvec=qvec, tvec=tvec, skipped=True)
+        rows = rows[keep]
+        idx = [sel[j] for j in keep]
+        X = np.asarray([points3D[i] for i in idx], np.float32)
+        offs = np.stack([references[i].node_offsets3D
+                         for i in idx]).astype(np.float32)
+        targets = np.stack([references[i].descriptor
+                            for i in idx]).astype(np.float32)
+
+        def put(a, dtype=torch.float32):
+            return torch.as_tensor(np.array(a), dtype=dtype,
+                                   device=self.device)
+
+        system = _patch_warp_system_fn(
+            camera.model, interp, loss, put(camera.params), patches,
+            put(rows, torch.int64), put(corners[rows]), put(scales[rows]),
+            put(ups[rows]), put(X), put(offs), put(targets),
+            put(np.ones(len(idx))))
+        out = _qba_run(system, max_iters, put(qvec)[None], put(tvec)[None],
+                       put(np.zeros((1, 0))), put(np.zeros(0)))
+        out = out[0].cpu().numpy().astype(np.float64)     # one fetch
+        return dict(qvec=out[:4], tvec=out[4:7], initial_cost=float(out[7]),
+                    final_cost=float(out[8]))
 
     def refine_multilevel(self, qvec, tvec, camera, points3D, query_fmaps,
                           query_references, inliers=None,
@@ -832,9 +1028,14 @@ class QueryLocalizer:
             "nearest": self._nearest_refs,
             "robust_mean": self._robust_mean_refs,
             "all_observations": self._all_obs_refs,
+            "full": self._full_refs,
         }
-        if self.conf.target_reference == "full":
-            raise NotImplementedError(_FULL_MODE)
+        if self.conf.target_reference == "full" and self.conf.QKA.apply:
+            # the JAX package's QKA takes descriptors: its "full" mode fails
+            # on the Reference objects there too
+            raise ValueError("target_reference 'full' gives Reference "
+                             "objects, which only patch-warp QBA reads; set "
+                             "QKA.apply: false")
         self.get_query_references = \
             self.target_reference_funcs[self.conf.target_reference]
 
@@ -893,6 +1094,9 @@ class QueryLocalizer:
                 level.append(refs[p].track_descriptors)
             out.append(level)
         return out
+
+    def _full_refs(self, p3D_ids, *args):
+        return [[refs[p] for p in p3D_ids] for refs in self.references]
 
     def extract_query_fmaps(self, keypoints: np.ndarray, pnp_point2D_idxs,
                             image_path):

@@ -34,10 +34,17 @@ def jacobi_inverse(H, damp: Optional[torch.Tensor]):
     return 1.0 / torch.clamp(d, min=1e-12)
 
 
-def pcg_solve_plain(H, g, iters: int, damp: Optional[torch.Tensor] = None):
+def pcg_solve_plain(H, g, iters: int, damp: Optional[torch.Tensor] = None,
+                    prec=None):
     """Solve ``(H + diag(damp)) dx = -g`` by ``iters`` Jacobi-PCG steps from
-    zero, on any device. ``damp=None`` means ``H`` is already damped."""
-    dinv = jacobi_inverse(H, damp)
+    zero, on any device. ``damp=None`` means ``H`` is already damped.
+    ``prec(v)`` replaces the Jacobi preconditioner (``ops/lm.py``'s
+    block-Jacobi)."""
+    if prec is None:
+        dinv = jacobi_inverse(H, damp)
+
+        def prec(v):
+            return dinv * v
 
     def mv(v):
         Av = torch.einsum("pij,pj->pi", H, v)
@@ -45,7 +52,7 @@ def pcg_solve_plain(H, g, iters: int, damp: Optional[torch.Tensor] = None):
 
     x = torch.zeros_like(g)
     r = -g
-    z = dinv * r
+    z = prec(r)
     p = z
     rz = torch.sum(r * z, dim=1)
     for _ in range(int(iters)):
@@ -53,7 +60,7 @@ def pcg_solve_plain(H, g, iters: int, damp: Optional[torch.Tensor] = None):
         alpha = rz / torch.clamp(torch.sum(p * Ap, dim=1), min=1e-30)
         x = x + alpha[:, None] * p
         r = r - alpha[:, None] * Ap
-        z = dinv * r
+        z = prec(r)
         rz_new = torch.sum(r * z, dim=1)
         beta = rz_new / torch.clamp(rz, min=1e-30)
         p = z + beta[:, None] * p

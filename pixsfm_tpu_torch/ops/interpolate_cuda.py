@@ -18,6 +18,18 @@ choice.
 references): the node offsets of every query expand into one launch on
 that query's patch row; the general variant serves their 3-channel raw
 intensities.
+
+:func:`interpolate` and :func:`interpolate_nodes` are the one route that
+every feature read of the solvers takes for an ``InterpolationConfig``:
+BICUBIC / CERES_BICUBIC with one node is one :func:`interpolate_rows` call,
+with several nodes one :func:`interpolate_node_rows` call followed by the
+NCC normalization when configured; BILINEAR, NEARESTNEIGHBOR and
+BICUBICCHAIN are the plain PyTorch reads of ``base/interpolation.py`` on
+every device (they are XLA in the JAX package) and never reach the kernel.
+:func:`interpolate_fwd` is :func:`interpolate`'s value with its forward-mode
+derivative ``dfdr * dr + dfdc * dc`` (the JAX package's custom JVP), so
+``torch.func.jvp`` / ``vmap`` over a residual that reads it take the
+kernel's own derivatives.
 """
 
 from __future__ import annotations
@@ -26,11 +38,16 @@ import ctypes
 
 import torch
 
-from ..base.interpolation import (bicubic_window_eval_rows,
-                                  l2_normalize_with_grad, node_queries)
+from ..base.interpolation import (InterpolationConfig,
+                                  bicubic_window_eval_rows,
+                                  interpolate_nodes_with_grad,
+                                  interpolate_rows_with_grad,
+                                  l2_normalize_with_grad,
+                                  ncc_normalize_with_grad, node_queries)
 
 __all__ = ["interpolate_rows", "interpolate_rows_plain",
-           "interpolate_node_rows", "kernel_variant", "launches",
+           "interpolate_node_rows", "interpolate", "interpolate_nodes",
+           "interpolate_fwd", "kernel_variant", "launches",
            "launches_by_channels"]
 
 # Number of kernel launches since the last reset (set it to 0 to reset),
@@ -139,3 +156,89 @@ def interpolate_node_rows(rows, H: int, W: int, C: int, row_base, r, c,
                                                         nodes),
                            l2_normalize)
     return tuple(o.reshape(-1, n, C) for o in out)
+
+
+def _on_kernel(config: InterpolationConfig) -> bool:
+    return config.mode in ("BICUBIC", "CERES_BICUBIC")
+
+
+def interpolate_nodes(rows, H: int, W: int, C: int, row_base, r, c,
+                      config: InterpolationConfig):
+    """Node windows ``(f, dfdr, dfdc)``, each ``[N, n_nodes, D]``, of any
+    feature config (one node included), NCC-normalized across the nodes
+    when configured: the JAX package's ``interpolate_nodes_with_grad``.
+    BICUBIC / CERES_BICUBIC read through :func:`interpolate_node_rows`
+    (kernel K1 on CUDA, one launch), the other modes plain PyTorch."""
+    if not _on_kernel(config):
+        return interpolate_nodes_with_grad(rows, H, W, C, row_base, r, c,
+                                           config)
+    f, dfdr, dfdc = interpolate_node_rows(rows, H, W, C, row_base, r, c,
+                                          config.nodes, config.l2_normalize)
+    if config.ncc_normalize:
+        f, (dfdr, dfdc) = ncc_normalize_with_grad(f, (dfdr, dfdc))
+    return f, dfdr, dfdc
+
+
+def interpolate(rows, H: int, W: int, C: int, row_base, r, c,
+                config: InterpolationConfig):
+    """``(f, dfdr, dfdc)``, each ``[N, D]``: the JAX package's node-aware
+    ``interpolate_with_grad`` (``base.interpolation.
+    interpolate_rows_with_grad``) through the kernel where it applies: the
+    flattened node window (node-major) with several nodes, one point
+    otherwise (NCC has no effect on one point, as there)."""
+    if not _on_kernel(config):
+        return interpolate_rows_with_grad(rows, H, W, C, row_base, r, c,
+                                          config)
+    if config.n_nodes > 1:
+        out = interpolate_nodes(rows, H, W, C, row_base, r, c, config)
+        return tuple(a.reshape(a.shape[0], -1) for a in out)
+    return interpolate_rows(rows, H, W, C, row_base, r, c,
+                            config.l2_normalize)
+
+
+class _Interpolate(torch.autograd.Function):
+    """:func:`interpolate`'s value with the forward-mode rule ``dfdr * dr +
+    dfdc * dc``. The read runs once, on plain tensors (the kernel cannot
+    see ``torch.func``'s wrappers); its derivatives come from the same
+    read."""
+
+    @staticmethod
+    def forward(r, c, rows, row_base, H, W, C, config):
+        return interpolate(rows, H, W, C, row_base, r, c, config)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, dfdr, dfdc = output
+        ctx.save_for_forward(dfdr, dfdc)
+        ctx.mark_non_differentiable(dfdr, dfdc)
+
+    @staticmethod
+    def jvp(ctx, dr, dc, *_):
+        dfdr, dfdc = ctx.saved_tensors
+        tan = None
+        if dr is not None:
+            tan = dfdr * dr[:, None]
+        if dc is not None:
+            tc = dfdc * dc[:, None]
+            tan = tc if tan is None else tan + tc
+        if tan is None:
+            tan = torch.zeros_like(dfdr)
+        return tan, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, r, c, rows, row_base, H, W, C, config):
+        if any(d is not None for d in in_dims):
+            raise NotImplementedError(
+                "interpolate_fwd: vmap over the queries is not supported; "
+                "pass the batch of queries as one call")
+        out = _Interpolate.apply(r, c, rows, row_base, H, W, C, config)
+        return out, (None, None, None)
+
+
+def interpolate_fwd(rows, H: int, W: int, C: int, row_base, r, c,
+                    config: InterpolationConfig):
+    """:func:`interpolate`'s value ``[N, D]``, differentiable in forward
+    mode in ``(r, c)`` through the read's own derivatives (the custom JVP
+    of the JAX package's ``interpolate_autodiff``). ``torch.func.jvp``
+    under ``torch.func.vmap`` over the tangents runs the read once."""
+    return _Interpolate.apply(r, c, rows, row_base, H, W, C, config)[0]

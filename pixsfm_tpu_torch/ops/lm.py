@@ -10,7 +10,11 @@ The damping/acceptance schedule is Madsen-Nielsen's gain-ratio LM, with
 optional GLL non-monotonic acceptance and best-iterate tracking. Box bounds
 are enforced by step projection ``x_new = clip(x + dx, lower, upper)``.
 The linear solve is Jacobi-preconditioned CG (kernel K2 on CUDA, see
-``ops/cg_cuda.py``) for N >= 48 and a batched Cholesky below.
+``ops/cg_cuda.py``) for N >= 48 and a batched Cholesky below. With
+``cg_block_size = b > 1`` and ``N % b == 0`` the CG is preconditioned by the
+inverses of the ``b x b`` diagonal blocks (closed form at ``b = 2``,
+Cholesky above), in plain PyTorch on every device, as the JAX package runs
+it in XLA (``ops/lm.py:150-190`` there); otherwise it falls back to Jacobi.
 """
 
 from __future__ import annotations
@@ -20,9 +24,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .cg_cuda import pcg_solve
+from .cg_cuda import pcg_solve, pcg_solve_plain
 
-__all__ = ["LMOptions", "LMSummary", "lm_solve"]
+__all__ = ["LMOptions", "LMSummary", "lm_solve", "block_jacobi_pcg"]
 
 
 @dataclass(frozen=True)
@@ -43,9 +47,11 @@ class LMOptions:
     # "cholesky" | "cg" | "auto" (cg for N >= 48, cholesky below)
     linear_solver: str = "auto"
     cg_iterations: int = 15
-    # Only 1 (diagonal Jacobi) is ported; block-Jacobi raises. The JAX
-    # package's cg_backend has no counterpart: the CG implementation follows
-    # the device (kernel K2 on CUDA, the plain loop on the CPU).
+    # CG preconditioner block size: 1 = diagonal Jacobi (kernel K2 on
+    # CUDA); b > 1 with N % b == 0 = block-Jacobi over b x b diagonal
+    # blocks (plain PyTorch); other b fall back to Jacobi. The JAX
+    # package's cg_backend has no counterpart: the CG implementation
+    # follows the device.
     cg_block_size: int = 1
     # Caller guarantees system_fn already zeroes frozen parameters' Hessian
     # rows/cols and gradient entries; the damping diagonal is then folded
@@ -109,10 +115,12 @@ def _masked_solve(H, g, lam, param_mask, opts: LMOptions):
     if solver == "auto":
         solver = "cg" if N >= 48 else "cholesky"
     if solver == "cg":
-        if int(opts.cg_block_size) > 1:
-            raise NotImplementedError(
-                "block-Jacobi CG (cg_block_size > 1) is not ported yet; it "
-                "comes with the bundle-adjustment slice of pixsfm_tpu_torch")
+        bs = int(opts.cg_block_size)
+        if bs > 1 and N % bs == 0:
+            dx = block_jacobi_pcg(H, g, int(opts.cg_iterations), bs,
+                                  damp=damp if Hd is None else None,
+                                  Hd=Hd)
+            return dx * m, D
         dx = pcg_solve(H if Hd is None else Hd, g, int(opts.cg_iterations),
                        damp=damp)
         return dx * m, D
@@ -127,6 +135,49 @@ def _masked_solve(H, g, lam, param_mask, opts: LMOptions):
     dx = torch.cholesky_solve(-g[..., None], L)[..., 0]
     dx = torch.where((info == 0)[:, None], dx, torch.zeros_like(dx))
     return dx * m, D
+
+
+def _block_inverse(Hd, bs: int):
+    """Inverses ``[P, N / bs, bs, bs]`` of the ``bs x bs`` diagonal blocks
+    of ``Hd [P, N, N]``: closed form at ``bs = 2`` (determinant clamped at
+    1e-24), else Cholesky of the block plus 1e-12 I and two triangular
+    solves, as the JAX package. A block whose factorization fails gets a
+    zero inverse (its rows take no step; JAX's NaNs are rejected by LM the
+    same way)."""
+    P, N, _ = Hd.shape
+    nb = N // bs
+    blocks = torch.diagonal(Hd.reshape(P, nb, bs, nb, bs), dim1=1, dim2=3)
+    blocks = blocks.permute(0, 3, 1, 2)                  # [P, nb, bs, bs]
+    if bs == 2:
+        a, b = blocks[..., 0, 0], blocks[..., 0, 1]
+        c, d = blocks[..., 1, 0], blocks[..., 1, 1]
+        det = torch.clamp(a * d - b * c, min=1e-24)
+        return torch.stack([torch.stack([d, -b], -1),
+                            torch.stack([-c, a], -1)], -2) / det[..., None,
+                                                               None]
+    eye = torch.eye(bs, dtype=Hd.dtype, device=Hd.device)
+    L, info = torch.linalg.cholesky_ex(blocks + 1e-12 * eye)
+    inv = torch.cholesky_inverse(L)
+    return torch.where((info == 0)[..., None, None], inv,
+                       torch.zeros_like(inv))
+
+
+def block_jacobi_pcg(H, g, iters: int, bs: int,
+                     damp: Optional[torch.Tensor] = None, Hd=None):
+    """Solve ``(H + diag(damp)) dx = -g`` (or ``Hd dx = -g`` when ``Hd`` is
+    given) by ``iters`` block-Jacobi-preconditioned CG steps from zero: the
+    JAX package's CG scan with ``cg_block_size = bs`` (``N % bs == 0``),
+    in plain PyTorch (K2's plain loop with this preconditioner)."""
+    P, N = g.shape
+    inv = _block_inverse(H + torch.diag_embed(damp) if Hd is None else Hd,
+                         bs)
+
+    def prec(v):
+        return torch.einsum("pnab,pnb->pna", inv,
+                            v.reshape(P, N // bs, bs)).reshape(P, N)
+
+    return pcg_solve_plain(H if Hd is None else Hd, g, iters,
+                           damp=damp if Hd is None else None, prec=prec)
 
 
 def lm_solve(system_fn: Callable,

@@ -46,8 +46,12 @@ pixsfm/bundle_adjustment/src/bundle_optimizer.h:114-245). Design:
   optional inner point-only iterations after each accepted step.
 
 The LM loop runs on the host (one device sync per iteration and per CG
-step). Out of scope here, raising ``NotImplementedError``: the generic
-autodiff path (no ``residual_jac_fn``).
+step). Without a ``residual_jac_fn`` the Jacobian is forward mode over
+``residual_fn`` (:func:`jacfwd_residual_jac`, the JAX package's per-
+observation ``jax.jacfwd`` at tangent 0): one ``torch.func.jvp`` per
+tangent direction, vmapped over the directions, with every observation of
+a chunk at once (each residual depends on its own observation's tangent
+only, so the Jacobian is the block diagonal of the chunk's).
 """
 
 from __future__ import annotations
@@ -62,7 +66,8 @@ from ..base.geometry import exp_quat, quat_mul, quat_normalize
 from . import schur_cuda
 
 __all__ = ["BAOptions", "BAState", "BAObservations", "ba_solve",
-           "dense_camera_solve", "make_pair_list", "make_point_major"]
+           "dense_camera_solve", "make_pair_list", "make_point_major",
+           "jacfwd_residual_jac"]
 
 # one-hot segment-sum budget of the JAX package (S targets x n items); the
 # BA adjuster compares ``Np_pad * obs_chunk`` against it to pick the
@@ -261,6 +266,49 @@ def _cg(A, b, M, maxiter: int, tol: float):
     return x, k
 
 
+def jacfwd_residual_jac(residual_fn: Callable, has_src: bool = False
+                        ) -> Callable:
+    """A ``residual_jac_fn`` for :func:`ba_solve` from ``residual_fn``
+    alone: the residual of a chunk at the tangent ``d = 0`` and its
+    Jacobian ``[n, C, D]`` in ``ba_solve``'s tangent layout (``D = 6 + k +
+    3``, or ``12 + k + 3`` with a source pose), by forward mode
+    (``obs_residual`` under ``jax.jacfwd`` in the JAX package,
+    ``ops/schur.py:481-500``, ``:664-681``). The pose moves by ``q <-
+    normalize(exp(omega) q)``, ``t <- t + dt``; intrinsics and point
+    additively. ``torch.func.vmap`` runs the D tangents of every
+    observation of the chunk in one pass; a feature read inside
+    ``residual_fn`` must be forward-differentiable
+    (``ops/interpolate_cuda.interpolate_fwd`` is, and reads once)."""
+    PB = 12 if has_src else 6
+
+    def residual_jac_fn(*args):
+        if has_src:
+            q, t, qs, ts, cam, X, sl, ctx = args
+        else:
+            q, t, cam, X, sl, ctx = args
+        n, k = cam.shape
+        D = PB + k + 3
+
+        def rfun(d):
+            pose = (quat_normalize(quat_mul(exp_quat(d[:, :3]), q)),
+                    t + d[:, 3:6])
+            if has_src:
+                pose += (quat_normalize(quat_mul(exp_quat(d[:, 6:9]), qs)),
+                         ts + d[:, 9:12])
+            return residual_fn(*pose, cam + d[:, PB:PB + k],
+                               X + d[:, PB + k:], sl, ctx)
+
+        d0 = X.new_zeros((n, D))
+        basis = torch.eye(D, dtype=X.dtype, device=X.device)[:, None, :] \
+            .expand(D, n, D)
+        r, Jt = torch.func.vmap(
+            lambda tan: torch.func.jvp(rfun, (d0,), (tan,)),
+            out_dims=(None, 0))(basis)
+        return r, Jt.permute(1, 2, 0)
+
+    return residual_jac_fn
+
+
 def ba_solve(residual_fn: Callable,
              state0: BAState,
              obs: BAObservations,
@@ -282,18 +330,15 @@ def ba_solve(residual_fn: Callable,
     with the same arguments returns ``(r [n, C], J [n, C, 6+k+3])``, the
     Jacobian in the tangent layout ``[omega(3), dt(3), dcam(k), dX(3)]``.
     ``residual_fn`` serves the cost-only evaluations, so the two must agree
-    on the residual. With ``obs.src_idx`` both take the source pose after
-    the image's, ``(q, t, q_src, t_src, cam, X, obs_slice, ctx)``, and the
-    Jacobian's layout is ``[omega, dt, omega_src, dt_src, dcam, dX]``
-    (JAX's ``ba_solve`` takes ``jax.jacfwd`` there and refuses a
-    ``residual_jac_fn``).
+    on the residual. Without ``residual_jac_fn`` the Jacobian is forward
+    mode over ``residual_fn`` (:func:`jacfwd_residual_jac`). With
+    ``obs.src_idx`` both take the source pose after the image's, ``(q, t,
+    q_src, t_src, cam, X, obs_slice, ctx)``, and the Jacobian's layout is
+    ``[omega, dt, omega_src, dt_src, dcam, dX]`` (JAX's ``ba_solve`` takes
+    ``jax.jacfwd`` there and refuses a ``residual_jac_fn``).
 
     Returns the best state and a summary ``{initial_cost, final_cost,
     iterations, cg_iterations, lam, done}``."""
-    if residual_jac_fn is None:
-        raise NotImplementedError(
-            "ba_solve without residual_jac_fn (the generic autodiff path) is "
-            "not ported yet; see ROADMAP.md section 1, 'The jacfwd path'")
     if opts.linear_solver not in ("dense", "cg"):
         raise ValueError(f"unknown linear_solver {opts.linear_solver!r}")
     dense = opts.linear_solver == "dense"
@@ -308,6 +353,8 @@ def ba_solve(residual_fn: Callable,
     Np = state0.xyz.shape[0]
     O = obs.img_idx.shape[0]
     has_src = obs.src_idx is not None
+    if residual_jac_fn is None:
+        residual_jac_fn = jacfwd_residual_jac(residual_fn, has_src)
     PB = 12 if has_src else 6          # pose tangent rows per observation
     NR = PB + k
     grid_T = int(opts.obs_grid_T or 0)

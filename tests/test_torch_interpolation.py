@@ -84,8 +84,31 @@ def test_plain_k1_matches_pallas_interpret(dtype):
     {"mode": "BILINEAR"}, {"ncc_normalize": True},
     {"nodes": [[0.0, 0.0], [1.0, 0.0]]}])
 def test_unported_modes_raise(conf):
-    with pytest.raises(NotImplementedError):
-        check_window_config(InterpolationConfig(**conf))
+    """Every feature config is ported, so ``check_window_config`` passes
+    these. What still raises is what the JAX package refuses: single-point
+    NCC in the residual-with-grad path (``check_residual_config``, JAX's
+    exception and message) and the gradient-field modes on feature patches
+    (``ValueError``)."""
+    import jax.numpy as jnp
+    from pixsfm_tpu.base.interpolation import InterpolationConfig as JInterp
+    from pixsfm_tpu.base.interpolation import interpolate_residual_with_grad
+    from pixsfm_tpu_torch.base.interpolation import check_residual_config
+    interp = InterpolationConfig(**conf)
+    check_window_config(interp)
+    if conf.get("ncc_normalize"):
+        for fn in (lambda: check_residual_config(interp),
+                   lambda: interpolate_residual_with_grad(
+                       jnp.zeros((1, 4, 4, 2)), 0, 1.0, 1.0,
+                       JInterp(**conf))):
+            with pytest.raises(NotImplementedError,
+                               match="single-point NCC configs use the "
+                                     "autodiff path"):
+                fn()
+    else:
+        check_residual_config(interp)
+    gf = dict(conf, mode="POLYGRADIENTFIELD")
+    with pytest.raises(ValueError, match="cost patches"):
+        check_window_config(InterpolationConfig(**gf))
 
 
 # Shapes that reach the general variant of the CUDA kernel (C no multiple of
@@ -203,15 +226,13 @@ def test_node_windows_match(l2, ncc):
 
 
 def test_node_windows_config():
-    """With ``nodes=True`` BICUBIC / CERES_BICUBIC pass with node windows
-    and NCC; the modes still to port raise either way."""
+    """Node windows and NCC pass with every feature mode (BICUBIC and
+    CERES_BICUBIC on kernel K1, the others plain); only the gradient-field
+    modes raise."""
     conf = dict(ncc_normalize=True, nodes=NODES16)
-    for mode in ("BICUBIC", "CERES_BICUBIC"):
-        check_window_config(InterpolationConfig(mode=mode, **conf),
-                            nodes=True)
-        with pytest.raises(NotImplementedError, match="The rest of KA"):
+    for mode in ("BICUBIC", "CERES_BICUBIC", "BILINEAR", "NEARESTNEIGHBOR",
+                 "BICUBICCHAIN"):
+        check_window_config(InterpolationConfig(mode=mode, **conf))
+    for mode in ("POLYGRADIENTFIELD", "BICUBICGRADIENTFIELD"):
+        with pytest.raises(ValueError):
             check_window_config(InterpolationConfig(mode=mode, **conf))
-    for mode in ("BILINEAR", "NEARESTNEIGHBOR", "BICUBICCHAIN"):
-        with pytest.raises(NotImplementedError):
-            check_window_config(InterpolationConfig(mode=mode, **conf),
-                                nodes=True)

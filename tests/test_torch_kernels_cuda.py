@@ -998,3 +998,143 @@ def test_loftr_cuda_matches_cpu(dev, pair):
     for k in common:
         assert float(np.abs(a[k][0] - b[k][0]).max()) <= 1e-3
         assert abs(a[k][1] - b[k][1]) <= 1e-4 * top
+
+
+# ---------------------------------------------------------------------------
+# every interpolation config: node windows at 128 channels, the plain modes,
+# forward mode through the kernel, block-Jacobi CG and the forward-mode BA
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l2,ncc", [(True, False), (False, True)])
+def test_k1_node_rows_128_channels_match_plain(dev, dtype, l2, ncc):
+    """``interpolate_cuda.interpolate_nodes`` (the solvers' node route) at
+    128 channels and 16 nodes per query (the vector variant, one launch),
+    against the plain version on the CPU: the K1 tolerances, NCC within
+    1e-4 of each array's largest entry (it divides by each channel's
+    spread over the nodes)."""
+    from pixsfm_tpu_torch.base.interpolation import (
+        InterpolationConfig, interpolate_nodes_with_grad)
+    rows, row_base, r, c = _k1_inputs(dev, dtype, n_patches=200, n=1000)
+    assert interpolate_cuda.kernel_variant(rows) == "vector"
+    interp = InterpolationConfig(l2_normalize=l2, ncc_normalize=ncc,
+                                 nodes=NODES16)
+    before = interpolate_cuda.launches
+    out = interpolate_cuda.interpolate_nodes(rows, 16, 16, 128, row_base, r,
+                                             c, interp)
+    ref = interpolate_nodes_with_grad(rows.cpu(), 16, 16, 128,
+                                      row_base.cpu(), r.cpu(), c.cpu(),
+                                      interp)
+    torch.cuda.synchronize()
+    assert interpolate_cuda.launches == before + 1
+    for a, b in zip(out, ref):
+        assert a.shape == (1000, 16, 128)
+        atol = 1e-4 * float(b.abs().max()) if ncc else K1_ATOL[dtype]
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("mode", ["BILINEAR", "NEARESTNEIGHBOR",
+                                  "BICUBICCHAIN"])
+def test_plain_modes_never_launch_k1(dev, mode):
+    """The modes that are XLA in the JAX package are plain PyTorch on the
+    card too: no K1 launch, the CPU's numbers within 1e-5."""
+    from pixsfm_tpu_torch.base.interpolation import InterpolationConfig
+    rows, row_base, r, c = _k1_inputs(dev, torch.float32)
+    interp = InterpolationConfig(mode=mode, nodes=NODES16[:4])
+    before = interpolate_cuda.launches
+    out = interpolate_cuda.interpolate(rows, 16, 16, 128, row_base, r, c,
+                                       interp)
+    ref = interpolate_cuda.interpolate(rows.cpu(), 16, 16, 128,
+                                       row_base.cpu(), r.cpu(), c.cpu(),
+                                       interp)
+    torch.cuda.synchronize()
+    assert interpolate_cuda.launches == before
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+def test_interpolate_fwd_through_k1_matches_cpu(dev):
+    """Forward mode through the kernel (``interpolate_fwd`` under
+    ``torch.func.jvp`` and ``vmap`` over three tangents): one launch, the
+    CPU's value and tangents within the K1 tolerance."""
+    from pixsfm_tpu_torch.base.interpolation import InterpolationConfig
+    rows, row_base, r, c = _k1_inputs(dev, torch.float32)
+    interp = InterpolationConfig(nodes=NODES16[:4])
+
+    def jac(rows, row_base, r, c):
+        def fn(d):
+            return interpolate_cuda.interpolate_fwd(
+                rows, 16, 16, 128, row_base, r + d[:, 0], c + d[:, 1],
+                interp)
+        d0 = torch.zeros((r.shape[0], 2), device=r.device)
+        basis = torch.tensor([[1.0, 0.0], [0.0, 1.0], [0.5, -2.0]],
+                             device=r.device)[:, None].expand(
+                                 3, r.shape[0], 2)
+        return torch.func.vmap(lambda t: torch.func.jvp(fn, (d0,), (t,)),
+                               out_dims=(None, 0))(basis)
+
+    before = interpolate_cuda.launches
+    out = jac(rows, row_base, r, c)
+    torch.cuda.synchronize()
+    assert interpolate_cuda.launches == before + 1
+    ref = jac(rows.cpu(), row_base.cpu(), r.cpu(), c.cpu())
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("bs", [2, 4])
+def test_block_jacobi_cuda_matches_cpu(dev, bs):
+    """Block-Jacobi CG (plain PyTorch on every device) on the KA main
+    path's system size, cuda against cpu: within 1e-4 relative."""
+    from pixsfm_tpu_torch.ops.lm import block_jacobi_pcg
+    gen = torch.Generator().manual_seed(5)
+    A = torch.randn((16, 112, 112), generator=gen)
+    H = A @ A.transpose(1, 2) / 112 + 0.5 * torch.eye(112)
+    g = torch.randn((16, 112), generator=gen)
+    damp = torch.rand((16, 112), generator=gen) * 0.1
+    out = block_jacobi_pcg(H.to(dev), g.to(dev), 15, bs, damp=damp.to(dev))
+    ref = block_jacobi_pcg(H, g, 15, bs, damp=damp)
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+def test_jacfwd_ba_solve_cuda_matches_cpu(dev):
+    """``ba_solve`` without a closed-form Jacobian (forward mode over the
+    residual) on cuda against cpu: the geometric residual on a synthetic
+    scene, final cost rtol 1e-4, points within 1e-3."""
+    import numpy as np
+    from pixsfm_tpu_torch.base.losses import RobustLoss
+    from pixsfm_tpu_torch.bundle_adjustment.main import _RESIDUAL_BUILDERS
+    from pixsfm_tpu_torch.bundle_adjustment.problem import pack_ba_problem
+    from pixsfm_tpu_torch.ops import schur
+    from pixsfm_tpu_torch.sfm.synthetic import synthetic_reconstruction
+    rec = synthetic_reconstruction(n_images=5, n_points=80, noise_px=0.4,
+                                   seed=72)
+    rng = np.random.default_rng(0)
+    for p in rec.points3D.values():
+        p.xyz = p.xyz + rng.normal(0, 0.02, 3)
+    packed = pack_ba_problem(rec)
+    O = len(packed.obs_img)
+    build, _ = _RESIDUAL_BUILDERS["geometric"]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        def T(a, dtype=None):
+            return torch.as_tensor(np.array(a), dtype=dtype, device=d)
+        obs = schur.BAObservations(
+            T(packed.obs_img, torch.long), T(packed.obs_cam, torch.long),
+            T(packed.obs_pt, torch.long),
+            (T(packed.obs_xy, torch.float32),),
+            torch.ones(O, dtype=torch.bool, device=d))
+        st, summ = schur.ba_solve(
+            build(packed.cam_model), schur.BAState(
+                T(packed.qvec, torch.float32), T(packed.tvec, torch.float32),
+                T(packed.cams, torch.float32), T(packed.xyz, torch.float32)),
+            obs, RobustLoss("cauchy", [2.0]), T(packed.pose_free),
+            T(packed.tvec_free), T(packed.cam_free), T(packed.point_free),
+            opts=schur.BAOptions(max_iterations=8, obs_chunk=64,
+                                 linear_solver="cg"))
+        outs.append((st, summ))
+    (a, sa), (b, sb) = outs
+    assert sa["final_cost"] < 0.5 * sa["initial_cost"]
+    assert abs(sa["final_cost"] - sb["final_cost"]) <= 1e-4 * sb["final_cost"]
+    torch.testing.assert_close(a.xyz.cpu(), b.xyz, rtol=0, atol=1e-3)

@@ -156,9 +156,26 @@ def test_lm_options_from_default_conf():
 
 
 def test_block_jacobi_is_not_ported():
+    """Block-Jacobi CG is ported (plain PyTorch): ``cg_block_size = 2``
+    (closed-form block inverses) and ``4`` (Cholesky) match JAX's
+    ``_masked_solve``, folded and not, within the module's tolerance; a
+    block size that does not divide N falls back to Jacobi in both."""
     rng = np.random.default_rng(3)
-    H, g, lam, mask = _masked_inputs(rng, N=64)
-    opts = replace(tlm.LMOptions(), linear_solver="cg", cg_block_size=2)
-    with pytest.raises(NotImplementedError):
-        tlm._masked_solve(torch.from_numpy(H), torch.from_numpy(g),
-                          torch.from_numpy(lam), torch.from_numpy(mask), opts)
+    H, g, lam, mask = _masked_inputs(rng, N=60)
+    for bs, folded in ((2, True), (4, False), (7, True)):
+        Hc, gc = H, g
+        if folded:
+            m = mask.astype(np.float32)
+            Hc = H * m[:, :, None] * m[:, None, :]
+            gc = g * m
+        kw = dict(linear_solver="cg", cg_block_size=bs,
+                  assume_masked_system=folded)
+        dx_j, _ = jlm._masked_solve(jnp.asarray(Hc), jnp.asarray(gc),
+                                    jnp.asarray(lam), jnp.asarray(mask),
+                                    jlm.LMOptions(**kw))
+        dx_t, _ = tlm._masked_solve(torch.from_numpy(Hc),
+                                    torch.from_numpy(gc),
+                                    torch.from_numpy(lam),
+                                    torch.from_numpy(mask),
+                                    tlm.LMOptions(**kw))
+        np.testing.assert_allclose(dx_t.numpy(), np.asarray(dx_j), **TOL)

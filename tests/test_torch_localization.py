@@ -389,16 +389,22 @@ def test_localize_batch_matches_jax(scene, mode):
 
 
 def test_unported_modes_raise(scene):
+    """What the localizer still refuses: the device mesh ('Sharding'), and
+    "full" references fed to QKA (``ValueError``; the JAX package's QKA
+    fails on them too, ``tests/test_torch_qba_options.py``). The "full"
+    mode with QKA off and the other interpolation modes build."""
     mgr = _Manager(scene["tfset"])
-    with pytest.raises(NotImplementedError, match="'The other BA strategies'"):
+    with pytest.raises(ValueError, match="QKA.apply"):
         QueryLocalizer(scene["trec2"], conf={"target_reference": "full"},
                        dense_features=mgr, device="cpu")
     with pytest.raises(NotImplementedError, match="'Sharding'"):
         QueryLocalizer(scene["trec2"], conf={"parallel": {"enabled": True}},
                        dense_features=mgr, device="cpu")
-    with pytest.raises(NotImplementedError, match="'The other BA strategies'"):
-        QueryLocalizer(scene["trec2"], conf={"interpolation": {
-            "mode": "BILINEAR"}}, dense_features=mgr, device="cpu")
+    QueryLocalizer(scene["trec2"], conf={"target_reference": "full",
+                                         "QKA": {"apply": False}},
+                   dense_features=mgr, device="cpu")
+    QueryLocalizer(scene["trec2"], conf={"interpolation": {
+        "mode": "BILINEAR"}}, dense_features=mgr, device="cpu")
 
 
 # ---------------------------------------------------------------------------

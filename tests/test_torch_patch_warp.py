@@ -58,6 +58,7 @@ from tests.test_bundle_adjustment import perturb
 from tests.test_costmap_patchwarp_ba import track_consistency
 from tests.test_feature_reference_ba import featuremetric_scene
 from tests.test_mixed_fm_ba import split_cameras_mixed
+from tests.test_torch_ba import _one_torch_thread  # noqa: F401
 from tests.test_torch_ba import _port_fset, _to_port
 
 NODES16 = [[float(dx), float(dy)] for dy in (-1.5, -0.5, 0.5, 1.5)
