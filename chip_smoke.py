@@ -277,6 +277,32 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    within ``OPT_NCC_COST_RTOL``. Then ``run_ka`` on phase
    5's scene at full width with the default solve, with compaction and
    with block-Jacobi CG, timed in one call.
+24. Sharding (``parallel/sharded.py``) over a mesh that names the card
+   twice, ``Mesh((cuda:0, cuda:0))``: its two shards run in turn on the one
+   card, each on its own slice (a one-card machine gives the ``parallel``
+   knob no mesh, as one JAX chip does). Each step is held against the same
+   call unsharded on the card, and counters are zeroed just before each
+   sharded run and read just after. (a) ``solve_ka_problems`` on the
+   problems of ``run_ka`` on phase 5's scene (recorded from that call),
+   the problem axis over the mesh: keypoints within 5e-4 px, the cost
+   within rtol 1e-4 (the JAX package's
+   ``test_sharded_ka_matches_single_device``). (b) The body of
+   ``PixSfM.triangulation`` on phase 11's scene (each run on its own copy
+   of the reference model) with the mesh in KA, the references and
+   ``feature_reference`` BA, which takes its window layout and the flat CG
+   regime (BA capped at ``BA_ITERATIONS``): the same points, within 5e-3,
+   the BA cost within rtol 1e-3 (``tests/test_parallel_pipeline.py``); K1
+   and K2 launched, K3 not; the first window-layout launch of K1 is
+   watched (its inputs kept) and K1 held to its plain version on them (as
+   stored and in float32, L2 on and off) and timed there. (c) Costmap BA
+   at the ``low_memory`` preset's 8 px on (b)'s model, its observations
+   over the mesh in the ``costmap_window`` layout, ``SHARD_COSTMAP_
+   ITERATIONS`` LM iterations without inner iterations, from one set of
+   cost patches, held as phase 19(b) holds costmap BA across devices (cost
+   rtol 1e-4, points 1e-3). (d) ``localize_batch`` on phase 18's 8 queries
+   with the localizer's mesh (QKA problems, PnP queries and QBA queries
+   over it), the references shared: the same successes, poses within
+   phase 14's polished limits (``compare_localizations``).
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA, BA, triangulation), its error against the plain version, its
@@ -304,6 +330,8 @@ dense maps, with the figures on the first such launch's inputs;
 ``"eth3d_loftr"``: the launches of 22(c), with phase 2's figures at the
 KA shape; ``"interp_options"``: the launches of 23(a), 23(b) and 23(c),
 split in ``launches_by_run``, with the figures on 23(a)'s first node-rows
+launch; ``"sharded"``: the launches of 24(a)-(d), split in
+``launches_by_run``, with the figures on 24(b)'s first window-layout
 launch; ``"vggnet"``: one entry per width, ``channels`` 64 / 256 / 512, with
 21(d)'s launches at that width and phase 2's figures at it); K2's and
 K3a/b/c's entries sum their launches over the paths and list them in ``launches_by_path`` (K3's ``in_situ_low_memory_ms``
@@ -2395,8 +2423,8 @@ PHOTO_CPU_BA_ITERATIONS = 5
 PHOTO_BA_ITERATIONS = 10
 # 20(c)'s patch-warp BA on phase 11's scene (30 LM iterations as shipped,
 # 18.43 s for the 28 it ran on an NVIDIA H100 80GB HBM3 at 700 W; cut to
-# make room for phase 23)
-PHOTO_TRI_BA_ITERATIONS = 15
+# 15 to make room for phase 23, and to 8 for phase 24)
+PHOTO_TRI_BA_ITERATIONS = 8
 
 
 def photometric_cuda_vs_cpu(torch, np, PixSfM, load_config, tmp):
@@ -3575,6 +3603,302 @@ def options_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
     return launches_a, launches_b, launches_c, k1
 
 
+# ---------------------------------------------------------------------------
+# phase 24: sharding over a device mesh
+# ---------------------------------------------------------------------------
+
+# (c): costmap BA on phase 11's scene at the low_memory preset's 8 px,
+# capped at this many LM iterations, inner iterations off (the strict
+# limits of phase 19(b): the same cost patches, cost rtol 1e-4, points
+# 1e-3). The preset's LM rejects its first candidates until lambda has
+# grown (6 rejections before the first accepted step on a CPU dry run of
+# this phase at 640x480), so 5 iterations could compare rejected
+# candidates only: 8 take some accepted steps
+SHARD_COSTMAP_ITERATIONS = 8
+
+
+def window_read_watch(bmain):
+    """Swap ``bundle_adjustment.main._Windows.read`` for a watcher that
+    keeps the K1 inputs of the first window-layout read (each observation's
+    own window, one row block each). Returns (first, restore)."""
+    import torch
+    orig = bmain._Windows.read
+    first = {}
+
+    def watch(self, row, pix, interp):
+        if not first:
+            pc, _ = self.coords(row, pix)
+            first["args"] = (self.rows, self.H, self.W, self.C,
+                             (row * self.H).to(torch.int32),
+                             pc[:, 1].contiguous(), pc[:, 0].contiguous())
+            first["l2"] = bool(interp.l2_normalize)
+        return orig(self, row, pix, interp)
+
+    bmain._Windows.read = watch
+
+    def restore():
+        bmain._Windows.read = orig
+    return first, restore
+
+
+def sharded_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
+                  schur_cuda, ka_scene, tri, loc_scene):
+    """Phase 24 (see the module docstring). Returns the launches of the
+    sharded runs (in all and by run) and K1's figures on the first
+    window-layout launch."""
+    import tempfile
+    from pixsfm_tpu_torch.bundle_adjustment import CostMapBundleAdjuster
+    from pixsfm_tpu_torch.bundle_adjustment import main as bmain
+    from pixsfm_tpu_torch.bundle_adjustment.costmaps import (
+        costmap_solve, extract_costmaps)
+    from pixsfm_tpu_torch.base.interpolation import InterpolationConfig
+    from pixsfm_tpu_torch.extract import features_from_reconstruction
+    from pixsfm_tpu_torch.keypoint_adjustment import main as kmain
+    from pixsfm_tpu_torch.localization import QueryLocalizer
+    from pixsfm_tpu_torch.localize import build_query_correspondences
+    from pixsfm_tpu_torch.parallel import Mesh
+    t_phase = time.perf_counter()
+    mesh = Mesh(["cuda:0", "cuda:0"])
+    zero, read = kernel_counts(torch, interpolate_cuda, cg_cuda, schur_cuda)
+    sync = torch.cuda.synchronize
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = Path(tmp_dir.name)
+    by_run = {}
+
+    def sharded(sfm):
+        sfm.keypoint_adjuster._parallel_mesh = lambda: mesh
+        sfm.bundle_adjuster._parallel_mesh = lambda: mesh
+        return sfm
+
+    # (a) solve_ka_problems at phase 5's KA shape: the problems of run_ka,
+    # solved again with the problem axis over the two shards
+    images, kps, matches, scores = ka_scene
+    seen = {}
+    orig = kmain.solve_ka_problems
+
+    def record(*a, **kw):
+        seen["call"] = (a, kw)
+        seen["out"] = orig(*a, **kw)
+        return seen["out"]
+
+    kmain.solve_ka_problems = record
+    try:
+        PixSfM(device="cuda").run_ka({k: v.copy() for k, v in kps.items()},
+                                     images, matches=matches, scores=scores)
+    finally:
+        kmain.solve_ka_problems = orig
+    a, kw = seen["call"]
+    problems = a[0]
+    zero()
+    t0 = time.perf_counter()
+    kp_sh, sum_sh = orig(*a, **dict(kw, mesh=mesh))
+    sync()
+    wall_a = time.perf_counter() - t0
+    by_run["KA (24a)"] = read()
+    kp_one, sum_one = seen["out"]
+    valid = problems.kp_valid
+    dkp = float(np.abs(kp_sh[valid] - kp_one[valid]).max())
+    dcost = abs(sum_sh["final_cost"] - sum_one["final_cost"]) \
+        / abs(sum_one["final_cost"])
+    print(f"phase 24(a): solve_ka_problems on phase 5's {problems.kp0.shape[0]}"
+          f" problems of {problems.kp0.shape[1]} keypoints over "
+          f"{mesh}: {wall_a:.2f} s, {sum_sh['iterations']} LM iterations, "
+          f"cost {sum_sh['initial_cost']:.4f} -> {sum_sh['final_cost']:.4f} "
+          f"(unsharded {sum_one['final_cost']:.4f}); max |kp(sharded) - "
+          f"kp(unsharded)| = {dkp:.2e} px, cost {dcost:.2e} relative "
+          f"(limits 5e-4 px, rtol 1e-4); launches {by_run['KA (24a)']}")
+    if not (dkp <= 5e-4 and dcost <= 1e-4
+            and min(by_run["KA (24a)"]["K1"], by_run["KA (24a)"]["K2"]) > 0):
+        raise SystemExit("sharded KA disagrees with the unsharded solve or "
+                         "launched no kernel")
+    del seen, problems
+
+    # (b) the triangulation body with the mesh in KA, the references and
+    # feature_reference BA (window layout), against the same call unsharded
+    (reference, views_t, kps_t, matches_t, scores_t, truth_t, err_raw,
+     err_tri, n_tri_pts) = tri
+    conf_b = {"mapping": {"BA": {"optimizer": {"solver": {
+        "max_num_iterations": BA_ITERATIONS}}}}}
+    runs = {}
+    first, restore = window_read_watch(bmain)
+    for label in ("unsharded", "sharded"):
+        sfm = PixSfM(conf_b, device="cuda")
+        if label == "sharded":
+            sharded(sfm)
+            zero()
+        else:
+            sync()
+        t0 = time.perf_counter()
+        try:
+            # a copy of the reference each: BA refines the intrinsics of
+            # the cameras the triangulated model shares with it
+            rec, out = sfm._triangulation(
+                tmp / label, reference.copy(), views_t,
+                {k: v.copy() for k, v in kps_t.items()}, matches_t, scores_t)
+            sync()
+        finally:
+            if label == "sharded":
+                restore()
+        runs[label] = (rec, _levels0(out["KA"]), _levels0(out["BA"]),
+                       time.perf_counter() - t0)
+        if label == "sharded":
+            by_run["triangulation (24b)"] = read()
+        elif first:
+            raise SystemExit("the unsharded BA read windows")
+        del sfm
+    (rec_a, ka_a, ba_a, w_a), (rec_b, ka_b, ba_b, w_b) = (
+        runs["unsharded"], runs["sharded"])
+    common = sorted(set(rec_a.points3D) & set(rec_b.points3D))
+    dx = max(float(np.abs(rec_a.points3D[p].xyz - rec_b.points3D[p].xyz)
+                   .max()) for p in common)
+    dcost = abs(ba_b["final_cost"] - ba_a["final_cost"]) \
+        / abs(ba_a["final_cost"])
+    lb = by_run["triangulation (24b)"]
+    print(f"phase 24(b): PixSfM._triangulation on phase 11's scene, KA, "
+          f"references and feature_reference BA (window layout) over the "
+          f"mesh: {w_b:.2f} s (KA {ka_b['time']:.2f} s, references "
+          f"{ba_b['references_time']:.2f} s, BA solve {ba_b['time']:.2f} s, "
+          f"{ba_b['linear_solver']} step, grid T {ba_b['obs_grid_T']}, "
+          f"{ba_b['iterations']} LM / {ba_b['cg_iterations']} CG "
+          f"iterations, cost {ba_b['initial_cost']:.4f} -> "
+          f"{ba_b['final_cost']:.4f}); unsharded {w_a:.2f} s (BA solve "
+          f"{ba_a['time']:.2f} s, cost {ba_a['final_cost']:.4f}); points "
+          f"{len(rec_b.points3D)} / {len(rec_a.points3D)}, max |xyz(sharded)"
+          f" - xyz(unsharded)| = {dx:.2e}, BA cost {dcost:.2e} relative "
+          f"(limits 5e-3, rtol 1e-3); point error to truth "
+          f"{triangulated_error(np, rec_b, truth_t):.5f} (phase 11: "
+          f"{err_tri:.5f}); launches {lb}")
+    if not (len(common) == len(rec_a.points3D) == len(rec_b.points3D)
+            and dx <= 5e-3 and dcost <= 1e-3):
+        raise SystemExit("the sharded triangulation path disagrees with "
+                         "the unsharded one")
+    if not (ba_b["linear_solver"] == "cg" and ba_b["obs_grid_T"] == 0
+            and ba_b["final_cost"] < ba_b["initial_cost"]):
+        raise SystemExit("sharded BA: not the flat regime, or the cost did "
+                         "not fall")
+    if min(lb["K1"], lb["K2"]) <= 0 or lb["K3a"] or lb["K3b"] or lb["K3c"] \
+            or not first:
+        raise SystemExit(f"sharded triangulation path: K1 or K2 did not "
+                         f"launch, or K3 did ({lb})")
+    rows, H, W, C, rb, r, c = first["args"]
+    print(f"phase 24(b): K1 on the first window-layout launch ({r.shape[0]}"
+          f" observations, each its own {H}x{W}x{C} window)")
+    k1 = check_k1_recorded(torch, interpolate_cuda, rows, H, W, C, rb, r, c,
+                           first["l2"])
+    del first, rows, rb, r, c, rec_b
+    torch.cuda.empty_cache()
+
+    # (c) costmap_window BA at 8 px on (b)'s model, from one set of cost
+    # patches, against the unsharded costmap BA
+    conf_c = load_config("low_memory", extra={"mapping": {"BA": {
+        "optimizer": {"solver": {
+            "max_num_iterations": SHARD_COSTMAP_ITERATIONS,
+            "use_inner_iterations": False}}}}})
+    sfm = PixSfM(conf_c, device="cuda")
+    t0 = time.perf_counter()
+    fset = features_from_reconstruction(sfm.extractor, rec_a,
+                                        views_t).fset(0)
+    ba_conf = sfm.bundle_adjuster.conf
+    cset = extract_costmaps(rec_a, fset, ba_conf.costmaps,
+                            ba_conf.references,
+                            InterpolationConfig.from_conf(
+                                ba_conf.interpolation))[0]
+    sync()
+    t_cm = time.perf_counter() - t0
+    del fset
+
+    class Sharded(CostMapBundleAdjuster):
+        def _parallel_mesh(self):
+            return mesh
+
+    solves = {}
+    for label, cls in (("unsharded", CostMapBundleAdjuster),
+                       ("sharded", Sharded)):
+        rec_c = rec_a.copy()
+        if label == "sharded":
+            zero()
+        t0 = time.perf_counter()
+        o = costmap_solve(cls(ba_conf, device="cuda"), rec_c, cset)
+        sync()
+        solves[label] = (o, np.stack([rec_c.points3D[p].xyz
+                                      for p in common]),
+                         time.perf_counter() - t0)
+        if label == "sharded":
+            by_run["costmap BA (24c)"] = read()
+    (o_a, x_a, t_a), (o_b, x_b, t_b) = solves["unsharded"], solves["sharded"]
+    dx = float(np.abs(x_a - x_b).max())
+    dcost = abs(o_b["final_cost"] - o_a["final_cost"]) / abs(o_a["final_cost"])
+    print(f"phase 24(c): costmap_window BA (8 px, points only, "
+          f"{SHARD_COSTMAP_ITERATIONS} LM iterations, inner iterations off) "
+          f"on (b)'s model from one set of cost patches (extracted in "
+          f"{t_cm:.2f} s): sharded {t_b:.2f} s ({o_b['linear_solver']} step, "
+          f"{o_b['iterations']} LM / {o_b['cg_iterations']} CG iterations, "
+          f"cost {o_b['initial_cost']:.6f} -> {o_b['final_cost']:.6f}), "
+          f"unsharded {t_a:.2f} s (cost {o_a['final_cost']:.6f}); "
+          f"{dcost:.2e} relative, points within {dx:.2e} (phase 19(b)'s "
+          f"limits without inner iterations: rtol 1e-4, 1e-3); launches "
+          f"{by_run['costmap BA (24c)']}")
+    if not (dcost <= 1e-4 and dx <= 1e-3
+            and o_b["final_cost"] < o_b["initial_cost"]):
+        raise SystemExit("sharded costmap BA disagrees with the unsharded "
+                         "one, or its cost did not fall")
+    del cset, sfm, rec_a, solves
+    torch.cuda.empty_cache()
+
+    # (d) localize_batch on phase 18's queries with the localizer's mesh
+    (views, ref_views, rec, queries, keypoints, pairs, matches_l, gt,
+     extent) = loc_scene
+    conf_d = load_config("default")
+    loc = QueryLocalizer(rec, conf_d, image_dir=ref_views, device="cuda")
+
+    class ShardedLocalizer(QueryLocalizer):
+        def _parallel_mesh(self):
+            return mesh
+
+    loc_sh = ShardedLocalizer(rec, conf_d, references=loc.references,
+                              device="cuda")
+    batch_in = []
+    for qname, cam in queries:
+        p2D, p3D = build_query_correspondences(rec, qname, pairs, matches_l)
+        batch_in.append(dict(keypoints=keypoints[qname], pnp_point2D_idxs=p2D,
+                             pnp_points3D_id=p3D, query_camera=cam,
+                             image_path=views[qname]))
+    outs, walls = {}, {}
+    for label, lz in (("unsharded", loc), ("sharded", loc_sh)):
+        if label == "sharded":
+            zero()
+        else:
+            sync()
+        t0 = time.perf_counter()
+        outs[label] = lz.localize_batch([dict(b) for b in batch_in])
+        sync()
+        walls[label] = time.perf_counter() - t0
+        if label == "sharded":
+            by_run["localize_batch (24d)"] = read()
+    agree = compare_localizations(
+        np, outs["unsharded"], outs["sharded"],
+        [[rec.points3D[p].xyz for p in b["pnp_points3D_id"]]
+         for b in batch_in], extent, LOC_BATCH_LIMITS)
+    n_ok = sum(bool(o.get("success")) for o in outs["sharded"])
+    print(f"phase 24(d): localize_batch of {len(queries)} queries over the "
+          f"mesh {walls['sharded']:.2f} s, unsharded "
+          f"{walls['unsharded']:.2f} s; {n_ok} localized; sharded against "
+          f"unsharded: {agree['text']}; the JAX package's batch-test limits "
+          f"met by {agree['tight']} of {agree['n']}; launches "
+          f"{by_run['localize_batch (24d)']}")
+    if not agree["ok"] or by_run["localize_batch (24d)"]["K1"] <= 0:
+        raise SystemExit("sharded localize_batch disagrees with the "
+                         "unsharded batch, or K1 did not launch")
+    del loc, loc_sh
+    tmp_dir.cleanup()
+    torch.cuda.empty_cache()
+    launches = {k: sum(n[k] for n in by_run.values())
+                for k in ("K1", "K2", "K3a", "K3b", "K3c")}
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s; launches on "
+          f"the sharded runs {launches}")
+    return launches, by_run, k1
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", default=None,
@@ -4090,7 +4414,8 @@ def main() -> int:
     for label, H, fam in (("stage 1", 256, "p3p"), ("stage 2", 512, "full")):
         def one(H=H, fam=fam):
             return pnp._run_pnp_groups(group, H, 12.0,
-                                       np.random.default_rng(0), "cuda", fam)
+                                       np.random.default_rng(0),
+                                       (torch.device("cuda"),), fam)
         one()
         _, t_call, busy_call, kern_call, _ = profile_stage(torch, one)
         t0 = time.perf_counter()
@@ -4354,10 +4679,17 @@ def main() -> int:
         torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
         schur_cuda, (reference, views_t, kps_t, matches_t, scores_t,
                      truth_t, err_raw, err_tri, n_tri_pts), loc_scene)
-    del loc_scene
     launches_op = {k: launches_op_a[k] + launches_op_b[k] + launches_op_c[k]
                    for k in launches_op_a}
     print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 24: sharding over a device mesh that repeats the card --------
+    launches_sh, launches_sh_by_run, k1_sh = sharded_phase(
+        torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
+        schur_cuda, (images, kp0, matches, scores),
+        (reference, views_t, kps_t, matches_t, scores_t, truth_t, err_raw,
+         err_tri, n_tri_pts), loc_scene)
+    del loc_scene
 
     # -- report ----------------------------------------------------------------
     # K1 runs on both paths at different shapes: one entry per path, each
@@ -4368,7 +4700,7 @@ def main() -> int:
              "photometric": launches_ph, "eth3d": launches_e3,
              "eth3d_dense_query": {"K1": launches_e3_dense},
              "vggnet": launches_vgg, "eth3d_loftr": launches_lf,
-             "interp_options": launches_op}
+             "interp_options": launches_op, "sharded": launches_sh}
     both = {k: sum(n.get(k, 0) for n in paths.values())
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
     print(f"launches on the main paths: {paths}")
@@ -4444,6 +4776,14 @@ def main() -> int:
                               "full-mode localization (23c)":
                                   launches_op_c["K1"]},
              library_ms=None, **k1_op),
+        dict(name="bicubic_window_interp_l2", path="sharded",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_sh["K1"],
+             launches_by_run={k: v["K1"]
+                              for k, v in launches_sh_by_run.items()},
+             library_ms=None, **k1_sh),
         *(dict(name="bicubic_window_interp_l2", path="vggnet", channels=C,
                route="cuda",
                source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",

@@ -6,7 +6,9 @@ paths replaced by a hand-written CUDA kernel for Hopper (``kernels/csrc``).
 This package never imports JAX or ``pixsfm_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on the
-CPU the plain PyTorch version of each kernel runs instead.
+CPU the plain PyTorch version of each kernel runs instead. The ``parallel``
+knob of KA, BA and the localizer shards their batches over a device mesh in
+one process (``parallel/``), as the JAX package does.
 """
 
 import logging

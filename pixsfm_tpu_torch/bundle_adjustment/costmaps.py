@@ -265,7 +265,7 @@ def costmap_solve(adjuster, reconstruction, cset: FeatureSet,
                   problem_setup=None) -> Dict:
     """The Schur LM of ``adjuster`` over the cost patches ``cset`` of
     :func:`extract_costmaps`, on ``adjuster.device``."""
-    from .main import _CostPatches
+    from .main import _CostPatches, window_obs_data
 
     packed, model, mi = adjuster._pack(reconstruction, problem_setup)
     loss = make_loss(adjuster.conf.optimizer.get("loss"))
@@ -285,8 +285,13 @@ def costmap_solve(adjuster, reconstruction, cset: FeatureSet,
                           packed.obs_p2D_idx)
     obs_valid = rows >= 0
     rows = np.where(obs_valid, rows, 0)
+    obs_data = (rows,) if mi is None else (rows, mi)
+    key, ctx = "costmap", _CostPatches(pf, adjuster.device)
+    if adjuster._parallel_mesh() is not None:
+        # costmap_window: each observation carries its own cost patch, so
+        # the payload splits with the mesh's shards
+        key, ctx = key + "_window", ()
+        obs_data = window_obs_data(pf, rows, obs_data)
     return adjuster._run_ba_cached(
-        reconstruction, packed, ("costmap", model, interp_cm),
-        (rows,) if mi is None else (rows, mi),
-        _CostPatches(pf, adjuster.device), loss, adjuster._ba_options(),
-        obs_valid=obs_valid)
+        reconstruction, packed, (key, model, interp_cm), obs_data, ctx,
+        loss, adjuster._ba_options(), obs_valid=obs_valid)

@@ -26,9 +26,18 @@ budget), so both packages pick the same regime for the same scene, and
 dispatches the LM in segments when ``segment_iterations > 0``. Scenes with
 several camera models carry each observation's model index; a chunk's
 observations are projected in groups of one model each (the JAX package
-switches per observation with ``lax.switch``). Not ported yet (raises
-``NotImplementedError``): ``parallel`` sharding, with its ``*_window``
-layouts (``costmap_window``).
+switches per observation with ``lax.switch``).
+
+``parallel: {enabled, n_devices}`` gives a device mesh
+(``parallel/sharded.py``): ``_run_ba_cached`` pads the observation axis to
+a multiple of the mesh size and ``ba_solve`` splits it into one shard per
+device, in the flat regime (as in the JAX package, the grid layout needs
+one device). Under a mesh every featuremetric strategy takes its
+``*_window`` layout (``feature_reference_window``, ``costmap_window``,
+``patch_warp_window``): each observation carries its own patch window,
+corner, scale and upsampling in its data, so the feature payload splits
+with the observations and each shard reads only its own windows (K1 for
+BICUBIC, each window one row block).
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from ..ops.interpolate_cuda import interpolate, interpolate_fwd
 from ..util.misc import bucket
 from ..ops.schur import (BAObservations, BAOptions, BAState, ba_solve,
                          make_pair_list)
+from ..parallel.sharded import parallel_mesh
 from .patch_warp import (build_patch_warp_residual,
                          build_patch_warp_residual_jac, patch_warp_ba)
 from .problem import PackedBA, pack_ba_problem
@@ -73,11 +83,6 @@ __all__ = ["BundleAdjuster", "GeometricBundleAdjuster",
 # the default 8192 observations): the chunk is cut to the largest power of
 # two under this budget; at one node (D = 128) the default chunk fits.
 _EVAL_CHUNK_BYTES = 1 << 30
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md "
-                               f"section 1, '{item}'")
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +214,17 @@ class _PatchRows(_Patches):
                                    row * self.H, pc[:, 1], pc[:, 0], interp)
 
 
+class _Windows(_PatchRows):
+    """The patch windows ``[n, H, W, C]`` that a chunk's observations
+    carry in the ``*_window`` layouts, with each one's corner, scale and
+    upsampling; observation ``i`` reads window ``i``."""
+
+    def __init__(self, windows, corners, scales, ups):
+        n, self.H, self.W, self.C = windows.shape
+        self.corners, self.scales, self.ups = corners, scales, ups
+        self.rows = windows.reshape(n * self.H, self.W, self.C)
+
+
 class _CostPatches(_Patches):
     """The float32 cost patches ``[B, H, W, 3|4]`` of a costmap solve, read
     with their gradient field (``[n, 1]`` values)."""
@@ -226,6 +242,49 @@ class _CostPatches(_Patches):
     def value(self, row, pix, interp: InterpolationConfig):
         pc, _, f, _, _ = self.read(row, pix, interp)
         return pc, f
+
+
+class _CostWindows(_CostPatches):
+    """The cost patches a chunk's observations carry (``costmap_window``),
+    read as :class:`_CostPatches` reads its stack."""
+
+    def __init__(self, windows, corners, scales, ups):
+        _, self.H, self.W, self.C = windows.shape
+        self.corners, self.scales, self.ups = corners, scales, ups
+        self.patches = windows
+
+
+def window_obs_data(pf, rows, obs_data):
+    """The ``*_window`` layout of a row-layout ``obs_data`` whose first
+    entry is each observation's patch row in ``pf``: that row's window,
+    corner, scale and upsampling in its place (the windows where the
+    patches are; ``ba_solve`` moves each shard's part to its device)."""
+    rows = np.asarray(rows, np.int64)
+    t = torch.as_tensor(rows)
+    return (pf.patches.index_select(0, t.to(pf.patches.device)),
+            pf.corners[rows].astype(np.float32),
+            pf.scales[rows].astype(np.float32),
+            pf.upsampling[rows].astype(np.float32), *obs_data[1:])
+
+
+def _windowed(build, windows_cls):
+    """The ``*_window`` layout of a residual builder (``main.py:156-217``
+    of the JAX package): ``obs_slice`` starts with the observations' own
+    ``(window, corner, scale, ups)`` in place of their patch rows, and
+    observation ``i`` of a chunk reads window ``i``; ``ctx`` is unused."""
+    def builder(*key):
+        fn = build(*key)
+        if fn is None:
+            return None
+
+        def window_fn(*args):
+            *params, obs_slice, _ = args
+            window, corner, scale, ups, *rest = obs_slice
+            row = torch.arange(window.shape[0], device=window.device)
+            return fn(*params, (row, *rest),
+                      windows_cls(window, corner, scale, ups))
+        return window_fn
+    return builder
 
 
 def _bounds_violation(pc, H: int, W: int):
@@ -322,6 +381,10 @@ _RESIDUAL_BUILDERS = {
     "costmap": (_build_costmap, _build_costmap_jac),
     "patch_warp": (build_patch_warp_residual, build_patch_warp_residual_jac),
 }
+for _key, _cls in (("feature_reference", _Windows), ("costmap", _CostWindows),
+                   ("patch_warp", _Windows)):
+    _RESIDUAL_BUILDERS[_key + "_window"] = tuple(
+        _windowed(b, _cls) for b in _RESIDUAL_BUILDERS[_key])
 
 
 class BundleAdjuster:
@@ -355,9 +418,6 @@ class BundleAdjuster:
 
     def __init__(self, conf=None, device=None):
         self.conf = merge(self.default_conf, conf or {})
-        if (self.conf.get("parallel") or {}).get("enabled"):
-            raise _not_ported("multi-device BA (parallel.enabled)",
-                              "Sharding")
         self.device = resolve_device(device)
 
     @classmethod
@@ -388,6 +448,12 @@ class BundleAdjuster:
         return BAOptions.from_solver_conf(self.conf.optimizer.get("solver"),
                                           **overrides)
 
+    def _parallel_mesh(self):
+        """The device mesh of ``parallel.enabled`` when more than one
+        device is available, else None (``parallel.sharded.parallel_mesh``):
+        every strategy's ``_run_ba_cached`` then shards its observations."""
+        return parallel_mesh(self.conf.get("parallel"), self.device)
+
     def _pack(self, reconstruction, problem_setup):
         """``(packed, model, mi)``: the packed problem, its camera model (a
         tuple of the models when there are several) and, then, each
@@ -413,6 +479,8 @@ class BundleAdjuster:
         to the largest power of two under ``_EVAL_CHUNK_BYTES``."""
         t0 = time.time()
         dev = self.device
+        mesh = self._parallel_mesh()
+        ndev = 1 if mesh is None else mesh.size
         O = len(packed.obs_img)
         Np = len(packed.point_ids)
         if O == 0 or Np == 0:
@@ -420,6 +488,7 @@ class BundleAdjuster:
             return dict(initial_cost=0.0, final_cost=0.0, iterations=0,
                         time=time.time() - t0)
         O_pad = bucket(O + 1)          # always >= 1 padded slot (pair pad)
+        O_pad = -(-O_pad // ndev) * ndev     # a shardable observation axis
         Np_pad = bucket(Np, minimum=4)
 
         # solver-by-size switch (reference bundle_optimizer.h:180-191): the
@@ -449,7 +518,8 @@ class BundleAdjuster:
         real_valid = (np.ones(O, bool) if obs_valid is None
                       else np.asarray(obs_valid, bool))
         if opts.linear_solver == "cg" and large_pts and src_idx is None \
-                and O_grid <= 2 * O_pad and O_grid % opts.obs_chunk == 0:
+                and ndev == 1 and O_grid <= 2 * O_pad \
+                and O_grid % opts.obs_chunk == 0:
             order = np.argsort(packed.obs_pt, kind="stable")
             sorted_pts = np.asarray(packed.obs_pt)[order]
             starts = np.searchsorted(sorted_pts, np.arange(Np_pad),
@@ -479,20 +549,33 @@ class BundleAdjuster:
             opts = dataclasses.replace(opts, obs_chunk=int(max(min(
                 opts.obs_chunk, 1 << (int(fit).bit_length() - 1)), 256)))
 
-        def put(a, dtype=None):
+        def put(a, dtype=None, device=dev):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                   device=dev)
+                                   device=device)
+
+        # under a mesh the host arrays stay on the host: ba_solve moves
+        # each shard's slice to its own device
+        obs_dev = dev if mesh is None else torch.device("cpu")
+
+        def put_obs(a, dtype=None):
+            if isinstance(a, torch.Tensor):     # patch windows, where made
+                return torch.cat([a, a.new_zeros((O_pad - O,)
+                                                 + tuple(a.shape[1:]))])
+            return put(prep(a), dtype, obs_dev)
 
         obs = BAObservations(
-            img_idx=put(prep(packed.obs_img), torch.long),
-            cam_idx=put(prep(packed.obs_cam), torch.long),
-            pt_idx=put(pt_idx, torch.long),
-            obs_data=tuple(put(prep(a)) for a in obs_data),
-            valid=put(valid),
+            img_idx=put_obs(packed.obs_img, torch.long),
+            cam_idx=put_obs(packed.obs_cam, torch.long),
+            pt_idx=put(pt_idx, torch.long, obs_dev),
+            obs_data=tuple(put_obs(a) for a in obs_data),
+            valid=put(valid, device=obs_dev),
             pair_o1=None if pairs is None else put(pairs[0], torch.long),
             pair_o2=None if pairs is None else put(pairs[1], torch.long),
             src_idx=None if src_idx is None
-            else put(prep(np.asarray(src_idx)), torch.long))
+            else put_obs(np.asarray(src_idx), torch.long))
+        if mesh is not None:
+            logger.info("BA: sharding %d observations over %d devices.", O,
+                        ndev)
         xyz = np.concatenate([packed.xyz, np.zeros((Np_pad - Np, 3))]) \
             .astype(np.float32)
         xyz[Np:] = [0.0, 0.0, 10.0]   # padded points safely in front
@@ -509,7 +592,8 @@ class BundleAdjuster:
                 build(*residual_key[1:]), state, obs, loss,
                 put(packed.pose_free), put(packed.tvec_free),
                 put(packed.cam_free), put(point_free), opts=opts, ctx=ctx,
-                residual_jac_fn=build_jac(*residual_key[1:]), **kw)
+                residual_jac_fn=build_jac(*residual_key[1:]), mesh=mesh,
+                **kw)
 
         seg = int(opts.segment_iterations)
         if seg <= 0:
@@ -645,7 +729,8 @@ class FeatureReferenceBundleAdjuster(BundleAdjuster):
         if references is None:
             references = extract_references(
                 reconstruction, feature_set, view, self.conf.references,
-                interp, point3D_ids=packed.point_ids)
+                interp, point3D_ids=packed.point_ids,
+                mesh=self._parallel_mesh())
         t_ref = time.time() - t_ref
 
         # per-observation patch row + target descriptor; observations
@@ -671,10 +756,16 @@ class FeatureReferenceBundleAdjuster(BundleAdjuster):
         rows = np.where(obs_valid, rows, 0)
         targets = np.where(obs_valid[:, None], desc[packed.obs_pt], 0.0)
         obs_data = (rows, targets.astype(np.float32))
+        if mi is not None:
+            obs_data += (mi,)
+        key, ctx = "feature_reference", _PatchRows(pf, self.device)
+        if self._parallel_mesh() is not None:
+            # the multi-device payload layout: each observation carries its
+            # own window, so the feature payload splits with the shards
+            key, ctx = key + "_window", ()
+            obs_data = window_obs_data(pf, rows, obs_data)
         out = self._run_ba_cached(
-            reconstruction, packed, ("feature_reference", model, interp),
-            obs_data if mi is None else obs_data + (mi,),
-            _PatchRows(pf, self.device),
+            reconstruction, packed, (key, model, interp), obs_data, ctx,
             make_loss(self.conf.optimizer.get("loss")), self._ba_options(),
             obs_valid=obs_valid,
             eval_bytes_per_obs=4 * (D + int(interp.check_bounds))

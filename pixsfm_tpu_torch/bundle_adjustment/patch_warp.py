@@ -297,7 +297,7 @@ def patch_warp_ba(adjuster, reconstruction, feature_set,
     """Patch-warp BA of ``reconstruction`` in place (``patch_warp_ba`` of
     the JAX package); its summary adds ``num_residuals``,
     ``joint_source_poses`` and ``references_time``."""
-    from .main import _PatchRows
+    from .main import _PatchRows, window_obs_data
 
     conf = adjuster.conf
     interp = InterpolationConfig.from_conf(conf.get("interpolation"))
@@ -388,10 +388,14 @@ def patch_warp_ba(adjuster, reconstruction, feature_set,
                 valid.astype(np.float32))
     if tmi is not None:
         obs_data += (tmi, src_mi)
+    key, ctx = "patch_warp", _PatchRows(pf, adjuster.device)
+    if adjuster._parallel_mesh() is not None:
+        # the target windows travel with their observations' shards
+        key, ctx = key + "_window", ()
+        obs_data = window_obs_data(pf, rows, obs_data)
     out = adjuster._run_ba_cached(
-        reconstruction, packed, ("patch_warp", model, interp, joint),
-        obs_data, _PatchRows(pf, adjuster.device), loss, opts,
-        obs_valid=valid, src_idx=src_idx)
+        reconstruction, packed, (key, model, interp, joint), obs_data, ctx,
+        loss, opts, obs_valid=valid, src_idx=src_idx)
     out["num_residuals"] = int(valid.sum())
     out["joint_source_poses"] = joint
     out["references_time"] = t_ref

@@ -13,7 +13,8 @@ from the packed patch rows: for BICUBIC one K1 launch, one query per
 observation, or with node windows one per node and observation; BILINEAR,
 NEARESTNEIGHBOR and BICUBICCHAIN in plain PyTorch. The ``n_nodes x D``
 descriptor is NCC-normalized across the nodes when the config asks. The
-IRLS runs batched over all points at once on the device.
+IRLS runs batched over all points at once on the device; with a device
+mesh both stages run shard by shard over contiguous slices of the points.
 ``compute_offsets3D`` lifts each node at the source observation's depth
 (``Reference.node_offsets3D``), vectorised over points per camera model.
 """
@@ -34,6 +35,7 @@ from ..base.interpolation import InterpolationConfig, check_window_config
 from ..base.losses import RobustLoss, make_loss
 from ..base.projection import pixel_to_world, project_np
 from ..ops.interpolate_cuda import interpolate_nodes
+from ..parallel.sharded import shard_bounds
 from ..util.misc import bucket
 
 __all__ = ["Reference", "extract_references", "node_offsets3D",
@@ -76,15 +78,54 @@ def robust_mean_irls(descriptors, valid, loss: RobustLoss, iters: int,
     return mean
 
 
+def _track_stage(rows_view, H: int, W: int, obs_row, pc, flat, n_points: int,
+                 T: int, loss: RobustLoss, iters: int,
+                 interp: InterpolationConfig, dev):
+    """The device stages of ``n_points`` points on ``dev``: the read of
+    their observations (``obs_row``, patch coords ``pc``; ``flat`` = local
+    point * T + track slot of each), the IRLS robust mean over each track
+    and the observation closest to it. Returns host ``(track_desc [n, T,
+    D], d2 [n, T], best [n])``."""
+    C = rows_view.shape[-1]
+    desc, _, _ = interpolate_nodes(
+        rows_view, H, W, C,
+        torch.as_tensor(obs_row * H, dtype=torch.int32, device=dev),
+        torch.as_tensor(pc[:, 1], device=dev),
+        torch.as_tensor(pc[:, 0], device=dev), interp)
+    desc = desc.reshape(desc.shape[0], -1)
+    D = desc.shape[1]
+    flat = torch.as_tensor(flat, device=dev)
+    track_desc = desc.new_zeros((n_points * T, D))
+    track_desc[flat] = desc
+    track_desc = track_desc.reshape(n_points, T, D)
+    track_valid = torch.zeros(n_points * T, dtype=torch.bool, device=dev)
+    track_valid[flat] = True
+    track_valid = track_valid.reshape(n_points, T)
+    means = robust_mean_irls(track_desc, track_valid, loss, iters,
+                             l2_normalize=interp.l2_normalize)
+
+    # per point: the observation closest to the robust mean
+    d2 = torch.sum((track_desc - means[:, None, :]) ** 2, dim=2)
+    d2 = torch.where(track_valid, d2, torch.full_like(d2, float("inf")))
+    best = torch.argmin(d2, dim=1)
+    return track_desc.cpu().numpy(), d2.cpu().numpy(), best.cpu().numpy()
+
+
 def extract_references(reconstruction, feature_set, view, conf,
                        interp: InterpolationConfig,
                        point3D_ids: Optional[Sequence[int]] = None,
-                       keep_observations: Optional[bool] = None
-                       ) -> Dict[int, Reference]:
+                       keep_observations: Optional[bool] = None,
+                       mesh=None) -> Dict[int, Reference]:
     """References for all (or the given) points. ``conf`` is the
     ``references`` config subtree ({loss, iters, keep_observations,
     compute_offsets3D}); everything runs on the device of ``view``'s
-    packed patches."""
+    packed patches.
+
+    ``mesh`` (a ``parallel.Mesh``): the points split into one contiguous
+    shard per mesh device, each with its tracks' observations; the reads
+    and the IRLS of a shard run on its device with the patches copied
+    there (both stages are per point or per observation: no cross-shard
+    step; ``sharding`` of the JAX package)."""
     t0 = time.time()
     get = conf.get if hasattr(conf, "get") else lambda k, d=None: d
     loss = make_loss(get("loss", {"name": "cauchy", "params": [0.25]}))
@@ -128,8 +169,8 @@ def extract_references(reconstruction, feature_set, view, conf,
     obs_xy = np.asarray(obs_xy, np.float64)
 
     # descriptor at each reprojection: one read over the node queries of
-    # every observation (one node by default)
-    dev = pf.patches.device
+    # every observation (one node by default), then the IRLS over the
+    # points, on each shard of points in turn (one shard without a mesh)
     B, H, W, C = pf.patches.shape
     # patch coordinates in float32, as the JAX package rounds them (a
     # pixel of ~1000 carries 6e-5 px of float32 rounding, which NCC
@@ -139,15 +180,8 @@ def extract_references(reconstruction, feature_set, view, conf,
            - pf.corners[obs_row].astype(f32))
           * pf.upsampling[obs_row].astype(f32)[:, None])
     rows_view = pf.patches.reshape(B * H, W, C)
-    row_base = torch.as_tensor(obs_row * H, dtype=torch.int32, device=dev)
-    desc, _, _ = interpolate_nodes(
-        rows_view, H, W, C, row_base,
-        torch.as_tensor(pc[:, 1], device=dev),
-        torch.as_tensor(pc[:, 0], device=dev), interp)
-    desc = desc.reshape(desc.shape[0], -1)
-    C = desc.shape[1]
 
-    # pad tracks to T (power of two) and run IRLS batched over points
+    # tracks padded to T (power of two)
     counts = np.bincount(obs_pt, minlength=len(pids))
     T = bucket(int(counts.max()), minimum=2)
     order = np.argsort(obs_pt, kind="stable")
@@ -155,22 +189,18 @@ def extract_references(reconstruction, feature_set, view, conf,
     starts = np.searchsorted(sorted_pt, np.arange(len(pids)), side="left")
     obs_slot = np.empty(len(obs_pt), np.int64)
     obs_slot[order] = np.arange(len(obs_pt)) - starts[sorted_pt]
-    flat = torch.as_tensor(obs_pt * T + obs_slot, device=dev)
-    track_desc = desc.new_zeros((len(pids) * T, C))
-    track_desc[flat] = desc
-    track_desc = track_desc.reshape(len(pids), T, C)
-    track_valid = torch.zeros(len(pids) * T, dtype=torch.bool, device=dev)
-    track_valid[flat] = True
-    track_valid = track_valid.reshape(len(pids), T)
-    means = robust_mean_irls(track_desc, track_valid, loss, iters,
-                             l2_normalize=interp.l2_normalize)
 
-    # per point: the observation closest to the robust mean
-    d2 = torch.sum((track_desc - means[:, None, :]) ** 2, dim=2)
-    d2 = torch.where(track_valid, d2, torch.full_like(d2, float("inf")))
-    best = torch.argmin(d2, dim=1).cpu().numpy()
-    track_desc = track_desc.cpu().numpy()
-    d2 = d2.cpu().numpy()
+    devices = (pf.patches.device,) if mesh is None else mesh.devices
+    parts = []
+    for (s0, s1), dev in zip(shard_bounds(len(pids), len(devices)),
+                             devices):
+        sel = np.nonzero((obs_pt >= s0) & (obs_pt < s1))[0]
+        if s1 > s0:
+            parts.append(_track_stage(
+                rows_view.to(dev), H, W, obs_row[sel], pc[sel],
+                (obs_pt[sel] - s0) * T + obs_slot[sel], s1 - s0, T, loss,
+                iters, interp, dev))
+    track_desc, d2, best = (np.concatenate(p) for p in zip(*parts))
 
     track_elems: Dict[Tuple[int, int], Tuple[int, int]] = {
         (int(s), int(t)): e for s, t, e in zip(obs_pt, obs_slot, obs_track)}

@@ -11,7 +11,8 @@ Port of ``pixsfm_tpu/keypoint_adjustment/main.py``:
   independent 2-DoF problem against its root's descriptor
   (``solver.solve_target_problems``).
 
-Multi-device sharding comes with a later slice of the port.
+``parallel: {enabled, n_devices}`` shards the featuremetric problem axis
+over a device mesh (``parallel/sharded.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..base.losses import make_loss
 from ..config import merge
 from ..features.featuremaps import FeatureView
 from ..ops.lm import LMOptions
+from ..parallel.sharded import parallel_mesh
 from .solver import (build_ka_problems, evaluate_descriptors,
                      solve_ka_problems, solve_target_problems)
 
@@ -150,11 +152,13 @@ class KeypointAdjuster:
 
     def __init__(self, conf=None, device=None):
         self.conf = merge(self.default_conf, conf or {})
-        if (self.conf.get("parallel") or {}).get("enabled"):
-            raise NotImplementedError(
-                "multi-device KA (parallel.enabled) is not ported yet; it "
-                "comes with the sharding slice of pixsfm_tpu_torch")
         self.device = resolve_device(device)
+
+    def _parallel_mesh(self):
+        """The device mesh of ``parallel.enabled`` when more than one
+        device is available, else None (``parallel.sharded.parallel_mesh``):
+        the problem batch axis then shards over it."""
+        return parallel_mesh(self.conf.get("parallel"), self.device)
 
     @classmethod
     def create(cls, conf=None, device=None):
@@ -233,7 +237,7 @@ class KeypointAdjuster:
             problems, packed.patches, interp, loss, lm_opts,
             chunk=int(self.conf.get("problem_chunk_size", 128)),
             compaction_segment=int(self.conf.get("compaction_segment", 0)),
-            device=self.device)
+            device=self.device, mesh=self._parallel_mesh())
 
         # write back refined keypoints (vectorized per image)
         image_ids, feature_idxs = graph.nodes_array()

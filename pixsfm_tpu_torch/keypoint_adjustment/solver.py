@@ -29,8 +29,13 @@ system is built from the same read's ``(f, dfdr, dfdc)``, and
 
 ``compaction_segment > 0`` runs the LM in segments of that many iterations
 and re-packs the unconverged problems between segments, their damping
-warm-started (``solve_ka_problems``). Mesh sharding is not ported
-(ROADMAP.md 'Sharding').
+warm-started (``solve_ka_problems``).
+
+``mesh`` (a ``parallel.Mesh``, both solvers): the problem axis of every
+chunk splits into one contiguous shard per mesh device, each solved on its
+device (its K1 reads and K2 solves there) with the packed patches copied
+to it. The problems are independent, so no shard waits on another; the
+chunk scales by the mesh size, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -47,7 +52,9 @@ from ..base.interpolation import (InterpolationConfig, check_window_config,
 from ..base.losses import RobustLoss
 from ..ops.interpolate_cuda import interpolate
 from ..ops.lm import LMOptions, lm_solve
+from ..parallel.sharded import device_scope, replicate, shard_bounds
 from ..util.misc import bucket
+from ..util.profiling import merge_summaries
 
 __all__ = ["KAProblems", "build_ka_problems", "make_ka_system",
            "solve_ka_problems", "evaluate_descriptors", "make_target_system",
@@ -337,10 +344,16 @@ def solve_ka_problems(problems: KAProblems, packed_patches,
                       interp: InterpolationConfig, loss: RobustLoss,
                       lm_opts: LMOptions, chunk: int = 128,
                       compaction_segment: int = 0,
-                      device=None) -> Tuple[np.ndarray, Dict]:
+                      device=None, mesh=None) -> Tuple[np.ndarray, Dict]:
     """Run all padded problems through the batched LM, chunked to bound
     memory. ``packed_patches [n, H, W, C]`` (tensor or array) is moved to
-    ``device`` (``cuda`` unless ``"cpu"`` is passed).
+    ``device`` (``cuda`` unless ``"cpu"`` is passed), or to the first
+    device of ``mesh``.
+
+    ``mesh``: the problem axis of each chunk splits over the mesh's
+    devices; the per-device chunk stays ``chunk`` (the chunk scales by the
+    mesh size, ``:739-745`` of the JAX package) and the patches are copied
+    to each device.
 
     ``compaction_segment > 0`` runs the LM in segments of that many
     iterations and re-packs only the unconverged problems into fresh
@@ -352,14 +365,16 @@ def solve_ka_problems(problems: KAProblems, packed_patches,
     merges per-subset Ceres summaries — util/src/statistics.h:14-60).
     """
     check_window_config(interp)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
+    devices = (dev,) if mesh is None else mesh.devices
     P, K, _ = problems.kp0.shape
     E = problems.edge_i.shape[1]
     patches = torch.as_tensor(packed_patches, device=dev)
     n, H, W, C = patches.shape
-    rows_spec = (patches.reshape(n * H, W, C), H, W, C)
-    chunk = ka_chunk_size(chunk, K, E,
-                          output_dim(interp.mode, C, interp.n_nodes))
+    rows_specs = [(rows, H, W, C) for rows in (
+        replicate(patches.reshape(n * H, W, C), d) for d in devices)]
+    chunk = len(devices) * ka_chunk_size(
+        chunk, K, E, output_dim(interp.mode, C, interp.n_nodes))
 
     seg = int(compaction_segment) if compaction_segment else 0
     if seg <= 0 or seg >= lm_opts.max_iterations:
@@ -376,11 +391,11 @@ def solve_ka_problems(problems: KAProblems, packed_patches,
 
     from ..util.prefetch import prefetch_map
 
-    def put(a):
+    def put(a, d):
         a = np.asarray(a)
         if a.dtype == np.float64:
             a = a.astype(np.float32)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(d)
 
     active = np.arange(P)
     it_done = 0
@@ -417,20 +432,31 @@ def solve_ka_problems(problems: KAProblems, packed_patches,
 
         for ci, (idx, arrays) in enumerate(prefetch_map(
                 pack_chunk, range(n_chunks), depth=1)):
-            x0, data, kp_free, lower, upper, pmask, lam0 = arrays
             try:
-                x, summary = _run_chunk(
-                    rows_spec, interp, loss, seg_opts, K, put(x0),
-                    tuple(put(a) for a in data), put(kp_free), put(lower),
-                    put(upper), put(pmask), lam0=put(lam0))
-                m = len(idx)
-                x_cur[idx] = x.cpu().numpy()[:m]
-                lam_cur[idx] = summary.lam.cpu().numpy()[:m]
-                if first_segment:
-                    init_cost[idx] = summary.initial_cost.cpu().numpy()[:m]
-                final_cost[idx] = summary.final_cost.cpu().numpy()[:m]
-                iters_used[idx] += summary.iterations.cpu().numpy()[:m]
-                still.append(idx[~summary.converged.cpu().numpy()[:m]])
+                for (s, e), d, rows_spec in zip(
+                        shard_bounds(chunk, len(devices)), devices,
+                        rows_specs):
+                    if s >= len(idx):       # a shard of padding only
+                        break
+                    x0, data, kp_free, lower, upper, pmask, lam0 = (
+                        tuple(a[s:e] for a in arr) if isinstance(arr, tuple)
+                        else arr[s:e] for arr in arrays)
+                    with device_scope(d):
+                        x, summary = _run_chunk(
+                            rows_spec, interp, loss, seg_opts, K,
+                            put(x0, d), tuple(put(a, d) for a in data),
+                            put(kp_free, d), put(lower, d), put(upper, d),
+                            put(pmask, d), lam0=put(lam0, d))
+                    m = min(e, len(idx)) - s
+                    sl = idx[s:s + m]
+                    x_cur[sl] = x.cpu().numpy()[:m]
+                    lam_cur[sl] = summary.lam.cpu().numpy()[:m]
+                    if first_segment:
+                        init_cost[sl] = \
+                            summary.initial_cost.cpu().numpy()[:m]
+                    final_cost[sl] = summary.final_cost.cpu().numpy()[:m]
+                    iters_used[sl] += summary.iterations.cpu().numpy()[:m]
+                    still.append(sl[~summary.converged.cpu().numpy()[:m]])
             except KeyboardInterrupt:
                 # keep every completed chunk's keypoints (reference
                 # PyInterruptCallback, base/src/callbacks.h:10-37)
@@ -566,49 +592,66 @@ def solve_target_problems(kp0, patch_row, corner, scale, ups, targets,
     ``chunk``, at least 8), so the problems that share one LM solve are the
     same; a chunk is not padded to its size, which eager torch does not
     need. ``packed_patches`` is moved to ``device`` when one is named (a
-    tensor otherwise stays where it is; an array goes to ``cuda``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding the fixed-target problems over a device mesh is not "
-            "ported yet; see ROADMAP.md section 1, 'Sharding'")
+    tensor otherwise stays where it is; an array goes to ``cuda``).
+
+    ``mesh``: each chunk (at least one problem per device) splits into one
+    contiguous shard per mesh device, solved there with the patches copied
+    to it (the QKA serving fan-out, ``:570-582`` of the JAX package); the
+    shards' summaries merge as ``util.profiling.merge_summaries`` merges
+    them."""
     check_window_config(interp)
-    patches = _patch_tensor(packed_patches, device)
-    dev = patches.device
+    patches = _patch_tensor(packed_patches,
+                            device if mesh is None else mesh.devices[0])
+    devices = (patches.device,) if mesh is None else mesh.devices
     n_p, H, W, C = patches.shape
-    rows_spec = (patches.reshape(n_p * H, W, C), H, W, C)
+    rows_specs = [(rows, H, W, C) for rows in (
+        replicate(patches.reshape(n_p * H, W, C), d) for d in devices)]
 
     P = kp0.shape[0]
     out = np.array(kp0, np.float32, copy=True)
-    tot = dict(initial_cost=0.0, final_cost=0.0, num_problems=P,
-               iterations=0)
     if free_mask is None:
         free_mask = np.ones(P, bool)
     chunk = min(chunk, bucket(P)) if P else 8
+    chunk = max(chunk, len(devices))     # powers of two keep divisibility
 
-    def put(a, dtype=torch.float32):
+    def put(a, d, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=dev)
+                               device=d)
 
-    for s in range(0, P, chunk):
-        sl = slice(s, min(s + chunk, P))
-        data = (put(patch_row[sl], torch.int64), put(corner[sl]),
-                put(scale[sl]), put(ups[sl]), put(targets[sl]),
-                put(target_w[sl]))
-        lo = np.nan_to_num(np.asarray(lower[sl], np.float64), neginf=-1e30)
-        hi = np.nan_to_num(np.asarray(upper[sl], np.float64), posinf=1e30)
-        pmask = put(free_mask[sl], torch.bool)
-        fmask = pmask[:, None].expand(-1, 2)
-        x, summary = _run_target_chunk(
-            rows_spec, interp, loss, lm_opts, put(kp0[sl]), data, put(lo),
-            put(hi), pmask, fmask)
-        packed = torch.cat([x.reshape(-1), summary.initial_cost.sum()[None],
-                            summary.final_cost.sum()[None],
-                            summary.iterations.max()[None].to(x.dtype)])
-        packed = packed.cpu().numpy()             # one fetch per chunk
-        n = sl.stop - sl.start
-        out[sl] = np.where(free_mask[sl][:, None],
-                           packed[:2 * n].reshape(n, 2), out[sl])
-        tot["initial_cost"] += float(packed[2 * n])
-        tot["final_cost"] += float(packed[2 * n + 1])
-        tot["iterations"] = max(tot["iterations"], int(packed[2 * n + 2]))
-    return out, tot
+    summaries = []
+    for c0 in range(0, P, chunk):
+        c1 = min(c0 + chunk, P)
+        for (s0, s1), d, rows_spec in zip(shard_bounds(c1 - c0,
+                                                       len(devices)),
+                                          devices, rows_specs):
+            if s1 == s0:
+                continue
+            sl = slice(c0 + s0, c0 + s1)
+            data = (put(patch_row[sl], d, torch.int64), put(corner[sl], d),
+                    put(scale[sl], d), put(ups[sl], d), put(targets[sl], d),
+                    put(target_w[sl], d))
+            lo = np.nan_to_num(np.asarray(lower[sl], np.float64),
+                               neginf=-1e30)
+            hi = np.nan_to_num(np.asarray(upper[sl], np.float64),
+                               posinf=1e30)
+            pmask = put(free_mask[sl], d, torch.bool)
+            fmask = pmask[:, None].expand(-1, 2)
+            with device_scope(d):
+                x, summary = _run_target_chunk(
+                    rows_spec, interp, loss, lm_opts, put(kp0[sl], d), data,
+                    put(lo, d), put(hi, d), pmask, fmask)
+            packed = torch.cat([x.reshape(-1),
+                                summary.initial_cost.sum()[None],
+                                summary.final_cost.sum()[None],
+                                summary.iterations.max()[None].to(x.dtype)])
+            packed = packed.cpu().numpy()             # one fetch per shard
+            n = sl.stop - sl.start
+            out[sl] = np.where(free_mask[sl][:, None],
+                               packed[:2 * n].reshape(n, 2), out[sl])
+            summaries.append(dict(initial_cost=packed[2 * n],
+                                  final_cost=packed[2 * n + 1],
+                                  iterations=packed[2 * n + 2]))
+    merged = merge_summaries(summaries)
+    return out, dict(initial_cost=merged.initial_cost,
+                     final_cost=merged.final_cost, num_problems=P,
+                     iterations=merged.iterations)

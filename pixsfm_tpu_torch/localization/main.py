@@ -32,8 +32,12 @@ Port of ``pixsfm_tpu/localization/main.py``:
 
 The JAX package pads correspondences, patches and queries to power-of-two
 buckets (its compile keys); eager torch pads only where queries of one
-batch differ in size, with weight-0 copies of a real row. Not ported: the
-device mesh ('Sharding').
+batch differ in size, with weight-0 copies of a real row.
+
+``parallel: {enabled, n_devices}`` gives ``localize_batch`` a device mesh
+(``parallel/sharded.py``): the QKA problems, each PnP group's queries and
+the QBA queries (padded to a multiple of the mesh size, as in the JAX
+package) split into one contiguous shard per device, each solved there.
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ from ..keypoint_adjustment.solver import (_run_target_chunk,
                                           evaluate_descriptors,
                                           solve_target_problems)
 from ..ops.lm import LMOptions
+from ..parallel.sharded import (device_scope, parallel_mesh, replicate,
+                                shard_bounds)
 from ..sfm.model import Reconstruction
 from .pnp import (STAGE1_MAX_SAMPLES, _gen_samples, _pnp_core,
                   _stage_accept, absolute_pose_estimation_batch,
@@ -360,11 +366,8 @@ class QueryKeypointAdjuster:
         ``items``: (keypoints, query_fmap, references, point2D_idxs) per
         query; the keypoint arrays are modified in place. The fixed-target
         problems concatenate along the problem axis, the patch stacks with
-        row offsets."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharding QKA over a device mesh is not ported yet; see "
-                "ROADMAP.md section 1, 'Sharding'")
+        row offsets. ``mesh``: the problem axis splits over its devices
+        (``solve_target_problems``)."""
         interp, loss, lm_opts, bound = self._options()
         built = [self._build_problems(kps, fmap, refs, p2D, interp, bound)
                  for (kps, fmap, refs, p2D) in items]
@@ -396,7 +399,7 @@ class QueryKeypointAdjuster:
             np.concatenate([padT(b[6]) for b in built]),
             np.concatenate([b[7] for b in built]),
             np.concatenate([b[8] for b in built]),
-            patches_cat, interp, loss, lm_opts)
+            patches_cat, interp, loss, lm_opts, mesh=mesh)
         start = 0
         for b, (kps, *_rest) in zip(built, items):
             n = b[0].shape[0]
@@ -822,11 +825,12 @@ class QueryBundleAdjuster:
         intrinsics values stay per query. Queries pad to the batch's
         largest correspondence and target counts with weight-0 copies of
         their first row, and their patch stacks concatenate. Returns one
-        result dict per query (``skipped`` where no inlier is left)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharding QBA over a device mesh is not ported yet; see "
-                "ROADMAP.md section 1, 'Sharding'")
+        result dict per query (``skipped`` where no inlier is left).
+
+        ``mesh``: the query axis, padded to a multiple of the mesh size
+        with weight-0 copies of the first query (``:792-793`` of the JAX
+        package), splits into one contiguous shard per device, each
+        solved there with the patch stack copied to it."""
         from ..bundle_adjustment.references import Reference
         interp, loss, max_iters = self._options()
         prepared, results = [], [None] * len(items)
@@ -890,19 +894,30 @@ class QueryBundleAdjuster:
         patches_all = torch.cat([a[0] for _, _, a in prepared]) \
             if Q > 1 else prepared[0][2][0]
 
-        def put(a):
-            return torch.as_tensor(a, device=self.device)
-
-        pose_d = put(pose_b)
+        devices = (self.device,) if mesh is None else mesh.devices
+        Qp = -(-Q // len(devices)) * len(devices)     # mesh-divisible pad
+        if Qp > Q:
+            tw_b = np.concatenate([tw_b, np.zeros((Qp - Q,) + tw_b.shape[1:],
+                                                  tw_b.dtype)])  # no cost
+        arrays = [np.concatenate([a, np.repeat(a[:1], Qp - Q, 0)])
+                  if len(a) < Qp else a
+                  for a in (rows_b, corner_b, scale_b, up_b, X_b, tgt_b, tw_b,
+                            pose_b)]
         system_fn = _qba_system_fn if _analytic_qba(interp) \
             else _qba_autodiff_system_fn
-        packed = _qba_run(
-            system_fn(camera0.model, interp, loss, put(cam_mask),
-                      patches_all, put(rows_b), put(corner_b), put(scale_b),
-                      put(up_b), put(X_b), put(tgt_b), put(tw_b)),
-            max_iters, pose_d[:, :4], pose_d[:, 4:7], pose_d[:, 7:],
-            put(cam_mask))
-        packed = packed.cpu().numpy().astype(np.float64)   # one fetch
+        parts = []
+        for (s, e), d in zip(shard_bounds(Qp, len(devices)), devices):
+            *data, pose_d = (torch.as_tensor(a[s:e], device=d)
+                             for a in arrays)
+            cm = torch.as_tensor(cam_mask, device=d)
+            with device_scope(d):
+                out = _qba_run(
+                    system_fn(camera0.model, interp, loss, cm,
+                              replicate(patches_all, d), *data),
+                    max_iters, pose_d[:, :4], pose_d[:, 4:7], pose_d[:, 7:],
+                    cm)
+            parts.append(out.cpu().numpy())             # one fetch a shard
+        packed = np.concatenate(parts)[:Q].astype(np.float64)
         q, t, c = packed[:, :4], packed[:, 4:7], packed[:, 7:7 + k]
         c0, c1 = packed[:, 7 + k], packed[:, 8 + k]
         for j, (qi, it, _a) in enumerate(prepared):
@@ -997,8 +1012,8 @@ class QueryLocalizer:
         "PnP": {"estimation": {"ransac": {"max_error": 12}},
                 "refinement": {}},
         "QBA": QueryBundleAdjuster.default_conf,
-        # multi-device serving (the query batch sharded over devices):
-        # accepted for config parity, enabling it raises
+        # multi-device serving: the query batch of ``localize_batch``
+        # sharded over a device mesh (n_devices=None: every card)
         "parallel": {"enabled": False, "n_devices": None},
     }
 
@@ -1012,10 +1027,6 @@ class QueryLocalizer:
             # resolve ``${..interpolation}`` against the tree it came from
             conf = conf.to_dict()
         self.conf = merge(self.default_conf, conf)
-        if (self.conf.get("parallel") or {}).get("enabled"):
-            raise NotImplementedError(
-                "multi-device localization (parallel.enabled) is not ported "
-                "yet; see ROADMAP.md section 1, 'Sharding'")
         self.device = resolve_device(device)
         self.reconstruction = reconstruction
         self.extractor = extractor
@@ -1061,6 +1072,11 @@ class QueryLocalizer:
                 self.references.append(extract_references(
                     reconstruction, fset, view, self.conf.references,
                     self.interp))
+
+    def _parallel_mesh(self):
+        """The device mesh of ``parallel.enabled`` when more than one
+        device is available, else None (the knob of the adjusters)."""
+        return parallel_mesh(self.conf.get("parallel"), self.device)
 
     def _extractor(self):
         if self.extractor is None:
@@ -1308,7 +1324,9 @@ class QueryLocalizer:
         ``image_path`` or ``query_fmaps``. The per-query semantics of
         :meth:`localize`, but QKA solves all queries' fixed-target problems
         in one LM per level, PnP runs one RANSAC program per size group,
-        and QBA runs one batched solve per camera model and level."""
+        and QBA runs one batched solve per camera model and level; with
+        ``parallel.enabled`` each splits its batch over the device mesh."""
+        mesh = self._parallel_mesh()
         require_feats = self.conf.QKA.apply or self.conf.QBA.apply
         results: List[Optional[Dict]] = [None] * len(queries)
         prep: List[Dict] = []
@@ -1344,7 +1362,7 @@ class QueryLocalizer:
             for level in _levels(self.qka.conf, len(prep[0]["fmaps"])):
                 self.qka.refine_batch(
                     [(p["points2D"], p["fmaps"][level], p["refs"][level],
-                      p["p2D"]) for p in prep])
+                      p["p2D"]) for p in prep], mesh=mesh)
 
         # ---- PnP: one RANSAC program per size group (always polished) ----
         max_error = float(self.conf.PnP.estimation.ransac.max_error)
@@ -1352,7 +1370,8 @@ class QueryLocalizer:
         poses = absolute_pose_estimation_batch(
             [dict(points2D=p["points2D"], points3D=np.asarray(p["points3D"]),
                   camera=p["camera"]) for p in prep],
-            max_error_px=max_error, polish=True, device=self.device)
+            max_error_px=max_error, polish=True, mesh=mesh,
+            device=self.device)
         for p, pose in zip(prep, poses):
             if not pose["success"]:
                 results[p["qi"]] = pose
@@ -1376,7 +1395,7 @@ class QueryLocalizer:
                              query_fmap=p["fmaps"][level],
                              references=p["refs"][level],
                              inliers=p["inliers"], point2D_idxs=p["p2D"])
-                        for p in group])
+                        for p in group], mesh=mesh)
                     for p, out in zip(group, outs):
                         if out.get("skipped"):
                             continue

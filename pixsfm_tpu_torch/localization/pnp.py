@@ -35,8 +35,9 @@ float32 rounding, where LAPACK's factorization stops) and solve with
 package (``pnp.py:361``) as a fixed-length batched torch loop: a
 ``torch.func`` forward-mode Jacobian and an LU solve per step, acceptance by
 ``torch.where``, one fetch at the end.
-Not ported: the mesh fan-out over devices (it waits for sharding), and
-``_dlt_pose``, which nothing calls.
+With a device mesh the query batch of each group splits over its devices
+(``absolute_pose_estimation_batch(mesh=)``). Not ported: ``_dlt_pose``,
+which nothing calls.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from ..base.geometry import (exp_quat, quat_mul, quat_normalize,
                              rotmat_to_quat)
 from ..base.projection import calculate_depth, project_with_jac, \
     world_to_pixel
+from ..parallel.sharded import device_scope, shard_bounds
 from ..util.misc import bucket
 
 __all__ = ["absolute_pose_estimation", "absolute_pose_estimation_batch",
@@ -897,14 +899,17 @@ def _stage_accept(cnt: int, n: int, min_inlier_ratio: float) -> bool:
             and cnt >= STAGE_ACCEPT_RATIO * n)
 
 
-def _run_pnp_groups(groups, H: int, max_error_px: float, rng, device,
+def _run_pnp_groups(groups, H: int, max_error_px: float, rng, devices,
                     families: str):
     """Pack and run one program per (model, size bucket) group.
 
     ``groups``: {(model, bucket): [(qi, xy, X, cam), ...]}; a group is
-    padded to its largest query. One host-to-device copy per input and one
-    device-to-host copy of all results per group. Returns {qi: (qvec_f64,
-    tvec_f64, inliers[:n], cnt)}."""
+    padded to its largest query, and its samples are drawn for all its
+    queries in order before the query axis splits into one contiguous
+    shard per device of ``devices`` (one device without a mesh), so a
+    sharded call draws what an unsharded one draws. One host-to-device
+    copy per input and one device-to-host copy of all results per shard.
+    Returns {qi: (qvec_f64, tvec_f64, inliers[:n], cnt)}."""
     out = {}
     for (model, _), items in groups.items():
         B = len(items)
@@ -922,12 +927,18 @@ def _run_pnp_groups(groups, H: int, max_error_px: float, rng, device,
             xy_b[bi, :n] = xy
             valid_b[bi, :n] = True
             samp_b[bi] = _gen_samples(rng, n, H)
-        args = [torch.as_tensor(a).to(device)
-                for a in (X_b, xy_b, valid_b, par_b, samp_b)]
-        q, t, inl, cnt = _pnp_core(model, *args, float(max_error_px),
-                                   families=families)
-        res = torch.cat([q, t, cnt[:, None].to(q.dtype), inl.to(q.dtype)],
-                        1).cpu().numpy()
+        parts = []
+        for (s, e), d in zip(shard_bounds(B, len(devices)), devices):
+            if e == s:
+                continue
+            args = [torch.as_tensor(a[s:e]).to(d)
+                    for a in (X_b, xy_b, valid_b, par_b, samp_b)]
+            with device_scope(d):
+                q, t, inl, cnt = _pnp_core(model, *args, float(max_error_px),
+                                           families=families)
+            parts.append(torch.cat([q, t, cnt[:, None].to(q.dtype),
+                                    inl.to(q.dtype)], 1).cpu().numpy())
+        res = np.concatenate(parts)
         for bi, (qi, xy, X, cam) in enumerate(items):
             n = len(xy)
             out[qi] = (res[bi, :4].astype(np.float64),
@@ -955,13 +966,11 @@ def absolute_pose_estimation_batch(queries, max_error_px: float = 12.0,
     consensus misses :func:`_stage_accept` run the full program at the full
     sample count. The device loop is float32; with ``polish`` the pose is
     re-refined on the inlier set by the float64 host Gauss-Newton
-    (:func:`finalize_device_pose`). ``mesh`` (fan-out over devices) is not
-    ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the PnP mesh fan-out over devices is not ported yet; see "
-            "ROADMAP.md section 1, 'Sharding'")
-    dev = resolve_device(device)
+    (:func:`finalize_device_pose`). ``mesh`` (a ``parallel.Mesh``): each
+    group's query batch splits over the mesh's devices (queries are
+    independent: the serving fan-out), its samples drawn before the
+    split."""
+    devs = (resolve_device(device),) if mesh is None else mesh.devices
     H = int(min(512, max(64, bucket(min(max_iterations, 512), minimum=64))))
     rng = np.random.default_rng(seed)
     results: list = [None] * len(queries)
@@ -983,7 +992,7 @@ def absolute_pose_estimation_batch(queries, max_error_px: float = 12.0,
     item_of = {it[0]: it for items in groups.values() for it in items}
     if staged:
         poses = _run_pnp_groups(groups, min(H, STAGE1_MAX_SAMPLES),
-                                max_error_px, rng, dev, "p3p")
+                                max_error_px, rng, devs, "p3p")
         retry: Dict[tuple, list] = {}
         for key, items in groups.items():
             for it in items:
@@ -995,10 +1004,10 @@ def absolute_pose_estimation_batch(queries, max_error_px: float = 12.0,
             logger.debug("PnP stage 2: %d/%d queries below the P3P "
                          "acceptance bar, running full program.",
                          sum(len(v) for v in retry.values()), len(item_of))
-            poses.update(_run_pnp_groups(retry, H, max_error_px, rng, dev,
+            poses.update(_run_pnp_groups(retry, H, max_error_px, rng, devs,
                                          "full"))
     else:
-        poses = _run_pnp_groups(groups, H, max_error_px, rng, dev, "full")
+        poses = _run_pnp_groups(groups, H, max_error_px, rng, devs, "full")
 
     for qi, (qv, tv, inl, cnt) in poses.items():
         _, xy, X, cam = item_of[qi]

@@ -44,6 +44,11 @@ pixsfm/bundle_adjustment/src/bundle_optimizer.h:114-245). Design:
   only, as in the JAX package.
 - LM with Ceres-style non-monotonic (GLL) acceptance, best-state return and
   optional inner point-only iterations after each accepted step.
+- A device mesh (``mesh``, ``parallel/sharded.py``) splits the observation
+  axis into shards, each evaluated on its own device; their partial sums
+  meet on the mesh's first device (the JAX package's ``psum``s), flat
+  layout only. The dense step's pairs go to the shard of their first
+  observation, which reads the second one's block from its shard.
 
 The LM loop runs on the host (one device sync per iteration and per CG
 step). Without a ``residual_jac_fn`` the Jacobian is forward mode over
@@ -57,12 +62,13 @@ only, so the Jacobian is the block diagonal of the chunk's).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..base.geometry import exp_quat, quat_mul, quat_normalize
+from ..parallel.sharded import replicate, shard_bounds, sum_onto
 from . import schur_cuda
 
 __all__ = ["BAOptions", "BAState", "BAObservations", "ba_solve",
@@ -309,6 +315,72 @@ def jacfwd_residual_jac(residual_fn: Callable, has_src: bool = False
     return residual_jac_fn
 
 
+class _Shard(NamedTuple):
+    """Shard ``index`` of the observation axis, a contiguous slice of it
+    on device ``dev`` (the whole axis when no mesh is given), with ``ctx``
+    on that device and the evaluation chunks ``bounds`` local to it."""
+    index: int
+    dev: torch.device
+    img_idx: torch.Tensor
+    cam_idx: torch.Tensor
+    pt_idx: torch.Tensor
+    src_idx: Optional[torch.Tensor]
+    valid: torch.Tensor
+    obs_data: Tuple
+    ctx: object
+    bounds: List[Tuple[int, int]]
+
+
+def _observation_shards(obs: BAObservations, mesh, dev: torch.device, ctx,
+                        chunk: int) -> List[_Shard]:
+    """The observation axis as :func:`ba_solve` evaluates it: one shard on
+    ``dev`` without a mesh; with one, ``mesh.size`` contiguous slices of
+    equal length (the axis must be padded to a multiple of the mesh size),
+    each moved to its mesh device with a copy of the tensors of ``ctx``."""
+    O = obs.img_idx.shape[0]
+    devices = (dev,) if mesh is None else mesh.devices
+    if O % len(devices):
+        raise ValueError(f"{O} observation slots do not split evenly over "
+                         f"a mesh of {len(devices)}; pad them to a multiple")
+    shards = []
+    for i, ((s, e), d) in enumerate(zip(shard_bounds(O, len(devices)),
+                                        devices)):
+        def part(a, dtype=None):
+            return None if a is None else a[s:e].to(d, dtype)
+        shards.append(_Shard(
+            i, d, part(obs.img_idx, torch.long),
+            part(obs.cam_idx, torch.long), part(obs.pt_idx, torch.long),
+            part(obs.src_idx, torch.long), part(obs.valid, torch.bool),
+            tuple(part(a) for a in obs.obs_data), replicate(ctx, d),
+            [(b, min(b + chunk, e - s)) for b in range(0, e - s, chunk)]))
+    return shards
+
+
+def _pair_shards(obs: BAObservations, shards: List[_Shard]):
+    """The dense step's observation pairs by shard: for each shard, the
+    pairs whose first observation it holds, grouped by the shard holding
+    the second, as ``[(owner, local o1, owner-local o2, both valid)]`` on
+    the shard's device (one group, in the pair list's order, without a
+    mesh)."""
+    L = shards[0].img_idx.shape[0]
+    o1 = obs.pair_o1.long().cpu()
+    o2 = obs.pair_o2.long().cpu()
+    valid = torch.cat([sh.valid.cpu() for sh in shards])
+    ok = valid[o1] & valid[o2]
+    out = []
+    for sh in shards:
+        groups = []
+        mine = (o1 // L) == sh.index
+        for t in range(len(shards)):
+            sel = mine & ((o2 // L) == t)
+            if not bool(sel.any()):
+                continue
+            groups.append((t, (o1[sel] - sh.index * L).to(sh.dev),
+                           (o2[sel] - t * L).to(sh.dev), ok[sel].to(sh.dev)))
+        out.append(groups)
+    return out
+
+
 def ba_solve(residual_fn: Callable,
              state0: BAState,
              obs: BAObservations,
@@ -321,7 +393,8 @@ def ba_solve(residual_fn: Callable,
              ctx=(),
              residual_jac_fn: Optional[Callable] = None,
              lam0=None,
-             max_iters=None) -> Tuple[BAState, Dict]:
+             max_iters=None,
+             mesh=None) -> Tuple[BAState, Dict]:
     """Run the Schur LM on the device of ``state0``.
 
     ``residual_fn(q [n, 4], t [n, 3], cam [n, k], X [n, 3], obs_slice,
@@ -337,6 +410,15 @@ def ba_solve(residual_fn: Callable,
     ``[omega, dt, omega_src, dt_src, dcam, dX]`` (JAX's ``ba_solve`` takes
     ``jax.jacfwd`` there and refuses a ``residual_jac_fn``).
 
+    ``mesh`` (a ``parallel.Mesh``): the observation axis, padded to a
+    multiple of the mesh size, splits into one contiguous shard per mesh
+    device (``_observation_shards``). Each shard evaluates its
+    observations' residuals and Jacobians on its device and accumulates its
+    partial normal-equation terms there; the partials, and each Schur
+    product over the observations, are summed onto the first device, where
+    the parameters and the camera-side solve live. The flat regime only,
+    as in the JAX package: no grid layout, so K3 is not reached.
+
     Returns the best state and a summary ``{initial_cost, final_cost,
     iterations, cg_iterations, lam, done}``."""
     if opts.linear_solver not in ("dense", "cg"):
@@ -347,7 +429,7 @@ def ba_solve(residual_fn: Callable,
         raise ValueError("the dense step needs the flat layout and the "
                          "observation pairs (obs.pair_o1/pair_o2, "
                          "make_pair_list)")
-    dev = state0.xyz.device
+    dev = state0.xyz.device if mesh is None else mesh.devices[0]
     I = state0.qvec.shape[0]
     Nc, k = state0.cams.shape
     Np = state0.xyz.shape[0]
@@ -364,12 +446,10 @@ def ba_solve(residual_fn: Callable,
     if grid_T > 0 and O != Np * grid_T:
         raise ValueError(f"obs_grid_T={grid_T}: obs axis must be exactly "
                          f"Np*T ({Np}*{grid_T}={Np * grid_T}), got O={O}")
-    img_idx = obs.img_idx.to(dev).long()
-    cam_idx = obs.cam_idx.to(dev).long()
-    pt_idx = obs.pt_idx.to(dev).long()
-    src_idx = obs.src_idx.to(dev).long() if has_src else None
-    valid = obs.valid.to(dev).bool()
-    obs_data = tuple(a.to(dev) for a in obs.obs_data)
+    shards = _observation_shards(obs, mesh, dev, ctx, int(opts.obs_chunk))
+    if grid_T > 0 and len(shards) > 1:
+        raise ValueError("the grid layout takes no mesh: a sharded "
+                         "observation axis runs the flat regime")
     pose_free = pose_free.to(dev).bool()
     pose_mask6 = torch.cat([pose_free[:, None].expand(I, 3),
                             tvec_free.to(dev).bool() & pose_free[:, None]],
@@ -379,38 +459,45 @@ def ba_solve(residual_fn: Callable,
     pm = pose_mask6.float()
     cm = cam_mask.float()
     xm = point_free.float()[:, None].expand(Np, 3)                 # [Np, 3]
-    chunk = int(opts.obs_chunk)
-    bounds = [(s, min(s + chunk, O)) for s in range(0, O, chunk)]
     # camera slot per image (for the pose-intrinsics cross blocks), from
     # the valid slots: the padding slots point at image 0 and camera 0,
     # which need not belong together
     cam_of_img = torch.zeros(I, dtype=torch.long, device=dev)
-    cam_of_img[img_idx[valid]] = cam_idx[valid]
+    for sh in shards:
+        cam_of_img[sh.img_idx[sh.valid].to(dev)] = \
+            sh.cam_idx[sh.valid].to(dev)
 
-    def gather(state, s, e):
-        """The arguments of the residual functions for chunk [s, e)."""
-        src = ((state.qvec[src_idx[s:e]], state.tvec[src_idx[s:e]])
+    def reduce(parts):
+        """The shards' partial results summed onto ``dev``."""
+        return sum_onto(parts, dev)
+
+    def gather(state, sh, s, e):
+        """The arguments of the residual functions for chunk [s, e) of
+        shard ``sh`` (``state`` on the shard's device)."""
+        src = ((state.qvec[sh.src_idx[s:e]], state.tvec[sh.src_idx[s:e]])
                if has_src else ())
-        return (state.qvec[img_idx[s:e]], state.tvec[img_idx[s:e]], *src,
-                state.cams[cam_idx[s:e]], state.xyz[pt_idx[s:e]],
-                tuple(a[s:e] for a in obs_data), ctx)
+        return (state.qvec[sh.img_idx[s:e]], state.tvec[sh.img_idx[s:e]],
+                *src, state.cams[sh.cam_idx[s:e]],
+                state.xyz[sh.pt_idx[s:e]],
+                tuple(a[s:e] for a in sh.obs_data), sh.ctx)
 
-    def eval_chunked(state: BAState, with_jac: bool,
-                     points_only: bool = False) -> Dict:
-        """Chunked per-observation eval -> cost (+ the normal equations)."""
-        cost = torch.zeros((), dtype=torch.float32, device=dev)
+    def eval_shard(state, sh, with_jac: bool, points_only: bool):
+        """Chunked per-observation eval of one shard on its device -> its
+        cost (+ its partial normal equations and observation blocks)."""
+        d, n_sh = sh.dev, sh.img_idx.shape[0]
+        cost = torch.zeros((), dtype=torch.float32, device=d)
         out: Dict = {}
         if with_jac:
             img_acc = torch.zeros((I, 42 if has_src else 42 + 6 * k),
-                                  device=dev)
-            cam_acc = torch.zeros((Nc, k * k + k), device=dev)
-            ptv = torch.zeros((O, 12), device=dev)
-            B = torch.empty((O, NR, 3), device=dev)
+                                  device=d)
+            cam_acc = torch.zeros((Nc, k * k + k), device=d)
+            ptv = torch.zeros((n_sh, 12), device=d)
+            B = torch.empty((n_sh, NR, 3), device=d)
             if has_src and not points_only:
-                Aob = torch.empty((O, NR, NR), device=dev)
-        for s, e in bounds:
-            args = gather(state, s, e)
-            vm = valid[s:e]
+                Aob = torch.empty((n_sh, NR, NR), device=d)
+        for s, e in sh.bounds:
+            args = gather(state, sh, s, e)
+            vm = sh.valid[s:e]
             if with_jac:
                 r, J = residual_jac_fn(*args)
             else:
@@ -431,16 +518,16 @@ def ba_solve(residual_fn: Callable,
             if points_only:
                 continue
             if has_src:
-                img_acc.index_add_(0, img_idx[s:e], torch.cat([
+                img_acc.index_add_(0, sh.img_idx[s:e], torch.cat([
                     G[:, :6, :6].reshape(n, 36), G[:, :6, xe]], dim=1))
-                img_acc.index_add_(0, src_idx[s:e], torch.cat([
+                img_acc.index_add_(0, sh.src_idx[s:e], torch.cat([
                     G[:, 6:12, 6:12].reshape(n, 36), G[:, 6:12, xe]], dim=1))
                 Aob[s:e] = G[:, :px, :px]
             else:
-                img_acc.index_add_(0, img_idx[s:e], torch.cat([
+                img_acc.index_add_(0, sh.img_idx[s:e], torch.cat([
                     G[:, :6, :6].reshape(n, 36), G[:, :6, xe],
                     G[:, :6, 6:px].reshape(n, 6 * k)], dim=1))
-            cam_acc.index_add_(0, cam_idx[s:e], torch.cat([
+            cam_acc.index_add_(0, sh.cam_idx[s:e], torch.cat([
                 G[:, PB:px, PB:px].reshape(n, k * k), G[:, PB:px, xe]],
                 dim=1))
             B[s:e] = G[:, :px, px:xe]
@@ -448,22 +535,42 @@ def ba_solve(residual_fn: Callable,
         if not with_jac:
             return out
         if grid_T > 0:       # point-major slots: a reshape-sum per point
-            pt_acc = ptv.reshape(Np, grid_T, 12).sum(1)
+            out["pt"] = ptv.reshape(Np, grid_T, 12).sum(1)
         else:
-            pt_acc = torch.zeros((Np, 12), device=dev).index_add_(
-                0, pt_idx, ptv)
+            out["pt"] = torch.zeros((Np, 12), device=d).index_add_(
+                0, sh.pt_idx, ptv)
+        if not points_only:
+            out.update(img=img_acc, cam=cam_acc, B=B)
+            if has_src:
+                out["Aob"] = Aob
+        return out
+
+    def eval_chunked(state: BAState, with_jac: bool,
+                     points_only: bool = False) -> Dict:
+        """Per-observation eval of every shard -> cost (+ the normal
+        equations, summed over the shards onto ``dev``; the per-
+        observation blocks ``B`` / ``Aob`` stay on their shards, one entry
+        per shard)."""
+        parts = [eval_shard(replicate(state, sh.dev), sh, with_jac,
+                            points_only) for sh in shards]
+        out: Dict = {"cost": reduce([p["cost"] for p in parts])}
+        if not with_jac:
+            return out
+        pt_acc = reduce([p["pt"] for p in parts])
         out["V"] = pt_acc[:, :9].reshape(Np, 3, 3)
         out["gx"] = pt_acc[:, 9:]
         if not points_only:
+            img_acc = reduce([p["img"] for p in parts])
+            cam_acc = reduce([p["cam"] for p in parts])
             out["Hpp"] = img_acc[:, :36].reshape(I, 6, 6)
             out["gp"] = img_acc[:, 36:42]
             if has_src:
-                out["Aob"] = Aob
+                out["Aob"] = [p["Aob"] for p in parts]
             else:
                 out["Hpc"] = img_acc[:, 42:].reshape(I, 6, k)
             out["Hcc"] = cam_acc[:, :k * k].reshape(Nc, k, k)
             out["gc"] = cam_acc[:, k * k:]
-            out["B"] = B
+            out["B"] = [p["B"] for p in parts]
         return out
 
     def cost_at(state: BAState):
@@ -480,14 +587,23 @@ def ba_solve(residual_fn: Callable,
         sysd["Hcc"] = sysd["Hcc"] * cm[:, :, None] * cm[:, None, :]
         sysd["gp"] = sysd["gp"] * pm
         sysd["gc"] = sysd["gc"] * cm
-        if has_src:
-            bm = torch.cat([pm[img_idx], pm[src_idx], cm[cam_idx]], dim=1)
-            sysd["Aob"] = sysd["Aob"] * bm[:, :, None] * bm[:, None, :]
-        else:
-            bm = torch.cat([pm[img_idx], cm[cam_idx]], dim=1)      # [O, NR]
+        if not has_src:
             sysd["Hpc"] = (sysd["Hpc"] * pm[:, :, None]
                            * cm[cam_of_img][:, None, :])
-        sysd["B"] = sysd["B"] * bm[:, :, None] * xm[pt_idx][:, None, :]
+        Bs, Aobs = [], []
+        for i, sh in enumerate(shards):
+            pm_d, cm_d, xm_d = replicate((pm, cm, xm), sh.dev)
+            src = (pm_d[sh.src_idx],) if has_src else ()
+            bm = torch.cat([pm_d[sh.img_idx], *src, cm_d[sh.cam_idx]],
+                           dim=1)                                  # [O, NR]
+            if has_src:
+                Aobs.append(sysd["Aob"][i] * bm[:, :, None]
+                            * bm[:, None, :])
+            Bs.append(sysd["B"][i] * bm[:, :, None]
+                      * xm_d[sh.pt_idx][:, None, :])
+        sysd["B"] = Bs
+        if has_src:
+            sysd["Aob"] = Aobs
         return sysd
 
     def clip_diag(H):
@@ -498,13 +614,15 @@ def ba_solve(residual_fn: Callable,
         fill = 1.0 - mask.to(Hb.dtype)
         return Hb + torch.diag_embed(lam * clip_diag(Hb) + fill)
 
-    def schur_terms(B, Vinv):
+    def schur_terms(Bs, Vinv):
         """(Schur term, rhs correction, back-substitution) closures of the
         layout in use: K3a/b/c on the grid layout, gathers + index_add_
-        on the flat one."""
+        on the flat one (each shard's observations on its device, their
+        partial sums reduced onto ``dev``)."""
         if grid_T > 0:
+            sh, B = shards[0], Bs[0]
             Btr, img_r, cam_r, Vinv_p, Ppad = schur_cuda.pack_grid_blocks(
-                B.reshape(O, 3 * NR).t(), img_idx, cam_idx,
+                B.reshape(O, 3 * NR).t(), sh.img_idx, sh.cam_idx,
                 Vinv.permute(1, 2, 0), grid_T)
             dims = dict(T=grid_T, I=I, Nc=Nc, k=k)
 
@@ -524,43 +642,51 @@ def ba_solve(residual_fn: Callable,
                     vp.t(), vc.t(), Btr, img_r, cam_r, **dims)[:, :Np].t()
             return term, rhs, backsub
 
-        rows, scatter = obs_rows_fns()
+        def per_point(parts):
+            """``[Np, 3]`` sums of the shards' per-observation vectors."""
+            return reduce([torch.zeros((Np, 3), device=sh.dev).index_add_(
+                0, sh.pt_idx, s_o) for sh, s_o in zip(shards, parts)])
 
-        def per_point(s_o):
-            return torch.zeros((Np, 3), device=dev).index_add_(0, pt_idx,
-                                                               s_o)
+        def to_obs(y):
+            """A per-point vector through each shard's ``B`` blocks."""
+            return [torch.einsum("oab,ob->oa", B, y.to(sh.dev)[sh.pt_idx])
+                    for sh, B in zip(shards, Bs)]
 
         def term(vp, vc):
-            t_p = per_point(torch.einsum("oa,oab->ob", rows(vp, vc), B))
-            w_p = torch.einsum("pab,pb->pa", Vinv, t_p)
-            return scatter(torch.einsum("oab,ob->oa", B, w_p[pt_idx]))
+            t_p = per_point([torch.einsum("oa,oab->ob", obs_rows(sh, vp, vc),
+                                          B) for sh, B in zip(shards, Bs)])
+            return scatter(to_obs(torch.einsum("pab,pb->pa", Vinv, t_p)))
 
         def rhs(gx):
-            y = torch.einsum("pab,pb->pa", Vinv, gx)
-            return scatter(torch.einsum("oab,ob->oa", B, y[pt_idx]))
+            return scatter(to_obs(torch.einsum("pab,pb->pa", Vinv, gx)))
 
         def backsub(vp, vc):
-            return per_point(torch.einsum("oab,oa->ob", B, rows(vp, vc)))
+            return per_point([torch.einsum("oab,oa->ob", B,
+                                           obs_rows(sh, vp, vc))
+                              for sh, B in zip(shards, Bs)])
         return term, rhs, backsub
 
-    def obs_rows_fns():
-        """``(rows, scatter)``: the camera-side rows ``[O, NR]`` of each
-        observation from per-image / per-camera vectors, and their
-        reduction back (both pose blocks of an observation with a source
+    def obs_rows(sh, vp, vc):
+        """The camera-side rows ``[n, NR]`` of shard ``sh``'s observations
+        from per-image / per-camera vectors (both pose blocks with a source
         view)."""
-        def rows(vp, vc):
-            src = (vp[src_idx],) if has_src else ()
-            return torch.cat([vp[img_idx], *src, vc[cam_idx]], dim=1)
+        vp, vc = vp.to(sh.dev), vc.to(sh.dev)
+        src = (vp[sh.src_idx],) if has_src else ()
+        return torch.cat([vp[sh.img_idx], *src, vc[sh.cam_idx]], dim=1)
 
-        def scatter(u_o):
-            up = torch.zeros((I, 6), device=dev).index_add_(0, img_idx,
-                                                            u_o[:, :6])
+    def scatter(parts):
+        """The shards' per-observation rows ``[n, NR]`` reduced back to
+        per-image / per-camera vectors on ``dev``."""
+        ups, ucs = [], []
+        for sh, u_o in zip(shards, parts):
+            up = torch.zeros((I, 6), device=sh.dev).index_add_(
+                0, sh.img_idx, u_o[:, :6])
             if has_src:
-                up.index_add_(0, src_idx, u_o[:, 6:12])
-            uc = torch.zeros((Nc, k), device=dev).index_add_(0, cam_idx,
-                                                             u_o[:, PB:])
-            return up, uc
-        return rows, scatter
+                up.index_add_(0, sh.src_idx, u_o[:, 6:12])
+            ups.append(up)
+            ucs.append(torch.zeros((Nc, k), device=sh.dev).index_add_(
+                0, sh.cam_idx, u_o[:, PB:]))
+        return reduce(ups), reduce(ucs)
 
     def schur_step(sysd: Dict, lam: float):
         """One damped CG Schur solve -> (d_pose [I, 6], d_cam [Nc, k],
@@ -575,14 +701,14 @@ def ba_solve(residual_fn: Callable,
         if has_src:
             # the camera-side matrix through the per-observation blocks;
             # the damping (and the fill of frozen rows) on its diagonal
-            rows, scatter = obs_rows_fns()
-            Aob = sysd["Aob"]
+            Aobs = sysd["Aob"]
             diag_p = lam * clip_diag(Hpp) + (1.0 - pm)
             diag_c = lam * clip_diag(Hcc) + (1.0 - cm)
 
             def a_matvec(vp, vc):
-                avp, avc = scatter(torch.einsum("oab,ob->oa", Aob,
-                                                rows(vp, vc)))
+                avp, avc = scatter([
+                    torch.einsum("oab,ob->oa", A, obs_rows(sh, vp, vc))
+                    for sh, A in zip(shards, Aobs)])
                 return avp + diag_p * vp, avc + diag_c * vc
         else:
             Hpc = sysd["Hpc"]
@@ -632,15 +758,12 @@ def ba_solve(residual_fn: Callable,
         rk = torch.arange(k, device=dev)
         pose_rows = torch.arange(I, device=dev)[:, None] * 6 + r6    # [I, 6]
         cam_rows = 6 * I + torch.arange(Nc, device=dev)[:, None] * k + rk
-        src_rows = (pose_rows[src_idx],) if has_src else ()
-        obs_rows = torch.cat([pose_rows[img_idx], *src_rows,
-                              cam_rows[cam_idx]], 1)                  # [O, NR]
+        obs_rows_g = [obs_rows(sh, pose_rows, cam_rows)              # [n, NR]
+                      for sh in shards]
         free_rows = torch.cat([pose_mask6.reshape(-1),
                                cam_mask.reshape(-1)]).float()
-        pair_o1 = obs.pair_o1.to(dev).long()
-        pair_o2 = obs.pair_o2.to(dev).long()
-        pair_ok = valid[pair_o1] & valid[pair_o2]
-        Q = pair_o1.shape[0]
+        pairs = _pair_shards(obs, shards)
+        Q = obs.pair_o1.shape[0]
         pc = max(min(int(opts.pair_chunk), Q), 1)
 
     def place(S, rows, cols, blocks):
@@ -652,16 +775,21 @@ def ba_solve(residual_fn: Callable,
     def dense_step(sysd: Dict, lam: float):
         """One damped dense Schur solve (``pixsfm_tpu/ops/schur.py:1253-
         1354``) -> (d_pose, d_cam, d_xyz, predicted reduction, 0)."""
-        V, gp, gc, gx, B = (sysd["V"], sysd["gp"], sysd["gc"], sysd["gx"],
-                            sysd["B"])
+        V, gp, gc, gx, Bs = (sysd["V"], sysd["gp"], sysd["gc"], sysd["gx"],
+                             sysd["B"])
         Vinv = _inv3x3(damp(V, xm, lam))
         # the camera-side matrix A from its blocks, placed by index: with a
         # source view, every term (both poses, intrinsics, all cross
         # blocks) lives in the per-observation blocks
-        A = torch.zeros(M * M, device=dev)
         if has_src:
-            place(A, obs_rows, obs_rows, sysd["Aob"])
+            parts = []
+            for sh, rows_o, Aob in zip(shards, obs_rows_g, sysd["Aob"]):
+                A_s = torch.zeros(M * M, device=sh.dev)
+                place(A_s, rows_o, rows_o, Aob)
+                parts.append(A_s)
+            A = reduce(parts)
         else:
+            A = torch.zeros(M * M, device=dev)
             Hpc = sysd["Hpc"]
             crow_img = cam_rows[cam_of_img]                          # [I, k]
             place(A, pose_rows, pose_rows, sysd["Hpp"])
@@ -672,27 +800,43 @@ def ba_solve(residual_fn: Callable,
         diagA = clip_diag(A)
         A = A + torch.diag(lam * diagA + (1.0 - free_rows))
         # the Schur term B[o1] V^-1 B[o2]^T of every same-track pair, placed
-        # at (rows(o1), rows(o2)); padded pairs point at an invalid slot
-        Ssub = torch.zeros(M * M, device=dev)
-        for s in range(0, Q, pc):
-            p1, p2 = pair_o1[s:s + pc], pair_o2[s:s + pc]
-            T1 = torch.einsum("qab,qbc->qac", B[p1], Vinv[pt_idx[p1]])
-            Cp = torch.einsum("qac,qdc->qad", T1, B[p2])
-            Cp = torch.where(pair_ok[s:s + pc, None, None], Cp, 0.0)
-            place(Ssub, obs_rows[p1], obs_rows[p2], Cp)
-        S = A - Ssub.view(M, M)
+        # at (rows(o1), rows(o2)); padded pairs point at an invalid slot. A
+        # shard takes the pairs whose first observation it holds, and reads
+        # the second one's block and rows from the shard that holds it.
+        parts = []
+        for sh, B, rows_o, by_owner in zip(shards, Bs, obs_rows_g, pairs):
+            Ssub = torch.zeros(M * M, device=sh.dev)
+            Vinv_s = Vinv.to(sh.dev)
+            for t, p1, p2, ok in by_owner:
+                B2 = Bs[t].to(sh.dev) if t != sh.index else B
+                rows2 = obs_rows_g[t].to(sh.dev)
+                for s in range(0, p1.shape[0], pc):
+                    q1, q2 = p1[s:s + pc], p2[s:s + pc]
+                    T1 = torch.einsum("qab,qbc->qac", B[q1],
+                                      Vinv_s[sh.pt_idx[q1]])
+                    Cp = torch.einsum("qac,qdc->qad", T1, B2[q2])
+                    Cp = torch.where(ok[s:s + pc, None, None], Cp, 0.0)
+                    place(Ssub, rows_o[q1], rows2[q2], Cp)
+            parts.append(Ssub)
+        S = A - reduce(parts).view(M, M)
         # rhs: g_cam - sum_obs B_o Vinv_p g_p
-        corr = torch.einsum("oab,ob->oa", torch.einsum(
-            "oab,obc->oac", B, Vinv[pt_idx]), gx[pt_idx])
+        corr = []
+        for sh, B, rows_o in zip(shards, Bs, obs_rows_g):
+            Vinv_s, gx_s = replicate((Vinv, gx), sh.dev)
+            c_o = torch.einsum("oab,ob->oa", torch.einsum(
+                "oab,obc->oac", B, Vinv_s[sh.pt_idx]), gx_s[sh.pt_idx])
+            corr.append(torch.zeros(M, device=sh.dev).index_add_(
+                0, rows_o.reshape(-1), c_o.reshape(-1)))
         g_cam = torch.cat([gp.reshape(-1), gc.reshape(-1)])
-        rhs = g_cam - torch.zeros(M, device=dev).index_add_(
-            0, obs_rows.reshape(-1), corr.reshape(-1))
+        rhs = g_cam - reduce(corr)
         dc_full = -dense_camera_solve(S, rhs) * free_rows
         d_pose = dc_full[:6 * I].reshape(I, 6)
         d_cam = dc_full[6 * I:].reshape(Nc, k)
         # back-substitute the points: dx = -Vinv (gx + sum_obs B^T dc_obs)
-        t = torch.zeros((Np, 3), device=dev).index_add_(
-            0, pt_idx, torch.einsum("oab,oa->ob", B, dc_full[obs_rows]))
+        t = reduce([torch.zeros((Np, 3), device=sh.dev).index_add_(
+            0, sh.pt_idx, torch.einsum("oab,oa->ob", B,
+                                       dc_full.to(sh.dev)[rows_o]))
+            for sh, B, rows_o in zip(shards, Bs, obs_rows_g)])
         d_xyz = -torch.einsum("pab,pb->pa", Vinv, gx + t) * xm
         g_all = torch.cat([g_cam, gx.reshape(-1)])
         d_all = torch.cat([dc_full, d_xyz.reshape(-1)])

@@ -50,6 +50,17 @@ LOSSES = {"trivial": {"name": "trivial", "params": []},
           "cauchy": {"name": "cauchy", "params": [0.25]}}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's side: among the fast lane's
+    parallel workers, torch's default threads only contend for the cores
+    (as in ``tests/test_torch_ba.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scaled_close(got, want, rel=1e-5):
     want = np.asarray(want)
     np.testing.assert_allclose(np.asarray(got), want, rtol=0,
@@ -353,9 +364,14 @@ def test_low_memory_preset_builds():
     assert isinstance(BundleAdjuster.create({"strategy": "patch_warp"},
                                             device="cpu"),
                       PatchWarpBundleAdjuster)
-    # the costmap_window layout exists only for a device mesh
-    with pytest.raises(NotImplementedError, match="Sharding"):
-        CostMapBundleAdjuster({"parallel": {"enabled": True}}, device="cpu")
+    # the knob builds: without n_devices the CPU runs unsharded, with it
+    # the costmap_window layout takes a mesh of CPU shards
+    par = {"enabled": True}
+    assert CostMapBundleAdjuster({"parallel": par},
+                                 device="cpu")._parallel_mesh() is None
+    mesh = CostMapBundleAdjuster({"parallel": dict(par, n_devices=2)},
+                                 device="cpu")._parallel_mesh()
+    assert mesh.size == 2 and {d.type for d in mesh.devices} == {"cpu"}
 
 
 def test_use_cache_without_path_runs_and_a_path_raises(tmp_path):

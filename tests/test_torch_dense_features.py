@@ -39,6 +39,17 @@ from pixsfm_tpu_torch.refine_hloc import PixSfM
 from tests.test_torch_sfm import _write_plane_scene
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's side: among the fast lane's
+    parallel workers, torch's default threads only contend for the cores
+    (as in ``tests/test_torch_ba.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _write_image(path, rng, W=240, H=180):
     img = rng.integers(0, 256, (H, W, 3)).astype(np.uint8)
     PIL.Image.fromarray(img).save(path)

@@ -40,6 +40,17 @@ DETECT_CONF = {"superpoint": {"max_keypoints": 256},
                "d2net": {"max_keypoints": 256}}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's side: among the fast lane's
+    parallel workers, torch's default threads only contend for the cores
+    (as in ``tests/test_torch_ba.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _randomize_bn(variables, seed=0):
     rng = np.random.default_rng(seed)
     variables = jax.tree.map(np.asarray, flax.core.unfreeze(variables))

@@ -73,12 +73,14 @@ def test_default_configs_match_jax():
 
 
 def test_unported_strategies_raise():
-    """Multi-device KA is not ported and raises; ``topological_reference``
-    is ported and dispatches to its adjuster, as in the JAX package."""
+    """Multi-device KA builds its mesh from the knob (CPU shards here);
+    ``topological_reference`` is ported and dispatches to its adjuster, as
+    in the JAX package."""
     ka = tmain.KeypointAdjuster.create({"strategy": "topological_reference"},
                                        device="cpu")
     assert type(ka).__name__ == type(jmain.KeypointAdjuster.create(
         {"strategy": "topological_reference"})).__name__
-    with pytest.raises(NotImplementedError):
-        tmain.KeypointAdjuster({"parallel": {"enabled": True}},
-                               device="cpu")
+    mesh = tmain.KeypointAdjuster(
+        {"parallel": {"enabled": True, "n_devices": 4}},
+        device="cpu")._parallel_mesh()
+    assert mesh is not None and mesh.size == 4

@@ -52,7 +52,8 @@ def test_every_module_imports_without_jax():
                  "eval.eth3d.synthetic", "eval.eth3d.triangulation",
                  "eval.eth3d.localization", "features.models.loftr",
                  "configs", "eval.eth3d.plot_triangulation",
-                 "eval.eth3d.plot_localization"):
+                 "eval.eth3d.plot_localization", "parallel",
+                 "parallel.sharded", "util.profiling"):
         assert f"pixsfm_tpu_torch.{name}" in _module_names()
 
 
@@ -153,8 +154,8 @@ def test_cuda_entry_points_raise_without_gpu():
 
 def test_reconstruction_is_ported():
     """``PixSfM.reconstruction`` (and ``run``) is the mapper flow, no longer
-    a stub; a device mesh passed to the PnP driver names the roadmap item
-    that will bring it."""
+    a stub; a device mesh passed to the PnP driver splits its query batch
+    and draws what an unsharded call draws."""
     import inspect
 
     from pixsfm_tpu_torch.base.cameras import Camera
@@ -165,8 +166,12 @@ def test_reconstruction_is_ported():
         assert "NotImplementedError" not in inspect.getsource(fn)
     cam = Camera(1, "PINHOLE", 64, 48, [50.0, 50.0, 32.0, 24.0])
     q = dict(points2D=np.zeros((8, 2)), points3D=np.ones((8, 3)), camera=cam)
-    with pytest.raises(NotImplementedError, match="'Sharding'"):
-        absolute_pose_estimation_batch([q], mesh=object(), device="cpu")
+    from pixsfm_tpu_torch.parallel import make_mesh
+    one = absolute_pose_estimation_batch([q, q], device="cpu")
+    two = absolute_pose_estimation_batch([q, q], mesh=make_mesh(2, "cpu"))
+    for a, b in zip(one, two):
+        assert a["success"] == b["success"]
+        assert a["num_inliers"] == b["num_inliers"]
 
 
 def test_weight_free_presets_load():

@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import PIL.Image
 import pytest
+import torch
 
 from pixsfm_tpu.base import solver_default_conf
 from pixsfm_tpu.base.graph import (compute_root_labels, compute_score_labels,
@@ -44,6 +45,17 @@ from pixsfm_tpu_torch.keypoint_adjustment import main as tmain
 from pixsfm_tpu_torch.keypoint_adjustment import solver as tsolver
 from pixsfm_tpu_torch.ops.lm import LMOptions
 from pixsfm_tpu_torch.refine_hloc import PixSfM
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's side: among the fast lane's
+    parallel workers, torch's default threads only contend for the cores
+    (as in ``tests/test_torch_ba.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def smooth_field(H, W, C, seed, shift=(0.0, 0.0)):

@@ -1138,3 +1138,200 @@ def test_jacfwd_ba_solve_cuda_matches_cpu(dev):
     assert sa["final_cost"] < 0.5 * sa["initial_cost"]
     assert abs(sa["final_cost"] - sb["final_cost"]) <= 1e-4 * sb["final_cost"]
     torch.testing.assert_close(a.xyz.cpu(), b.xyz, rtol=0, atol=1e-3)
+
+
+def test_sharded_ka_cuda_matches_unsharded(dev):
+    """``sharded_ka_solve`` over a two-shard mesh that names the card twice
+    (each shard's K1 reads and K2 solves launched on its own problems)
+    against the unsharded solve on the card, with the same chunks:
+    keypoints atol 5e-4, final cost rtol 1e-4
+    (``tests/test_sharded_ba.py``'s limits)."""
+    import numpy as np
+    from pixsfm_tpu_torch.base.interpolation import InterpolationConfig
+    from pixsfm_tpu_torch.base.losses import RobustLoss
+    from pixsfm_tpu_torch.keypoint_adjustment.solver import (
+        KAProblems, solve_ka_problems)
+    from pixsfm_tpu_torch.ops.lm import LMOptions
+    from pixsfm_tpu_torch.parallel import Mesh, sharded_ka_solve
+    rng = np.random.default_rng(3)
+    P, K, E, C, ps = 40, 24, 40, 128, 16       # N = 48: the CG path (K2)
+    field = rng.normal(0, 1, (ps, ps, C)).astype(np.float32)
+    patches = (field[None] + 0.05 * rng.normal(
+        0, 1, (P * K, ps, ps, C))).astype(np.float32)
+    kp0 = rng.uniform(5.0, 11.0, (P, K, 2)).astype(np.float32)
+    problems = KAProblems(
+        kp0=kp0, patch_row=np.arange(P * K).reshape(P, K),
+        corner=np.zeros((P, K, 2), np.float32),
+        scale=np.ones((P, K, 2), np.float32), ups=np.ones((P, K), np.float32),
+        kp_free=np.ones((P, K), bool), kp_valid=np.ones((P, K), bool),
+        edge_i=rng.integers(0, K, (P, E)), edge_j=rng.integers(0, K, (P, E)),
+        edge_w=np.ones((P, E), np.float32), lower=kp0 - 3.0,
+        upper=kp0 + 3.0, node_problem=np.zeros(1, np.int64),
+        node_slot=np.zeros(1, np.int64), node_ids=np.zeros(1, np.int64))
+    args = (torch.as_tensor(patches, device=dev),
+            InterpolationConfig(mode="BICUBIC", l2_normalize=True),
+            RobustLoss("cauchy", [0.25]),
+            LMOptions(max_iterations=15, parameter_tolerance=1e-6))
+    before = (interpolate_cuda.launches, cg_cuda.launches)
+    kp_sh, sum_sh = sharded_ka_solve(problems, *args, Mesh([dev, dev]))
+    torch.cuda.synchronize()
+    assert interpolate_cuda.launches > before[0]
+    assert cg_cuda.launches > before[1]
+    kp_one, sum_one = solve_ka_problems(problems, *args, chunk=P // 2,
+                                        device=dev)
+    assert sum_sh["final_cost"] < sum_sh["initial_cost"]
+    np.testing.assert_allclose(kp_sh, kp_one, atol=5e-4)
+    np.testing.assert_allclose(sum_sh["final_cost"], sum_one["final_cost"],
+                               rtol=1e-4)
+
+
+def test_window_layout_ba_cuda_matches_unsharded(dev):
+    """Feature-reference BA in its window layout over a two-shard mesh that
+    names the card twice (each observation's window read by K1 on its
+    shard, the references sharded by points) against the unsharded BA on
+    the card: final cost rtol 1e-3, points atol 5e-3
+    (``tests/test_parallel_pipeline.py``'s limits)."""
+    import numpy as np
+    from pixsfm_tpu_torch.bundle_adjustment import \
+        FeatureReferenceBundleAdjuster
+    from pixsfm_tpu_torch.features.featuremaps import FeatureMap, FeatureSet
+    from pixsfm_tpu_torch.parallel import Mesh
+    model, mgr, _ = _loc_scene()
+    cpu_set = mgr.fset(0)
+    fset = FeatureSet(cpu_set.channels, cpu_set.patch_size, cpu_set.dtype)
+    for name, m in cpu_set.maps.items():
+        fset.emplace(name, FeatureMap(m.patches.to(dev), m.keypoint_ids(),
+                                      m.corners, m.scale))
+    rng = np.random.default_rng(5)
+    for p in model.points3D.values():
+        p.xyz = p.xyz + rng.normal(0, 0.01, 3)
+    rec_a, rec_b = model.copy(), model.copy()
+    conf = {"interpolation": {"mode": "BICUBIC", "l2_normalize": True},
+            "optimizer": {"solver": {"max_num_iterations": 10}}}
+
+    class Sharded(FeatureReferenceBundleAdjuster):
+        def _parallel_mesh(self):
+            return Mesh([dev, dev])
+
+    out_a = FeatureReferenceBundleAdjuster(conf, device=dev).refine(rec_a,
+                                                                    fset)
+    before = interpolate_cuda.launches
+    out_b = Sharded(conf, device=dev).refine(rec_b, fset)
+    torch.cuda.synchronize()
+    assert interpolate_cuda.launches > before
+    assert out_b["final_cost"] < out_b["initial_cost"]
+    assert abs(out_b["final_cost"] - out_a["final_cost"]) \
+        <= 1e-3 * out_a["final_cost"]
+    pids = sorted(model.points3D)
+    xa = np.stack([rec_a.points3D[p].xyz for p in pids])
+    xb = np.stack([rec_b.points3D[p].xyz for p in pids])
+    assert float(np.abs(xa - xb).max()) <= 5e-3
+
+
+def test_parallel_knob_across_cards_matches_one_card(dev):
+    """With two or more cards, the ``parallel`` knob with no ``n_devices``
+    takes every card (``make_mesh``): KA's problems, feature-reference
+    BA's observations (window layout) and references, and
+    ``localize_batch``'s queries then run on distinct devices, and each
+    result is held to the same call on one card with the limits of
+    ``tests/test_parallel_pipeline.py`` (KA keypoints 5e-3 px and cost
+    rtol 1e-3; BA cost rtol 1e-3, points 5e-3; localization: the same
+    successes, qvec 2e-4, tvec 2e-3)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    import copy
+
+    import numpy as np
+    from pixsfm_tpu_torch.bundle_adjustment import \
+        FeatureReferenceBundleAdjuster
+    from pixsfm_tpu_torch.features.featuremaps import FeatureMap, FeatureSet
+    from pixsfm_tpu_torch.keypoint_adjustment import (
+        FeatureMetricKeypointAdjuster, build_matching_graph)
+    from pixsfm_tpu_torch.localization import QueryLocalizer
+    n = torch.cuda.device_count()
+    knob = {"parallel": {"enabled": True}}
+
+    # KA: one track per problem and 8 problems per device chunk, so that
+    # every card solves some
+    rng = np.random.default_rng(7)
+    C, ps, n_kps = 16, 16, 8 * (n + 1)
+    field = rng.normal(0, 1, (96, 96, C)).astype(np.float32)
+    xy = rng.uniform(ps, 96 - ps, (n_kps, 2))
+    names = ["a.png", "b.png", "c.png"]
+    fset_ka, kps0 = FeatureSet(C, ps, "float32"), {}
+    for i, name in enumerate(names):
+        kps0[name] = xy + (rng.uniform(-1, 1, xy.shape) if i else 0.0)
+        corners = np.floor(kps0[name] - ps / 2).astype(np.int64)
+        fset_ka.emplace(name, FeatureMap.from_arrays(
+            np.stack([field[y:y + ps, x:x + ps] for x, y in corners]),
+            list(range(n_kps)), corners, np.ones(2), device=dev))
+    ident = np.stack([np.arange(n_kps)] * 2, axis=1)
+    matches = {(a, b): ident for i, a in enumerate(names)
+               for b in names[i + 1:]}
+
+    class _One:
+        num_levels = 1
+
+        def __init__(self, fset):
+            self._fset = fset
+
+        def fset(self, level):
+            return self._fset
+
+    conf_ka = {"max_kps_per_problem": 3, "problem_chunk_size": 8}
+    outs = []
+    for conf in (conf_ka, dict(conf_ka, **knob)):
+        adj = FeatureMetricKeypointAdjuster(conf, device=dev)
+        k = {m: v.copy() for m, v in kps0.items()}
+        o = adj.refine_multilevel(k, _One(fset_ka),
+                                  build_matching_graph(matches))
+        outs.append((k, float(np.sum(o["final_cost"])), adj))
+    assert outs[1][2]._parallel_mesh().size == n
+    assert abs(outs[1][1] - outs[0][1]) <= 1e-3 * abs(outs[0][1])
+    for m in names:
+        assert float(np.abs(outs[1][0][m] - outs[0][0][m]).max()) <= 5e-3
+
+    # BA in the window layout, the references sharded too
+    model, mgr, (cam, _, p2D, p3D, kps, qmap) = _loc_scene()
+    cpu_set = mgr.fset(0)
+    fset = FeatureSet(cpu_set.channels, cpu_set.patch_size, cpu_set.dtype)
+    for name, m in cpu_set.maps.items():
+        fset.emplace(name, FeatureMap(m.patches.to(dev), m.keypoint_ids(),
+                                      m.corners, m.scale))
+    rec_a, rec_b = model.copy(), model.copy()
+    for r in (rec_a, rec_b):
+        rng_p = np.random.default_rng(5)
+        for pid in sorted(r.points3D):
+            r.points3D[pid].xyz = r.points3D[pid].xyz + rng_p.normal(0, 0.01,
+                                                                   3)
+    conf_ba = {"interpolation": {"mode": "BICUBIC", "l2_normalize": True},
+               "optimizer": {"solver": {"max_num_iterations": 10}}}
+    out_a = FeatureReferenceBundleAdjuster(conf_ba, device=dev).refine(
+        rec_a, fset)
+    adj = FeatureReferenceBundleAdjuster(dict(conf_ba, **knob), device=dev)
+    assert adj._parallel_mesh().size == n
+    out_b = adj.refine(rec_b, fset)
+    assert abs(out_b["final_cost"] - out_a["final_cost"]) \
+        <= 1e-3 * out_a["final_cost"]
+    pids = sorted(model.points3D)
+    assert float(np.abs(np.stack([rec_a.points3D[p].xyz for p in pids])
+                        - np.stack([rec_b.points3D[p].xyz for p in pids]))
+                 .max()) <= 5e-3
+
+    # localize_batch: QKA, PnP and QBA over the cards
+    qfmap = FeatureMap(qmap.patches.to(dev), qmap.keypoint_ids(),
+                       qmap.corners, qmap.scale)
+    batch = [dict(keypoints=kps.copy(), pnp_point2D_idxs=p2D,
+                  pnp_points3D_id=p3D, query_camera=cam,
+                  query_fmaps=[qfmap])] * (n + 1)
+    res = []
+    for conf in (_loc_conf(), dict(copy.deepcopy(_loc_conf()), **knob)):
+        loc = QueryLocalizer(model, conf=conf, dense_features=mgr,
+                             device=dev)
+        res.append(loc.localize_batch([dict(b, keypoints=b["keypoints"]
+                                            .copy()) for b in batch]))
+    assert loc._parallel_mesh().size == n
+    for a, b in zip(*res):
+        assert a["success"] and b["success"]
+        np.testing.assert_allclose(b["qvec"], a["qvec"], atol=2e-4)
+        np.testing.assert_allclose(b["tvec"], a["tvec"], atol=2e-3)

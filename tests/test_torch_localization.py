@@ -389,17 +389,17 @@ def test_localize_batch_matches_jax(scene, mode):
 
 
 def test_unported_modes_raise(scene):
-    """What the localizer still refuses: the device mesh ('Sharding'), and
-    "full" references fed to QKA (``ValueError``; the JAX package's QKA
-    fails on them too, ``tests/test_torch_qba_options.py``). The "full"
-    mode with QKA off and the other interpolation modes build."""
+    """What the localizer still refuses: "full" references fed to QKA
+    (``ValueError``; the JAX package's QKA fails on them too,
+    ``tests/test_torch_qba_options.py``). The "full" mode with QKA off, the
+    other interpolation modes and the device mesh of ``parallel`` build."""
     mgr = _Manager(scene["tfset"])
     with pytest.raises(ValueError, match="QKA.apply"):
         QueryLocalizer(scene["trec2"], conf={"target_reference": "full"},
                        dense_features=mgr, device="cpu")
-    with pytest.raises(NotImplementedError, match="'Sharding'"):
-        QueryLocalizer(scene["trec2"], conf={"parallel": {"enabled": True}},
-                       dense_features=mgr, device="cpu")
+    loc = QueryLocalizer(scene["trec2"], conf={"parallel": {
+        "enabled": True, "n_devices": 2}}, dense_features=mgr, device="cpu")
+    assert loc._parallel_mesh().size == 2
     QueryLocalizer(scene["trec2"], conf={"target_reference": "full",
                                          "QKA": {"apply": False}},
                    dense_features=mgr, device="cpu")

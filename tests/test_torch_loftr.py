@@ -39,6 +39,17 @@ from pixsfm_tpu_torch.features.models.base_model import read_checkpoint
 CONF = {"pretrained": None, "max_matches": 64}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's side: among the fast lane's
+    parallel workers, torch's default threads only contend for the cores
+    (as in ``tests/test_torch_ba.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel_err(a, b):
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
 

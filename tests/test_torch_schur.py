@@ -22,6 +22,17 @@ TOL = dict(rtol=2e-5, atol=2e-4)
 
 
 @pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's side: among the fast lane's
+    parallel workers, torch's default threads only contend for the cores
+    (as in ``tests/test_torch_ba.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
 def _interpret(monkeypatch):
     monkeypatch.setattr(sp, "INTERPRET", True)
 
