@@ -123,7 +123,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    N(0, 1 px)) matched to their ``LOC_PAIRS`` nearest model views, with
    ``LOC_WRONG`` of the matches pointed at wrong points; the default
    ``localization`` config (S2DNet, bf16 patches of 16 px, ``nearest``
-   references with ``keep_observations``, QKA and QBA). First
+   references with ``keep_observations``, QKA and QBA, QBA cut from 100 to
+   ``LOC_QBA_STEPS`` Newton steps a query). First
    ``localize_queries`` over a ``QueryLocalizer`` built from the decoded
    model views on ``cuda`` and then the serial path of the ``localize``
    CLI, K1's counter zeroed just before the localizer is built (reference
@@ -140,8 +141,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    device's PnP pose explains all but one of the other's inliers, PnP and
    final poses within ``PNP_POLISHED_TOL`` where both devices kept the f64
    polish, else ``PNP_UNPOLISHED_TOL``), each stage also from identical
-   inputs (nearest references equal, QKA keypoints within 0.05 px, 100
-   QBA steps within 1e-4), the launches and device-idle share of one QKA
+   inputs (nearest references equal, QKA keypoints within 0.05 px,
+   ``LOC_QBA_STEPS`` QBA steps within 1e-4), the launches and device-idle share of one QKA
    and one 10-step QBA call under the profiler, and K1 timed at this
    path's QKA shape.
 19. The ``low_memory`` preset (topological_reference KA, 8 px bf16
@@ -190,7 +191,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    finite; then the same under the profiler (BA capped at
    ``BA_PROFILE_ITERATIONS``). (d) ``run_ba`` with ``patch_warp`` and poses
    free (joint source poses on the flat CG layout) on (c)'s model, poses
-   perturbed, LM capped at ``PHOTO_BA_ITERATIONS``: the cost must fall. (a) K1
+   perturbed, LM capped at ``PHOTO_BA_ITERATIONS`` (4; 10 before phase 25
+   was added): the cost must fall. (a) K1
    at the path's shape: one chunk's node queries, 16 per observation of
    8192, over one bf16 16x16x3 window per observation of (c), L2 off (the
    general variant), as phase 2 checks it.
@@ -303,6 +305,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    with the localizer's mesh (QKA problems, PnP queries and QBA queries
    over it), the references shared: the same successes, poses within
    phase 14's polished limits (``compare_localizations``).
+25. The rest of the features layer and the native graph core, with the
+   default config (S2DNet, 128 channels) and counters zeroed just before
+   each counted run and read just after. (a) Phase 11's 24 views extracted
+   at the graph's keypoints one image a forward and ``FR_BATCH`` a forward
+   (``batch_size``; both walls printed): the same ids and corners, patches
+   within ``FR_PATCH_ATOL``; then the body of ``PixSfM.triangulation``
+   (KA -> triangulation -> BA, BA capped at ``BA_ITERATIONS``) with batched
+   extraction, on its own copy of the reference model (counted): costs
+   fall, the tracks survive as in phase 11. (b) ``S2DNet(combine=True,
+   num_layers=3)`` on one 640x480 crop on ``cuda`` and ``cpu`` within
+   ``FR_COMBINE_RTOL`` of the largest value; ``run_ka`` on phase 5's scene
+   with that model (counted), its first K1 and K2 launches watched (their
+   inputs kept) and each held to its plain version there and timed. (c)
+   ``keep_on_device`` extraction of (a)'s views: every map a
+   ``DeviceFeatureMap``, packed by ``FeatureView`` equal to (a)'s default
+   maps; KA on them (counted) within ``FR_KP_ATOL`` of KA on the default
+   maps. (d) The native graph core, built with g++ in phase 1: track,
+   score and root labels on phase 11's graph and an FFD packing of
+   ``FR_FFD_TRACKS`` tracks equal to the numpy plain versions, both timed.
+   (e) ``util.misc.total_memory`` / ``free_memory``. The H5 cache needs
+   h5py; without it a line says the cache is left to the CPU tests.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA, BA, triangulation), its error against the plain version, its
@@ -332,10 +355,13 @@ KA shape; ``"interp_options"``: the launches of 23(a), 23(b) and 23(c),
 split in ``launches_by_run``, with the figures on 23(a)'s first node-rows
 launch; ``"sharded"``: the launches of 24(a)-(d), split in
 ``launches_by_run``, with the figures on 24(b)'s first window-layout
-launch; ``"vggnet"``: one entry per width, ``channels`` 64 / 256 / 512, with
+launch; ``"features_rest"``: the launches of 25(a)-(c), split in
+``launches_by_run``, with the figures on 25(b)'s first launch;
+``"vggnet"``: one entry per width, ``channels`` 64 / 256 / 512, with
 21(d)'s launches at that width and phase 2's figures at it); K2's and
 K3a/b/c's entries sum their launches over the paths and list them in ``launches_by_path`` (K3's ``in_situ_low_memory_ms``
-from 19(c)); and last ``{"ok": true, "device": {...}}``.
+from 19(c); K2's ``features_rest``: its figures on 25(b)'s first launch);
+and last ``{"ok": true, "device": {...}}``.
 
 The weights are each model's deterministic random init (no checkpoint
 ships with the repository); the scenes are made from seeds with numpy.
@@ -357,7 +383,12 @@ FP32_FLOP_PER_S = 67e12
 # margin for slower hosts, whose host-bound stages take tens of percent
 # longer)
 BA_ITERATIONS = 8
-BA_PROFILE_ITERATIONS = 2
+# LM iterations of the BA runs under the profiler (phases 10, 11, 16 and
+# 20(c)); the profiler's tables of a run take ~1 min to build for every
+# ~100 000 launches (103 s after 20(c)'s two photometric iterations on an
+# NVIDIA H100 80GB HBM3 at 700 W): cut from 2 to 1 to make room for phase 25
+BA_PROFILE_ITERATIONS = 1
+BA_PROFILE_ITERATIONS_BEFORE = 2
 # least share of the triangulation scene's tracks that must survive the
 # acceptance rules (8000 of 8000 on an H100 with 1 px keypoint noise and the
 # default 4 px limit; fixed here with a margin)
@@ -1618,6 +1649,10 @@ LOC_WRONG = 0.2            # share of each query's matches to a wrong point
 # cuda against cpu: two queries with QBA capped at this many steps on both
 # devices (100 Newton steps on the card machine's CPU take ~1.5 min a query)
 LOC_CPU_QBA_STEPS = 10
+# QBA's Newton steps a query on the card (the default config's 100; QBA
+# took 12.61 of the serial path's 16.41 s, ~26 ms of host a step: cut to
+# make room for phase 25)
+LOC_QBA_STEPS = 30
 # Two runs of the localizer that draw different RANSAC samples (the serial
 # path draws per query, localize_batch per size group; cuda and cpu round
 # differently) may return different tied minimal-sample poses: with 1 px
@@ -1814,6 +1849,10 @@ def localization_phase(torch, np, interpolate_cuda, profile_out=None):
           f"correspondences per query ({LOC_PAIRS} pairs, "
           f"{LOC_WRONG:.0%} wrong), made in {time.perf_counter() - t0:.1f} s")
     conf = load_config("default")
+    qba_solver = conf.localization.QBA.optimizer.solver
+    print(f"phase 18: QBA depth cut from {qba_solver.max_num_iterations} to "
+          f"{LOC_QBA_STEPS} Newton steps a query")
+    qba_solver.max_num_iterations = LOC_QBA_STEPS
 
     # -- the localizer and the serial path the CLI takes, counted ------------
     sync()
@@ -1901,7 +1940,7 @@ def localization_phase(torch, np, interpolate_cuda, profile_out=None):
     # within PNP_POLISHED_TOL where both kept the f64 polish, else within
     # PNP_UNPOLISHED_TOL. The stages' numbers are held from identical
     # inputs: the nearest references and QKA from the same keypoints, QBA
-    # (100 steps) from the serial run's PnP pose and inliers.
+    # (LOC_QBA_STEPS) from the serial run's PnP pose and inliers.
     from pixsfm_tpu_torch.localization import QueryBundleAdjuster
     short = load_config("default")
     short.localization.QBA.optimizer.solver.max_num_iterations = \
@@ -1987,7 +2026,8 @@ def localization_phase(torch, np, interpolate_cuda, profile_out=None):
           + f"; from identical inputs: {d_ref} nearest references "
           f"differ (limit 0), QKA keypoints within {d_kp:.2e} px (limit "
           f"0.05, phase 4's: the LM's step test is 1e-5 of |kp|, 1e-2 px "
-          f"here), QBA (100 steps; costs {', '.join(qba_costs)}) rotations "
+          f"here), QBA ({LOC_QBA_STEPS} steps; costs "
+          f"{', '.join(qba_costs)}) rotations "
           f"within {d_rot:.2e} rad, translations within {d_t:.2e} relative "
           f"(limits 1e-4, 1e-4)")
     if bad or not (d_ref == 0 and d_kp <= 0.05 and d_rot <= 1e-4
@@ -2419,8 +2459,11 @@ def low_memory_phase(torch, np, PixSfM, load_config, interpolate_cuda,
 # (b): LM iterations of the cuda / cpu patch-warp solves (the preset's 30
 # would take ~1 min on the card machine's CPU)
 PHOTO_CPU_BA_ITERATIONS = 5
-# (d): LM iterations of run_ba with poses free (~1.1 s of host each)
-PHOTO_BA_ITERATIONS = 10
+# (d): LM iterations of run_ba with poses free (~1.2 s of host each: 10
+# took 11.94 s on an NVIDIA H100 80GB HBM3 at 700 W; cut to 4 to make room
+# for phase 25)
+PHOTO_BA_ITERATIONS = 4
+PHOTO_BA_ITERATIONS_BEFORE = 10
 # 20(c)'s patch-warp BA on phase 11's scene (30 LM iterations as shipped,
 # 18.43 s for the 28 it ran on an NVIDIA H100 80GB HBM3 at 700 W; cut to
 # 15 to make room for phase 23, and to 8 for phase 24)
@@ -2641,6 +2684,8 @@ def photometric_phase(torch, np, PixSfM, load_config, interpolate_cuda,
         im.tvec = im.tvec + rng.normal(0, 1e-3, 3)
     rot0, cen0 = pose_errors(np, rec_d, truth_t)
     err_d0 = triangulated_error(np, rec_d, truth_t)
+    print(f"phase 20(d): BA depth cut from {PHOTO_BA_ITERATIONS_BEFORE} to "
+          f"{PHOTO_BA_ITERATIONS} LM iterations")
     sfm_j = PixSfM(load_config("photometric", extra={"mapping": {"BA": {
         "optimizer": {"refine_extrinsics": True, "solver": {
             "max_num_iterations": PHOTO_BA_ITERATIONS}}}}}), device="cuda")
@@ -3899,6 +3944,324 @@ def sharded_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
     return launches, by_run, k1
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the rest of the features layer, the native graph core
+# ---------------------------------------------------------------------------
+
+# (a) groups of this many equally sized views run through one forward
+FR_BATCH = 4
+# (a) batched against one-image patches, bf16 storage: one bf16 step at unit
+# norm (cuDNN may choose other convolution algorithms per batch size; TF32
+# stays off, so both are float32 convolutions)
+FR_PATCH_ATOL = 4e-3
+# (b) S2DNet(combine=True, num_layers=3) on the card against the CPU, float32
+# with TF32 off, as a share of the largest value (13 convolutions deep)
+FR_COMBINE_RTOL = 1e-4
+# (c) KA on the DeviceFeatureMaps against the default maps, px
+FR_KP_ATOL = 1e-3
+# (d) tracks of the FFD packing (the native core takes over past 10 000)
+FR_FFD_TRACKS = 40000
+
+
+def first_call_watch(name, wrapper):
+    """Rebind every ``pixsfm_tpu_torch`` module's ``name`` that is
+    ``wrapper`` to a watcher that keeps the first call's arguments (tensors
+    cloned). Returns (first, restore)."""
+    import torch
+    first = {}
+
+    def watched(*a, **kw):
+        if not first:
+            first["args"] = tuple(x.clone() if isinstance(x, torch.Tensor)
+                                  else x for x in a)
+            first["kwargs"] = {k: v.clone() if isinstance(v, torch.Tensor)
+                               else v for k, v in kw.items()}
+        return wrapper(*a, **kw)
+
+    def rebind(old, new):
+        for m in list(sys.modules.values()):
+            if getattr(m, "__name__", "").startswith("pixsfm_tpu_torch") \
+                    and getattr(m, name, None) is old:
+                setattr(m, name, new)
+
+    rebind(wrapper, watched)
+    return first, lambda: rebind(watched, wrapper)
+
+
+def check_k2_recorded(torch, cg_cuda, H, g, iters, damp=None):
+    """K2 against its plain version on one launch's inputs as a path gave
+    them (rtol/atol 1e-4, as :func:`_k2_err`), timed there."""
+    out = cg_cuda.pcg_solve(H, g, iters, damp=damp)
+    ref = cg_cuda.pcg_solve_plain(H, g, iters, damp=damp)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    P, N = g.shape
+    print(f"K2 on the path's first launch (P={P}, N={N}, {iters} iters, "
+          f"{cg_cuda.kernel_variant(N)} variant): max |kernel - plain| = "
+          f"{err:.3e} (rtol/atol 1e-4)")
+    if not (bool(torch.isfinite(out).all()) and bool(
+            ((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())):
+        raise SystemExit("K2 disagrees with its plain version on the "
+                         "path's first launch")
+    ms = _time_ms(lambda: cg_cuda.pcg_solve(H, g, iters, damp=damp))
+    plain_ms = _time_ms(lambda: cg_cuda.pcg_solve_plain(H, g, iters,
+                                                        damp=damp), reps=5)
+    bytes_ = P * N * N * 4 + 3 * P * N * 4
+    flops = P * (iters * (2 * N * N + 13 * N) + 5 * N)
+    bound_ms, bound_by = _bound(bytes_, flops)
+    print(f"K2 timing there: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                timed_at=f"P={P} systems of N={N}, {iters} iters")
+
+
+def _max_patch_diff(torch, a, b):
+    """Largest |a - b| over the maps of two managers' first level (the same
+    ids, corners and scales required)."""
+    worst = 0.0
+    for name, fa in a.fset(0).maps.items():
+        fb = b.fset(0).maps[name]
+        if fa.keypoint_ids() != fb.keypoint_ids() or not (
+                fa.corners == fb.corners).all():
+            raise SystemExit(f"phase 25: {name}: the maps differ in ids or "
+                             f"corners")
+        worst = max(worst, float((fa.patches.float()
+                                  - fb.patches.float()).abs().max()))
+    return worst
+
+
+def features_rest_phase(torch, np, PixSfM, interpolate_cuda, cg_cuda,
+                        schur_cuda, ka_scene, tri):
+    """Phase 25 (see the module docstring). Returns the launches of the
+    counted runs (in all and by run), and K1's and K2's figures on the
+    first launches of (b)'s KA."""
+    import importlib.util
+    import tempfile
+    from pixsfm_tpu_torch import native
+    from pixsfm_tpu_torch.base import graph as graph_mod
+    from pixsfm_tpu_torch.extract import features_from_graph
+    from pixsfm_tpu_torch.features.featuremaps import (DeviceFeatureMap,
+                                                       FeatureView)
+    from pixsfm_tpu_torch.features.models.s2dnet import S2DNet
+    from pixsfm_tpu_torch.keypoint_adjustment import build_matching_graph
+    from pixsfm_tpu_torch.keypoint_adjustment.main import (
+        _NATIVE_FFD_MIN_TRACKS, ffd_bin_packing_numpy)
+    from pixsfm_tpu_torch.util import misc
+    t_phase = time.perf_counter()
+    zero, read = kernel_counts(torch, interpolate_cuda, cg_cuda, schur_cuda)
+    sync = torch.cuda.synchronize
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = Path(tmp_dir.name)
+    by_run = {}
+    (reference, views_t, kps_t, matches_t, scores_t, truth_t, err_raw,
+     err_tri, n_tri_pts) = tri
+    images, kp0, matches, scores = ka_scene
+    graph_t = build_matching_graph(matches_t, scores_t)
+    ba_conf = {"mapping": {"BA": {"optimizer": {"solver": {
+        "max_num_iterations": BA_ITERATIONS}}}}}
+
+    # (a) batched extraction of phase 11's 24 views, then the body of
+    # PixSfM.triangulation with it
+    sfm_one = PixSfM(ba_conf, device="cuda")
+    sfm_b = PixSfM({**ba_conf, "dense_features": {"batch_size": FR_BATCH}},
+                   device="cuda")
+    walls = {}
+    fms = {}
+    for label, sfm in (("one image", sfm_one), (f"{FR_BATCH} images",
+                                                 sfm_b)):
+        kp = {k: v.copy() for k, v in kps_t.items()}
+        sync()
+        t0 = time.perf_counter()
+        fms[label] = features_from_graph(sfm.extractor, views_t, graph_t, kp)
+        sync()
+        walls[label] = time.perf_counter() - t0
+    fm_one = fms["one image"]
+    diff = _max_patch_diff(torch, fm_one, fms[f"{FR_BATCH} images"])
+    print(f"phase 25(a): extraction of {len(views_t)} 1600x1200 views at "
+          f"the graph's keypoints: {walls['one image']:.2f} s one image a "
+          f"forward, {walls[f'{FR_BATCH} images']:.2f} s {FR_BATCH} a "
+          f"forward; max |patch(batched) - patch(one)| = {diff:.2e} (limit "
+          f"{FR_PATCH_ATOL}, bf16)")
+    if not diff <= FR_PATCH_ATOL:
+        raise SystemExit("batched extraction disagrees with one-image "
+                         "extraction")
+    del fms
+    zero()
+    t0 = time.perf_counter()
+    rec_a, out_a = sfm_b._triangulation(
+        tmp / "batched", reference.copy(), views_t,
+        {k: v.copy() for k, v in kps_t.items()}, matches_t, scores_t)
+    sync()
+    wall_a = time.perf_counter() - t0
+    by_run["triangulation, batched extraction (25a)"] = read()
+    oka = {k: v[0] for k, v in out_a["KA"].items()}
+    oba = {k: v[0] for k, v in out_a["BA"].items()}
+    err_a = triangulated_error(np, rec_a, truth_t)
+    survived = len(rec_a.points3D) / n_tri_pts
+    print(f"phase 25(a): PixSfM(batch_size {FR_BATCH})._triangulation on "
+          f"phase 11's scene {wall_a:.2f} s (KA {oka['time']:.2f} s, "
+          f"{oka['iterations']} LM iterations, cost "
+          f"{oka['initial_cost']:.4f} -> {oka['final_cost']:.4f}; "
+          f"{len(rec_a.points3D)} points; BA {oba['iterations']} LM / "
+          f"{oba['cg_iterations']} CG iterations, cost "
+          f"{oba['initial_cost']:.4f} -> {oba['final_cost']:.4f}); point "
+          f"error to truth {err_raw:.5f} (unrefined) -> {err_a:.5f} (phase "
+          f"11, one image a forward: {err_tri:.5f}); launches "
+          f"{by_run['triangulation, batched extraction (25a)']}")
+    if not (all(np.isfinite(p.xyz).all() for p in rec_a.points3D.values())
+            and survived >= TRI_MIN_SURVIVING
+            and oba["final_cost"] < oba["initial_cost"]
+            and oka["final_cost"] < oka["initial_cost"]):
+        raise SystemExit("the triangulation path on batched features failed")
+    del rec_a
+
+    # (b) S2DNet combine: one 640x480 view on the card against the CPU, then
+    # run_ka on phase 5's scene with that model, its first K1 and K2
+    # launches watched
+    conf_c = {"name": "s2dnet", "num_layers": 3, "combine": True}
+    view = next(iter(views_t.values()))[:480, :640]
+    outs = {}
+    with torch.no_grad():
+        for device in ("cuda", "cpu"):
+            m = S2DNet(conf_c, device=device)
+            outs[device] = m(m.preprocess(view))[0].cpu()
+            del m
+    scale_c = float(outs["cpu"].abs().max())
+    err_c = float((outs["cuda"] - outs["cpu"]).abs().max())
+    print(f"phase 25(b): S2DNet(combine, 3 levels) on a 640x480 view, "
+          f"{tuple(outs['cuda'].shape)}: max |cuda - cpu| = {err_c:.2e} of "
+          f"the largest value {scale_c:.3f} (limit rtol {FR_COMBINE_RTOL})")
+    if not (bool(torch.isfinite(outs["cuda"]).all())
+            and err_c <= FR_COMBINE_RTOL * scale_c):
+        raise SystemExit("S2DNet combine disagrees between cuda and cpu")
+    sfm_c = PixSfM({"dense_features": {"model": conf_c}}, device="cuda")
+    k1_first, k1_restore = first_call_watch(
+        "interpolate_rows", interpolate_cuda.interpolate_rows)
+    k2_first, k2_restore = first_call_watch("pcg_solve", cg_cuda.pcg_solve)
+    zero()
+    t0 = time.perf_counter()
+    try:
+        kp_c, out_c = sfm_c.run_ka({k: v.copy() for k, v in kp0.items()},
+                                   images, matches=matches, scores=scores)
+        sync()
+    finally:
+        k1_restore()
+        k2_restore()
+    wall_b = time.perf_counter() - t0
+    by_run["run_ka, S2DNet combine (25b)"] = read()
+    oc = {k: v[0] for k, v in out_c.items()}
+    names = list(images)
+    print(f"phase 25(b): run_ka with S2DNet combine on phase 5's scene "
+          f"{wall_b:.2f} s (KA {oc['time']:.2f} s, {oc['iterations']} LM "
+          f"iterations, cost {oc['initial_cost']:.4f} -> "
+          f"{oc['final_cost']:.4f}); launches "
+          f"{by_run['run_ka, S2DNet combine (25b)']}")
+    if not (all(np.isfinite(kp_c[n]).all() for n in names)
+            and oc["final_cost"] < oc["initial_cost"]):
+        raise SystemExit("run_ka with S2DNet combine failed")
+    rows, H, W, C, row_base, r, c, l2 = k1_first["args"]
+    k1 = check_k1_recorded(torch, interpolate_cuda, rows, H, W, C, row_base,
+                           r, c, l2)
+    Hs, gs, iters = k2_first["args"][:3]
+    k2 = check_k2_recorded(torch, cg_cuda, Hs, gs, iters,
+                           damp=k2_first["kwargs"].get("damp"))
+    del sfm_c, k1_first, k2_first, rows
+
+    # (c) keep_on_device: DeviceFeatureMaps of (a)'s views pack as the
+    # default maps, and KA on them gives the same keypoints
+    sfm_d = PixSfM({"dense_features": {"keep_on_device": True}},
+                   device="cuda")
+    kp = {k: v.copy() for k, v in kps_t.items()}
+    fm_dev = features_from_graph(sfm_d.extractor, views_t, graph_t, kp)
+    if not all(isinstance(m, DeviceFeatureMap)
+               for m in fm_dev.fset(0).maps.values()):
+        raise SystemExit("keep_on_device did not emit DeviceFeatureMaps")
+    view_one = FeatureView.from_graph(fm_one.fset(0), graph_t).packed
+    view_dev = FeatureView.from_graph(fm_dev.fset(0), graph_t).packed
+    same = bool(torch.equal(view_one.patches, view_dev.patches)) and \
+        view_one.index == view_dev.index
+    del view_one, view_dev
+    kp_one = {k: v.copy() for k, v in kps_t.items()}
+    sfm_one.keypoint_adjuster.refine_multilevel(kp_one, fm_one, graph_t)
+    zero()
+    t0 = time.perf_counter()
+    out_d = sfm_d.keypoint_adjuster.refine_multilevel(kp, fm_dev, graph_t)
+    sync()
+    wall_c = time.perf_counter() - t0
+    by_run["KA on DeviceFeatureMaps (25c)"] = read()
+    dkp = max(float(np.abs(kp[n] - kp_one[n]).max()) for n in kp)
+    print(f"phase 25(c): keep_on_device extraction: packed patches equal "
+          f"to the default maps' {same}; KA on them {wall_c:.2f} s "
+          f"({out_d['iterations'][0]} LM iterations), max |kp(device maps) "
+          f"- kp(default maps)| = {dkp:.2e} px (limit {FR_KP_ATOL}); "
+          f"launches {by_run['KA on DeviceFeatureMaps (25c)']}")
+    if not (same and dkp <= FR_KP_ATOL):
+        raise SystemExit("DeviceFeatureMaps disagree with the default maps")
+    del fm_dev, fm_one
+
+    # (d) the native graph core (built in phase 1) against numpy
+    t = {}
+    t0 = time.perf_counter()
+    labels = graph_mod.compute_track_labels(graph_t)
+    t["track native"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels_np = graph_mod.compute_track_labels_numpy(graph_t)
+    t["track numpy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc = graph_mod.compute_score_labels(graph_t, labels)
+    t["score native"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc_np = graph_mod.compute_score_labels_numpy(graph_t, labels)
+    t["score numpy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    roots = graph_mod.compute_root_labels(graph_t, labels, sc)
+    t["root native"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    roots_np = graph_mod.compute_root_labels_numpy(graph_t, labels, sc)
+    t["root numpy"] = time.perf_counter() - t0
+    counts = np.random.default_rng(25).integers(2, 9, FR_FFD_TRACKS)
+    t0 = time.perf_counter()
+    t2p, n_bins = native.ffd_bin_packing_native(counts, 50)
+    t["ffd native"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t2p_np, n_bins_np = ffd_bin_packing_numpy(counts, 50)
+    t["ffd numpy"] = time.perf_counter() - t0
+    score_ulps = float(np.abs(sc - sc_np).max())
+    agree = {"track labels": bool((labels == labels_np).all()),
+             "root labels": bool((roots == roots_np).all()),
+             "FFD packing": bool((t2p == t2p_np).all())
+             and n_bins == n_bins_np}
+    print(f"phase 25(d): native graph core {native.build().name} (built in "
+          f"phase 1) on phase 11's graph ({graph_t.num_nodes} nodes, "
+          f"{graph_t.num_edges} edges, {int(labels.max()) + 1} tracks) and "
+          f"an FFD packing of {FR_FFD_TRACKS} tracks (> "
+          f"{_NATIVE_FFD_MIN_TRACKS}, max 50, {n_bins} problems): equal to "
+          f"numpy {agree}, scores within {score_ulps:.1e} (summation "
+          f"order); seconds native / numpy: "
+          + ", ".join(f"{k} {t[k + ' native']:.4f} / {t[k + ' numpy']:.4f}"
+                      for k in ("track", "score", "root", "ffd")))
+    if not all(agree.values()) or not score_ulps <= 1e-9:
+        raise SystemExit("the native graph core disagrees with numpy")
+
+    # (e) the host memory helpers, and the cache's absence
+    print(f"phase 25(e): host memory total {misc.total_memory() / 2**30:.1f} "
+          f"GiB, free {misc.free_memory() / 2**30:.1f} GiB")
+    if importlib.util.find_spec("h5py") is None:
+        print("phase 25: h5py is not installed, so the H5 feature cache "
+              "(features/h5cache.py) is not run; the CPU tests hold it")
+    tmp_dir.cleanup()
+    torch.cuda.empty_cache()
+    launches = {k: sum(n[k] for n in by_run.values())
+                for k in ("K1", "K2", "K3a", "K3b", "K3c")}
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s; launches on "
+          f"the counted runs {launches}")
+    if min(launches["K1"], launches["K2"]) <= 0:
+        raise SystemExit(f"K1 or K2 did not launch on the features_rest "
+                         f"path: {launches}")
+    return launches, by_run, k1, k2
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", default=None,
@@ -3924,6 +4287,11 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     # -- phase 1: build ------------------------------------------------------
+    from pixsfm_tpu_torch import native
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"phase 1: built the native graph core {lib.name} with g++ in "
+          f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     built = kernels.build_all()
     print(f"phase 1: built {built} in {time.perf_counter() - t0:.1f} s")
@@ -4124,6 +4492,9 @@ def main() -> int:
 
     # -- phase 10: where the BA time goes (a second run, not counted) ---------
     from pixsfm_tpu_torch.extract import features_from_reconstruction
+    print(f"phase 10: the depth of the BA runs under the profiler (phases "
+          f"10, 11, 16, 20(c)) cut from {BA_PROFILE_ITERATIONS_BEFORE} to "
+          f"{BA_PROFILE_ITERATIONS} LM iterations")
     sfm_prof = PixSfM({"mapping": {"BA": {"optimizer": {"solver": {
         "max_num_iterations": BA_PROFILE_ITERATIONS}}}}}, device="cuda")
     fm_ba, t_exb, busy_exb, kern_exb, tab_exb = profile_stage(
@@ -4691,6 +5062,13 @@ def main() -> int:
          err_tri, n_tri_pts), loc_scene)
     del loc_scene
 
+    # -- phase 25: the rest of the features layer, the native graph core ----
+    launches_fr, launches_fr_by_run, k1_fr, k2_fr = features_rest_phase(
+        torch, np, PixSfM, interpolate_cuda, cg_cuda, schur_cuda,
+        (images, kp0, matches, scores),
+        (reference, views_t, kps_t, matches_t, scores_t, truth_t, err_raw,
+         err_tri, n_tri_pts))
+
     # -- report ----------------------------------------------------------------
     # K1 runs on both paths at different shapes: one entry per path, each
     # with that path's launches and the figures measured at its shape
@@ -4700,7 +5078,8 @@ def main() -> int:
              "photometric": launches_ph, "eth3d": launches_e3,
              "eth3d_dense_query": {"K1": launches_e3_dense},
              "vggnet": launches_vgg, "eth3d_loftr": launches_lf,
-             "interp_options": launches_op, "sharded": launches_sh}
+             "interp_options": launches_op, "sharded": launches_sh,
+             "features_rest": launches_fr}
     both = {k: sum(n.get(k, 0) for n in paths.values())
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
     print(f"launches on the main paths: {paths}")
@@ -4784,6 +5163,14 @@ def main() -> int:
              launches_by_run={k: v["K1"]
                               for k, v in launches_sh_by_run.items()},
              library_ms=None, **k1_sh),
+        dict(name="bicubic_window_interp_l2", path="features_rest",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_fr["K1"],
+             launches_by_run={k: v["K1"]
+                              for k, v in launches_fr_by_run.items()},
+             library_ms=None, **k1_fr),
         *(dict(name="bicubic_window_interp_l2", path="vggnet", channels=C,
                route="cuda",
                source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
@@ -4797,7 +5184,8 @@ def main() -> int:
              launches=both["K2"],
              launches_by_path={n: c.get("K2", 0)
                                for n, c in paths.items()},
-             library_ms=None, in_situ_ms=in_situ_ka["K2"], **k2),
+             library_ms=None, in_situ_ms=in_situ_ka["K2"],
+             features_rest=k2_fr, **k2),
         dict(name="schur_term_matvec", route="cuda",
              source="pixsfm_tpu_torch/kernels/csrc/schur.cu",
              replaces="pixsfm_tpu/ops/schur_pallas.py:253",

@@ -8,12 +8,17 @@ default), or keeps the whole map (``sparse: false``, and the dense fallback
 when the keypoint windows would hold more than the map). Windows or map are
 L2-normalized per pixel (``l2_normalize``) and cast to the storage dtype
 (``half`` -> bfloat16) on the device, and stay there as the
-:class:`FeatureMap`'s patches.
+:class:`FeatureMap`'s patches (a :class:`DeviceFeatureMap` with
+``keep_on_device``).
 
-The H5 cache and batched forwards come with a later slice. ``use_cache``
-applies only when the caller gives a cache path, as in the JAX package, so
-a preset that sets it (``low_memory``) runs without one; ``extract.py``
-raises for a cache path.
+:meth:`FeatureExtractor.extract_batch` runs a group of equally sized images
+through one forward per pyramid scale (``batch_size > 1`` in
+``extract.features_from_image_list``). The JAX package pads such a batch to
+a power of two for XLA's compile cache; the port does not pad, and its
+outputs do not depend on the batch size. ``as_dict=True`` returns the
+arrays the H5 cache stores, including the dense-stored / sparse-loaded mode
+(a dense map with per-keypoint corners, ``extractor.py:212-226`` of the
+reference).
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch
 
 from .. import resolve_device
 from ..config import merge
-from .featuremaps import FeatureMap, kDensePatchId, storage_dtype, window_cut
+from .featuremaps import (DeviceFeatureMap, FeatureMap, kDensePatchId,
+                          storage_dtype, window_cut)
 from .models import get_model
 
 __all__ = ["FeatureExtractor"]
@@ -43,7 +49,9 @@ class FeatureExtractor:
         "pyr_scales": [1.0],
         "resize": "LANCZOS",
         "sparse": True,
-        # the port always keeps patches on the device; accepted for parity
+        # emit DeviceFeatureMap (the JAX package's device-resident maps);
+        # the port's maps stay on the device either way. Ignored when
+        # as_dict=True (cache writes).
         "keep_on_device": False,
         "prefetch_depth": 2,
         "batch_size": 1,
@@ -59,9 +67,6 @@ class FeatureExtractor:
 
     def __init__(self, conf=None, device=None):
         self.conf = merge(self.default_conf, conf or {})
-        if int(self.conf.get("batch_size", 1)) > 1:
-            raise NotImplementedError(
-                "batched extraction (batch_size > 1) is not ported yet")
         self.device = resolve_device(device if device is not None
                                      else self.conf.get("device"))
         model_conf = self.conf.model.to_dict() \
@@ -110,28 +115,62 @@ class FeatureExtractor:
         img.original_size = orig_size
         return img
 
+    def _preprocess(self, image, pyr_scale: float) -> torch.Tensor:
+        return self.model.preprocess(self.resize_image(image, pyr_scale))
+
+    @torch.no_grad()
+    def extract_batch(self, images: Sequence, keypoints_list: Sequence,
+                      keypoint_ids_list: Optional[Sequence] = None,
+                      as_dict: bool = False) -> List[List]:
+        """One model forward per pyramid scale for a group of images of
+        equal decoded size; returns per-image lists of maps, exactly like
+        calling the extractor per image."""
+        B = len(images)
+        ids_list = keypoint_ids_list or [None] * B
+        if B == 1:
+            return [self(images[0], keypoints=keypoints_list[0],
+                         keypoint_ids=ids_list[0], as_dict=as_dict)]
+        sizes = {tuple(self._size(im)) for im in images}
+        if len(sizes) > 1:
+            raise ValueError(f"extract_batch needs equal image sizes, "
+                             f"got {sizes}")
+        out: List[List] = [[] for _ in range(B)]
+        for pyr_scale in self.conf.pyr_scales:
+            feats = self.model(torch.cat(
+                [self._preprocess(im, pyr_scale) for im in images]))
+            for fm in feats:
+                for i, im in enumerate(images):
+                    img_size = getattr(im, "original_size", self._size(im))
+                    out[i].append(self._to_fmap(
+                        fm[i], img_size, keypoints_list[i], ids_list[i],
+                        as_dict=as_dict))
+        return out
+
     # -- main entry ---------------------------------------------------------
     @torch.no_grad()
     def __call__(self, image, keypoints: Optional[np.ndarray] = None,
                  keypoint_ids: Optional[Sequence[int]] = None,
+                 as_dict: bool = False,
                  overwrite_sparse: Optional[bool] = None) -> List:
         """``image``: path, PIL image or decoded ``[H, W, 3]`` array.
-        Returns one :class:`FeatureMap` per level. ``overwrite_sparse``
-        replaces ``conf.sparse`` for this call."""
+        Returns one :class:`FeatureMap` per level (a dict of the cache's
+        arrays with ``as_dict``). ``overwrite_sparse`` replaces
+        ``conf.sparse`` for this call."""
         if isinstance(image, (str, bytes)) or hasattr(image, "__fspath__"):
             image = self.load_image(image)
         img_size = getattr(image, "original_size", self._size(image))
         fmaps = []
         for pyr_scale in self.conf.pyr_scales:
-            img_pyr = self.resize_image(image, pyr_scale)
-            feats = self.model(self.model.preprocess(img_pyr))
+            feats = self.model(self._preprocess(image, pyr_scale))
             for fm in feats:
                 fmaps.append(self._to_fmap(fm[0], img_size, keypoints,
-                                           keypoint_ids, overwrite_sparse))
+                                           keypoint_ids, as_dict,
+                                           overwrite_sparse))
         return fmaps
 
     def _to_fmap(self, fmap: torch.Tensor, image_size, keypoints,
-                 keypoint_ids, overwrite_sparse=None) -> FeatureMap:
+                 keypoint_ids, as_dict: bool = False,
+                 overwrite_sparse=None):
         """Cut, normalize and cast the keypoint windows of one ``[C, h, w]``
         map on the device (``_compiled_extract_patches`` of the JAX
         package; the per-pixel L2 commutes with the window cut, so only
@@ -152,6 +191,8 @@ class FeatureExtractor:
         C, fh, fw = fmap.shape
         scale = np.array([fw / w, fh / h])
         dtype = storage_dtype(self.storage_dtype)
+        keep_dev = bool(self.conf.get("keep_on_device", False)) \
+            and not as_dict
 
         def normalize(f):
             f = f.to(torch.float32)
@@ -160,15 +201,40 @@ class FeatureExtractor:
                     f, dim=-1, keepdim=True), min=1e-12)
             return f.to(dtype).contiguous()
 
-        if sparse and fmap.numel() > len(keypoints) * ps * ps * C:
+        def keypoint_corners():
             corners = (keypoints * scale - ps / 2.0).astype(np.int32)
-            corners = np.clip(corners, [0, 0],
-                              [max(fw - ps - 1, 0), max(fh - ps - 1, 0)])
+            return np.clip(corners, [0, 0],
+                           [max(fw - ps - 1, 0), max(fh - ps - 1, 0)])
+
+        if sparse and fmap.numel() > len(keypoints) * ps * ps * C:
+            corners = keypoint_corners()
             patches = normalize(window_cut(fmap.permute(1, 2, 0), corners,
                                            ps))
+            if as_dict:
+                return dict(patches=patches, corners=corners,
+                            keypoint_ids=list(keypoint_ids),
+                            metadata=dict(scale=scale, is_sparse=True,
+                                          patch_size=ps))
+            if keep_dev:
+                return DeviceFeatureMap(patches, list(keypoint_ids), corners,
+                                        scale, is_sparse=True)
             return FeatureMap(patches, list(keypoint_ids), corners, scale)
         # the whole map: sparse: false, or more keypoint windows than the
         # map holds (the JAX extractor's dense fallback)
-        return FeatureMap(normalize(fmap.permute(1, 2, 0))[None],
-                          [kDensePatchId], np.zeros((1, 2), np.int64), scale,
-                          is_sparse=False)
+        dense = normalize(fmap.permute(1, 2, 0))
+        if as_dict:
+            if not sparse or not self.conf.use_cache:
+                return dict(patches=dense[None],
+                            corners=np.zeros((1, 2), np.int32),
+                            keypoint_ids=[kDensePatchId],
+                            metadata=dict(scale=scale, is_sparse=False,
+                                          patch_size=ps))
+            # dense-stored / sparse-loaded cache mode (extractor.py:212-226)
+            return dict(patches=dense[None], corners=keypoint_corners(),
+                        keypoint_ids=list(keypoint_ids),
+                        metadata=dict(scale=scale, is_sparse=False,
+                                      patch_size=ps))
+        if keep_dev:
+            return DeviceFeatureMap(dense, None, None, scale, is_sparse=False)
+        return FeatureMap(dense[None], [kDensePatchId],
+                          np.zeros((1, 2), np.int64), scale, is_sparse=False)

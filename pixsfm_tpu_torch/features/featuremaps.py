@@ -9,25 +9,32 @@ float32); metadata (keypoint ids, corners, scales) stays on the host.
 - :class:`FeatureMap`: one image's sparse patches ``[N, ps, ps, C]`` aligned
   with ``keypoint_ids`` and ``corners``, or its dense map ``[1, h, w, C]``
   under ``kDensePatchId``.
+- :class:`DeviceFeatureMap`: the JAX package's constructor ``(batch,
+  keypoint_ids, corners, scale, is_sparse, upsampling_factor, corner)`` over
+  the same storage (the port's maps live on the device already), with
+  ``to_host()``; ``keep_on_device`` extraction emits it.
+- :class:`FeatureSet` / :class:`FeatureManager` may be backed by an H5 cache
+  (``features/h5cache.py``): a map is loaded on demand, moved to the set's
+  device and not kept (``featureset.cc``'s on-demand semantics).
 - :class:`FeatureView` packs exactly the (image, keypoint) patches a solve
   touches into one :class:`PackedFeatures` tensor with device-side gathers;
   a dense map is cut into ``ps x ps`` windows around the given keypoints
   (one device gather per image), or packed whole when none are given.
-
-The H5 cache comes with a later slice of the port.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 __all__ = [
-    "kDensePatchId", "storage_dtype", "window_cut", "FeatureMap",
-    "FeatureSet", "FeatureManager", "FeatureView", "PackedFeatures",
+    "kDensePatchId", "storage_dtype", "window_cut", "FeaturePatch",
+    "FeatureMap", "DeviceFeatureMap", "FeatureSet", "FeatureManager",
+    "FeatureView", "PackedFeatures",
 ]
 
 # Keypoint id under which a dense map is stored (reference:
@@ -59,6 +66,49 @@ def window_cut(fmap: torch.Tensor, corners: np.ndarray, ps: int):
     ys = (cr[:, 1, None] + torch.arange(min(ps, h), device=fmap.device))
     xs = (cr[:, 0, None] + torch.arange(min(ps, w), device=fmap.device))
     return fmap[ys[:, :, None], xs[:, None, :]]
+
+
+@dataclass
+class FeaturePatch:
+    """One ``[H, W, C]`` patch of a map (reference: featurepatch.h:63-79).
+
+    ``data`` is a view of the map's tensor (on its device); ``corner`` the
+    map pixel (x, y) of the patch origin; ``scale`` the featuremap/image
+    ratio; ``upsampling_factor`` the costmap upsampling."""
+    data: torch.Tensor                  # [H, W, C]
+    corner: np.ndarray                  # [2] (x, y) int
+    scale: np.ndarray                   # [2] (sx, sy)
+    upsampling_factor: float = 1.0
+
+    def __post_init__(self):
+        self.corner = np.asarray(self.corner).reshape(2)
+        self.scale = np.asarray(self.scale, dtype=np.float64).reshape(2)
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+    @property
+    def height(self):
+        return self.data.shape[0]
+
+    @property
+    def width(self):
+        return self.data.shape[1]
+
+    @property
+    def channels(self):
+        return self.data.shape[2]
+
+    def to_pixel_coordinates(self, xy):
+        """Image coords -> patch pixel coords (featurepatch.h:252-256)."""
+        xy = np.asarray(xy, dtype=np.float64)
+        return (xy * self.scale - 0.5 - self.corner) * self.upsampling_factor
+
+    def to_image_coordinates(self, uv):
+        """Patch pixel coords -> image coords (featurepatch.h:258-262)."""
+        uv = np.asarray(uv, dtype=np.float64)
+        return (uv / self.upsampling_factor + self.corner + 0.5) / self.scale
 
 
 class FeatureMap:
@@ -109,36 +159,140 @@ class FeatureMap:
             return 0
         return self._row.get(int(p2D_idx), -1)
 
+    def get_patch(self, p2D_idx: int) -> FeaturePatch:
+        """The patch of a keypoint; a dense map's whole map for any."""
+        r = self.row_of(p2D_idx)
+        if r < 0:
+            raise KeyError(p2D_idx)
+        return FeaturePatch(self.patches[r], self.corners[r], self.scale,
+                            self.upsampling_factor)
+
+    def __contains__(self, p2D_idx: int) -> bool:
+        return self.is_dense or int(p2D_idx) in self._row
+
     def __len__(self):
         return len(self._ids)
 
 
-class FeatureSet:
-    """One CNN level: {image_name -> FeatureMap} (reference: featureset.cc)."""
+class DeviceFeatureMap(FeatureMap):
+    """A map built from a device batch, with the JAX package's constructor.
 
-    def __init__(self, channels: int, patch_size: int, dtype: str = "half"):
+    Sparse: ``batch [N, ps, ps, C]`` aligned with ``keypoint_ids`` /
+    ``corners [N, 2]``. Dense: ``batch [h, w, C]`` with one ``corner``. The
+    port's :class:`FeatureMap` keeps its patches on the device already, so
+    this class adds the JAX package's interface, not a memory path:
+    :class:`FeatureView` packs it like any map."""
+
+    def __init__(self, batch: torch.Tensor,
+                 keypoint_ids: Optional[Sequence[int]],
+                 corners: Optional[np.ndarray], scale,
+                 is_sparse: bool = True, upsampling_factor: float = 1.0,
+                 corner=(0, 0)):
+        if is_sparse:
+            if keypoint_ids is None or corners is None:
+                raise ValueError("sparse DeviceFeatureMap needs ids + corners")
+            super().__init__(batch, keypoint_ids, corners, scale, True,
+                             upsampling_factor)
+        else:
+            super().__init__(batch[None], [kDensePatchId],
+                             np.asarray(corner, np.int64).reshape(1, 2),
+                             scale, False, upsampling_factor)
+
+    @property
+    def batch(self) -> torch.Tensor:
+        return self.patches if self.is_sparse else self.patches[0]
+
+    @property
+    def corner(self) -> Optional[np.ndarray]:
+        return None if self.is_sparse else self.corners[0]
+
+    def to_host(self) -> FeatureMap:
+        """A full host (CPU) copy as a plain :class:`FeatureMap`."""
+        return FeatureMap(self.patches.cpu(), self._ids, self.corners,
+                          self.scale, self.is_sparse, self.upsampling_factor)
+
+
+class FeatureSet:
+    """One CNN level: {image_name -> FeatureMap} (reference: featureset.cc),
+    optionally backed by an H5 cache (``h5_path``, group ``h5_key``) whose
+    maps are loaded on demand onto ``device`` and not kept."""
+
+    def __init__(self, channels: int, patch_size: int, dtype: str = "half",
+                 h5_path=None, h5_key: Optional[str] = None, device=None):
         self.channels = channels
         self.patch_size = patch_size
         self.dtype = dtype
         self.maps: Dict[str, FeatureMap] = {}
+        self.h5_path = h5_path
+        self.h5_key = h5_key
+        self.device = device
 
     def emplace(self, image_name: str, fmap: FeatureMap) -> None:
         self.maps[image_name] = fmap
 
-    def get_map(self, image_name: str) -> FeatureMap:
-        return self.maps[image_name]
+    def has_image(self, image_name: str) -> bool:
+        return image_name in self.maps or self._in_cache(image_name)
+
+    def _in_cache(self, image_name: str) -> bool:
+        if self.h5_path is None:
+            return False
+        from .h5cache import cache_has_image
+        return cache_has_image(self.h5_path, self.h5_key, image_name)
+
+    def get_map(self, image_name: str,
+                required_ids: Optional[Sequence[int]] = None) -> FeatureMap:
+        """The map of an image; from the cache (only the ``required_ids``
+        rows of a sparse map) when the set does not hold it."""
+        if image_name in self.maps:
+            return self.maps[image_name]
+        if self.h5_path is not None:
+            from .. import resolve_device
+            from .h5cache import load_featuremap
+            return load_featuremap(self.h5_path, self.h5_key, image_name,
+                                   required_ids,
+                                   device=resolve_device(self.device))
+        raise KeyError(image_name)
+
+    def unload(self, image_name: Optional[str] = None):
+        if image_name is None:
+            self.maps.clear()
+        else:
+            self.maps.pop(image_name, None)
+
+    def flush(self):
+        """Nothing to write: the cache is written by ``h5cache``'s
+        writers (the JAX package's no-op, kept for its API)."""
+        return None
+
+    def image_names(self) -> List[str]:
+        names = set(self.maps.keys())
+        if self.h5_path is not None:
+            from .h5cache import cache_image_names
+            names.update(cache_image_names(self.h5_path, self.h5_key))
+        return sorted(names)
 
 
 class FeatureManager:
     """All levels of a feature pyramid (reference: featuremanager.{h,cc})."""
 
     def __init__(self, channels_per_level: Sequence[int], patch_size: int,
-                 dtype: str = "half"):
+                 dtype: str = "half", h5_path=None, device=None):
         self.channels_per_level = list(channels_per_level)
         self.patch_size = patch_size
         self.dtype = dtype
         self.levels: List[FeatureSet] = [
-            FeatureSet(c, patch_size, dtype) for c in self.channels_per_level]
+            FeatureSet(c, patch_size, dtype, h5_path=h5_path,
+                       h5_key=f"level_{i}", device=device)
+            for i, c in enumerate(self.channels_per_level)]
+
+    @classmethod
+    def from_cache(cls, h5_path, device=None) -> "FeatureManager":
+        """A manager whose maps load from the H5 cache at ``h5_path`` onto
+        ``device`` (``cuda`` unless given)."""
+        from .h5cache import read_cache_metadata
+        channels_per_level, patch_size, dtype = read_cache_metadata(h5_path)
+        return cls(channels_per_level, patch_size, dtype, h5_path=h5_path,
+                   device=device)
 
     @property
     def num_levels(self) -> int:
@@ -171,6 +325,14 @@ class PackedFeatures:
     @property
     def channels(self) -> int:
         return self.patches.shape[-1]
+
+    def row(self, image_name: str, p2D_idx: int) -> int:
+        if image_name in self.dense_images:
+            return self.dense_images[image_name]
+        return self.index[(image_name, int(p2D_idx))]
+
+    def rows(self, pairs: Iterable[Tuple[str, int]]) -> np.ndarray:
+        return np.asarray([self.row(n, i) for n, i in pairs], dtype=np.int32)
 
     def row_or(self, image_name: str, p2D_idx: int, default: int = -1) -> int:
         """Packed row of an observation, ``default`` for one that was never
@@ -252,7 +414,7 @@ class FeatureView:
         dense_images: Dict[str, int] = {}
         n_missing = 0
         for image_name, ids in required.items():
-            fmap = fset.get_map(image_name)
+            fmap = fset.get_map(image_name, required_ids=list(ids))
             if fmap.is_dense:
                 kps = None if keypoints is None else keypoints.get(
                     image_name)
@@ -362,3 +524,10 @@ class FeatureView:
         keypoints = {im.name: im.xys
                      for im in reconstruction.images.values()}
         return cls(fset, required, keypoints=keypoints)
+
+    @classmethod
+    def from_image_list(cls, fset: FeatureSet,
+                        image_names: Sequence[str]) -> "FeatureView":
+        """Every patch of the given images."""
+        return cls(fset, {name: fset.get_map(name).keypoint_ids()
+                          for name in image_names})

@@ -9,6 +9,12 @@ in torchvision's ``vgg16().features``, ``adaptation_layers.adap_layer_{i}.
 ``load_state_dict``. Without one the weights are a deterministic random
 init from an explicit ``torch.Generator``. :func:`params_from_flax` carries
 the JAX model's variables across, so both packages compute one function.
+
+``combine: true`` sums the coarser levels onto the first after upsampling
+them with :func:`resize_bicubic`, which reproduces ``jax.image.resize(...,
+"bicubic")``: Keys cubic (a = -0.5), half-pixel centres, taps outside the
+input dropped and each row renormalised. ``F.interpolate(mode="bicubic")``
+(a = -0.75, edges clamped) is another function.
 """
 
 from __future__ import annotations
@@ -23,8 +29,8 @@ from torch import nn
 from ... import logger
 from .base_model import BaseModel, oihw, vec
 
-__all__ = ["S2DNet", "params_from_flax", "VGG16_LAYERS",
-           "HYPERCOLUMN_LAYERS"]
+__all__ = ["S2DNet", "params_from_flax", "resize_bicubic",
+           "bicubic_weight_matrix", "VGG16_LAYERS", "HYPERCOLUMN_LAYERS"]
 
 # VGG16 feature-extractor layout: (name, out_channels) conv entries and pools.
 VGG16_LAYERS = [
@@ -54,6 +60,47 @@ def _conv_indices() -> Dict[str, int]:
     return out
 
 
+def bicubic_weight_matrix(in_size: int, out_size: int, device=None
+                          ) -> torch.Tensor:
+    """``[in_size, out_size]`` float32 resampling weights of
+    ``jax.image.resize(..., "bicubic")`` along one axis
+    (``compute_weight_mat`` of ``jax/_src/image/scale.py`` with the Keys
+    kernel, a = -0.5, antialiasing on, no translation)."""
+    f32 = torch.float32
+    scale = torch.tensor(out_size / in_size, dtype=f32)
+    inv_scale = 1.0 / scale
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample_f = (torch.arange(out_size, dtype=f32) + 0.5) * inv_scale - 0.5
+    x = torch.abs(sample_f[None, :]
+                  - torch.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    w = ((1.5 * x - 2.5) * x) * x + 1.0
+    w = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, w)
+    w = torch.where(x >= 2.0, torch.zeros((), dtype=f32), w)
+    total = torch.sum(w, dim=0, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000.0 * float(
+        torch.finfo(f32).eps), w / torch.where(total != 0, total,
+                                                torch.ones((), dtype=f32)),
+        torch.zeros((), dtype=f32))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    w = torch.where(inside[None, :], w, torch.zeros((), dtype=f32))
+    return w.to(device)
+
+
+def resize_bicubic(x: torch.Tensor, size) -> torch.Tensor:
+    """``[B, C, h, w]`` -> ``[B, C, H, W]`` as ``jax.image.resize`` with
+    ``method="bicubic"`` on the two spatial axes: two products with the
+    per-axis weight matrices (an axis whose size is kept is left as is)."""
+    H, W = int(size[0]), int(size[1])
+    h, w = x.shape[-2:]
+    if h != H:
+        x = torch.einsum("bchw,hH->bcHw", x,
+                         bicubic_weight_matrix(h, H, x.device).to(x.dtype))
+    if w != W:
+        x = torch.einsum("bchw,wW->bchW", x,
+                         bicubic_weight_matrix(w, W, x.device).to(x.dtype))
+    return x
+
+
 @contextlib.contextmanager
 def _no_tf32():
     """Full float32 convolutions: cuDNN would otherwise run them in TF32."""
@@ -76,10 +123,6 @@ class S2DNet(BaseModel):
     }
 
     def _init(self, conf, seed: int):
-        if conf.get("combine"):
-            raise NotImplementedError(
-                "S2DNet combine=True is not ported yet (it needs bicubic "
-                "resizing of the coarse levels)")
         hyper = HYPERCOLUMN_LAYERS[:int(conf.num_layers)]
         conv_idx = _conv_indices()
         self.remove_pooling_layers = bool(conf.remove_pooling_layers)
@@ -115,6 +158,10 @@ class S2DNet(BaseModel):
         else:
             scale_of = {"conv1_2": 1, "conv3_3": 4, "conv5_3": 16}
             self.scales = [scale_of[n] for n in hyper]
+        self.combine = bool(conf.get("combine"))
+        if self.combine:
+            self.output_dims = self.output_dims[:1]
+            self.scales = self.scales[:1]
 
         self._random_init(seed)
         ckpt = Path(__file__).parent / "checkpoints" / "s2dnet_weights.pth"
@@ -143,8 +190,14 @@ class S2DNet(BaseModel):
                 x = layer(x)
                 if idx in self._tap:
                     feats.append(x)
-            return [self.adaptation_layers.get_submodule(f"adap_layer_{i}")(f)
-                    for i, f in enumerate(feats)]
+            feats = [self.adaptation_layers.get_submodule(
+                f"adap_layer_{i}")(f) for i, f in enumerate(feats)]
+            if self.combine and len(feats) > 1:
+                base = feats[0]
+                for f in feats[1:]:
+                    base = base + resize_bicubic(f, base.shape[-2:])
+                feats = [base]
+            return feats
 
 
 def params_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:

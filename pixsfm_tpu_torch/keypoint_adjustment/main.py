@@ -41,7 +41,8 @@ from .solver import (build_ka_problems, evaluate_descriptors,
 __all__ = [
     "KeypointAdjuster", "FeatureMetricKeypointAdjuster",
     "TopologicalReferenceKeypointAdjuster",
-    "KeypointAdjustmentSetup", "find_problem_labels", "build_matching_graph",
+    "KeypointAdjustmentSetup", "find_problem_labels",
+    "ffd_bin_packing_numpy", "build_matching_graph",
     "extract_patchdata_from_graph",
 ]
 
@@ -75,27 +76,18 @@ class KeypointAdjustmentSetup:
         return mask
 
 
-def find_problem_labels(track_labels: Sequence[int], max_per_problem: int,
-                        track_edge_counts: Optional[Sequence[int]] = None
-                        ) -> Tuple[List[int], List[int]]:
-    """First-fit-decreasing bin packing of tracks into problems
-    (reference: ka/main.py:13-57). Returns per-node problem labels and bin sizes."""
-    track_labels = list(track_labels)
-    if len(track_labels) == 0 and not track_edge_counts:
-        return [], []
-    if track_edge_counts is None:
-        track_count = Counter(track_labels)
-    else:
-        track_count = Counter({i: v for i, v in enumerate(track_edge_counts)})
-    if max_per_problem == -1:
-        max_per_problem = max(track_count.values())
+# above this many tracks the FFD packing runs in the native graph core
+_NATIVE_FFD_MIN_TRACKS = 10000
 
+
+def _ffd(items, max_per_problem: int, n_tracks: int):
+    """First-fit decreasing over ``(track, count)`` items in decreasing
+    count order: (track -> problem list, problem sizes)."""
     bins: List[int] = []
-    track_to_problem = [-1] * (max(track_count) + 1)
-
+    track_to_problem = [-1] * n_tracks
     start = 0
     last_v = sys.maxsize
-    for k, v in track_count.most_common():
+    for k, v in items:
         if v < last_v:
             start = 0
             last_v = v
@@ -112,6 +104,48 @@ def find_problem_labels(track_labels: Sequence[int], max_per_problem: int,
             track_to_problem[k] = len(bins)
             start = len(bins)
             bins.append(v)
+    return track_to_problem, bins
+
+
+def ffd_bin_packing_numpy(track_counts, max_per_problem: int):
+    """The plain version of ``native.ffd_bin_packing_native``: (track ->
+    problem array, number of problems), ties broken by track id."""
+    counts = np.asarray(track_counts, np.int64)
+    order = sorted(range(len(counts)), key=lambda k: -int(counts[k]))
+    t2p, bins = _ffd([(k, int(counts[k])) for k in order], max_per_problem,
+                     len(counts))
+    return np.asarray(t2p, np.int64), len(bins)
+
+
+def find_problem_labels(track_labels: Sequence[int], max_per_problem: int,
+                        track_edge_counts: Optional[Sequence[int]] = None
+                        ) -> Tuple[List[int], List[int]]:
+    """First-fit-decreasing bin packing of tracks into problems
+    (reference: ka/main.py:13-57). Returns per-node problem labels and bin sizes."""
+    track_labels = list(track_labels)
+    if len(track_labels) == 0 and not track_edge_counts:
+        return [], []
+    if track_edge_counts is None:
+        track_count = Counter(track_labels)
+    else:
+        track_count = Counter({i: v for i, v in enumerate(track_edge_counts)})
+    if max_per_problem == -1:
+        max_per_problem = max(track_count.values())
+
+    if len(track_count) > _NATIVE_FFD_MIN_TRACKS:
+        # the native core, as the JAX package packs where its core is built
+        # (ties by track id; the loop below breaks them by first appearance)
+        from .. import native
+        n_tracks = max(track_count) + 1
+        counts = np.zeros(n_tracks, np.int64)
+        for k, v in track_count.items():
+            counts[k] = v
+        t2p, n_bins = native.ffd_bin_packing_native(counts, max_per_problem)
+        bins_arr = np.zeros(n_bins, np.int64)
+        np.add.at(bins_arr, t2p[counts > 0], counts[counts > 0])
+        return [int(t2p[t]) for t in track_labels], bins_arr.tolist()
+    track_to_problem, bins = _ffd(track_count.most_common(),
+                                  max_per_problem, max(track_count) + 1)
     problem_labels = [track_to_problem[t] for t in track_labels]
     n_oversized = int(np.sum(np.array(bins) > max_per_problem))
     if n_oversized > 0 and max_per_problem > -1:

@@ -1062,9 +1062,9 @@ class QueryLocalizer:
                 dense_features = features_from_reconstruction(
                     self._extractor(), reconstruction, image_dir)
             elif isinstance(dense_features, (str, Path)):
-                raise NotImplementedError(
-                    "the H5 feature cache is not ported yet; pass a "
-                    "FeatureManager or image_dir")
+                from ..features.featuremaps import FeatureManager
+                dense_features = FeatureManager.from_cache(
+                    dense_features, device=self.device)
             self.references = []
             for lvl in range(dense_features.num_levels):
                 fset = dense_features.fset(lvl)

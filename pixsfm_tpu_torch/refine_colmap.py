@@ -163,6 +163,20 @@ class PixSfM:
         reconstruction.write(output_path)
         return reconstruction, outputs
 
+    def resolve_cache_path(self, cache_path=None, output_dir=None):
+        """{label}_featuremaps_{sparse|dense}.h5 naming
+        (reference: refine_colmap.py:131-145)."""
+        if cache_path is None:
+            if output_dir is None:
+                return None
+            cache_path = Path(output_dir)
+        cache_path = Path(cache_path)
+        if cache_path.is_dir() or cache_path.suffix == "":
+            mode = "sparse" if self.conf.dense_features.sparse else "dense"
+            model_name = self.conf.dense_features.model.name
+            cache_path = cache_path / f"{model_name}_featuremaps_{mode}.h5"
+        return cache_path
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(

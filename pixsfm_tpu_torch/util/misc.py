@@ -6,8 +6,48 @@ from typing import Dict
 
 import numpy as np
 
-__all__ = ["to_colmap_coordinates", "to_hloc_coordinates", "progress_iter",
-           "bucket"]
+from .. import logger
+
+__all__ = ["check_memory", "free_memory", "total_memory",
+           "resolve_level_indices", "to_colmap_coordinates",
+           "to_hloc_coordinates", "to_ctr", "progress_iter", "bucket"]
+
+
+def total_memory() -> int:
+    """Physical memory of the host in bytes (0 where unknown)."""
+    try:
+        import os
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    except (ValueError, OSError):
+        return 0
+
+
+def free_memory() -> int:
+    """Available host memory in bytes (``MemAvailable``; 0 where unknown)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def check_memory(req_memory, gap=2 ** 30) -> None:
+    """Warn before likely-OOM extractions (reference: util/misc.py:10-16)."""
+    if req_memory != req_memory:  # nan
+        logger.info("Invalid memory estimate. Continue.")
+    elif req_memory + gap > free_memory():
+        logger.warning(
+            "Required memory [%dMB] might exceed free memory [%dMB].",
+            req_memory / 2 ** 20, free_memory() / 2 ** 20)
+
+
+def resolve_level_indices(level_indices, n_levels):
+    if level_indices not in (None, "all"):
+        return level_indices
+    return list(reversed(range(n_levels)))
 
 
 def to_colmap_coordinates(keypoints: Dict[str, np.ndarray]) -> None:
@@ -20,6 +60,12 @@ def to_colmap_coordinates(keypoints: Dict[str, np.ndarray]) -> None:
 def to_hloc_coordinates(keypoints: Dict[str, np.ndarray]) -> None:
     for name in keypoints:
         keypoints[name] = keypoints[name] - 0.5
+
+
+def to_ctr(conf, resolve: bool = True):
+    if hasattr(conf, "to_dict"):
+        return conf.to_dict(resolve=resolve)
+    return dict(conf)
 
 
 def progress_iter(iterable, desc: str = "", total=None, min_items: int = 20):

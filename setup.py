@@ -34,9 +34,9 @@ setup(
         "pixsfm_tpu": ["configs/*.yaml", "native/*.so", "native/*.cpp",
                        "native/build.sh"],
         # the PyTorch/CUDA port: kernels are built from these sources with
-        # nvcc at first use
+        # nvcc at first use, the native graph core with g++
         "pixsfm_tpu_torch": ["configs/*.yaml", "kernels/csrc/*.cu",
-                             "kernels/csrc/*.h"],
+                             "kernels/csrc/*.h", "native/*.cpp"],
     },
     python_requires=">=3.10",
     install_requires=[

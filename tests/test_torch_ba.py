@@ -21,7 +21,10 @@ layout at the same tolerances. The JAX package raises ``KeyError: 'V'`` when
 its grid (or point-table) regime meets ``use_inner_iterations``
 (``ops/schur.py:1356`` reads the flat point blocks); the port runs inner
 iterations on both layouts, so the grid case is held to the port's flat
-layout, itself held to JAX.
+layout, itself held to JAX (``tests/test_torch_ba_inner.py``). The entry
+points, costmap BA against the truth and the inner iterations are tested
+in ``tests/test_torch_ba_cli.py``, ``test_torch_costmap_truth.py`` and
+``test_torch_ba_inner.py``, with this file's helpers.
 """
 
 import dataclasses
@@ -81,14 +84,11 @@ PARAMS = {
 
 
 @pytest.fixture(autouse=True)
-def _one_torch_thread(request):
+def _one_torch_thread():
     """One intra-op thread for the port's side: these solves run many small
     ops, and among the fast lane's parallel workers more threads only
-    contend for the cores. The entry-point test keeps the default: its
-    S2DNet convolutions are large enough to use them."""
-    if request.node.name == "test_run_ba_and_cli_on_cpu":
-        yield
-        return
+    contend for the cores (``tests/test_torch_ba_cli.py``'s entry-point
+    test keeps the default: its S2DNet convolutions use them)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -374,34 +374,6 @@ def _assert_solves_match(t_st, t_cost, ref_st, ref_cost):
                                    atol=1e-4, err_msg=name)
 
 
-def test_ba_solve_inner_iterations():
-    """Inner point iterations + non-monotonic steps (the BA defaults): the
-    flat layout matches JAX; the grid layout (where JAX raises) matches the
-    port's flat one."""
-    kw = dict(use_nonmonotonic_steps=True)
-    (j_st, j_cost), (t_st, t_sum) = _solve_both(False, **kw)
-    _assert_solves_match(t_st, t_sum["final_cost"], j_st, j_cost)
-    kw["use_inner_iterations"] = True
-    (j_st, j_cost), (flat_st, flat_sum) = _solve_both(False, **kw)
-    assert flat_sum["iterations"] == 12
-    _assert_solves_match(flat_st, flat_sum["final_cost"], j_st, j_cost)
-    j_out, (grid_st, grid_sum) = _solve_both(True, **kw)
-    assert j_out is None
-    _assert_solves_match(grid_st, grid_sum["final_cost"], flat_st,
-                         flat_sum["final_cost"])
-
-
-def test_ba_solve_dense_inner_iterations():
-    """The dense step with inner point iterations and non-monotonic steps
-    (the BA defaults) matches JAX's; the point-only iterations run on the
-    flat layout the dense step leaves."""
-    kw = dict(use_nonmonotonic_steps=True, use_inner_iterations=True)
-    (j_st, j_cost), (t_st, t_sum) = _solve_both("dense", **kw)
-    assert t_sum["iterations"] == 12 and t_sum["cg_iterations"] == 0
-    assert t_sum["final_cost"] < t_sum["initial_cost"]
-    _assert_solves_match(t_st, t_sum["final_cost"], j_st, j_cost)
-
-
 def test_dense_camera_solve():
     """The Jacobi-scaled Cholesky solves an SPD system; a system that is not
     positive definite gives NaNs (JAX's Cholesky), not a silent zero."""
@@ -644,126 +616,3 @@ def test_adjuster_refine_matches(monkeypatch, strategy, variant):
         np.testing.assert_allclose(trec.points3D[pid].xyz, p.xyz, atol=1e-3)
 
 
-def _port_costmaps(jset):
-    """The JAX package's costmap FeatureSet as the port's (CPU)."""
-    out = tfm.FeatureSet(jset.channels, jset.patch_size, "float32")
-    for name, jmap in jset.maps.items():
-        ids = list(jmap.patches)
-        ps = [jmap.patches[i] for i in ids]
-        out.emplace(name, tfm.FeatureMap.from_arrays(
-            np.stack([p.data for p in ps]), ids,
-            np.stack([p.corner for p in ps]), ps[0].scale,
-            upsampling_factor=ps[0].upsampling_factor))
-    return out
-
-
-@pytest.mark.parametrize("seed", [6, 0])
-def test_costmap_ba_poses_free_to_truth(seed):
-    """Costmap BA with poses free (the default optimizer flags, inner
-    iterations on) over 15 LM iterations on ``featuremetric_scene`` (6
-    views, 100 points; its truth is the unperturbed scene), from JAX's
-    cost patches: JAX with its default ``obs_chunk`` and with 32, and the
-    port. With seed 6 the three runs stay together; with seed 0 they part
-    (JAX's two final costs 21 % apart), each keeping the median point
-    error near its start while a few points leave the basin of their cost
-    patches (zero gradient there) and fly off, so the mean error grows
-    several-fold in JAX as in the port. Held as a distribution: the port's
-    median error to the truth within 20 % of the range of JAX's two runs,
-    and no more points than 2x JAX's most plus 2 end farther than 3x the
-    starting mean error (``-s`` prints the readings)."""
-    from pixsfm_tpu.bundle_adjustment import CostMapBundleAdjuster as JCM
-    from pixsfm_tpu.bundle_adjustment.costmaps import \
-        extract_costmaps as j_extract
-    from pixsfm_tpu_torch.bundle_adjustment import CostMapBundleAdjuster
-    from pixsfm_tpu_torch.bundle_adjustment.costmaps import costmap_solve
-
-    class JRechunked(JCM):
-        def _ba_options(self, **overrides):
-            return super()._ba_options(obs_chunk=32, **overrides)
-
-    conf = {"optimizer": {"solver": {"max_num_iterations": 15}},
-            "interpolation": {"mode": "BICUBIC", "l2_normalize": False},
-            "references": {"loss": {"name": "cauchy", "params": [0.25]},
-                           "iters": 20}}
-    truth, jfset = featuremetric_scene(seed=seed, n_images=6, n_points=100)
-
-    def start():
-        rec = truth.copy()
-        perturb(rec, np.random.default_rng(seed), pose_rot=0.002, pose_t=0.01,
-                point_sigma=0.02)
-        return rec
-
-    def errors(rec):
-        return np.array([np.linalg.norm(rec.points3D[p].xyz - q.xyz)
-                         for p, q in truth.points3D.items()])
-
-    e0 = errors(start())
-    jrec, jrec32, trec = start(), start(), _to_port(start())
-    adj = JCM(conf)
-    # the cost patches JAX's refine extracts (a deterministic function)
-    cset = _port_costmaps(j_extract(
-        jrec, jfset, adj.conf.costmaps, adj.conf.references,
-        JInterp(mode="BICUBIC", l2_normalize=False))[0])
-    outs = {"jax": (jrec, adj.refine(jrec, jfset)),
-            "port": (trec, costmap_solve(
-                CostMapBundleAdjuster(conf, device="cpu"), trec, cset)),
-            "jax obs_chunk 32": (jrec32, JRechunked(conf).refine(jrec32,
-                                                                 jfset))}
-    runs = {}
-    for name, (rec, out) in outs.items():
-        assert out["iterations"] == 15
-        assert out["final_cost"] < out["initial_cost"]
-        e = errors(rec)
-        assert np.isfinite(e).all()
-        runs[name] = (float(np.median(e)), int((e > 3 * e0.mean()).sum()),
-                      float(e.mean()), out["final_cost"])
-    print(f"costmap BA, poses free, 15 LM iterations: start median "
-          f"{np.median(e0):.5f} / mean {e0.mean():.5f}; " + "; ".join(
-              f"{k}: median {m:.5f}, {n} beyond 3x, mean {a:.5f}, cost "
-              f"{c:.6g}" for k, (m, n, a, c) in runs.items()))
-    jm = [runs[k][0] for k in runs if k != "port"]
-    assert 0.8 * min(jm) <= runs["port"][0] <= 1.2 * max(jm)
-    assert runs["port"][1] <= 2 * max(runs[k][1] for k in runs
-                                      if k != "port") + 2
-
-
-# ---------------------------------------------------------------------------
-# the entry points on the CPU: PixSfM.run_ba and the bundle_adjuster CLI
-# ---------------------------------------------------------------------------
-
-def _write_ba_scene(tmp_path):
-    """A 6-view 640x480 synthetic model (639 points seen in every view, so
-    the default config takes the CG path: 22 835 track pairs > 20 000) with
-    perturbed points, plus smooth random images to extract features from."""
-    import PIL.Image
-    rec = t_synth(n_images=6, n_points=640, noise_px=0.0, seed=4,
-                  width=640, height=480)
-    rng = np.random.default_rng(4)
-    for p in rec.points3D.values():
-        p.xyz = p.xyz + rng.normal(0, 0.01, 3)
-    for im in rec.images.values():
-        img = rng.integers(0, 255, (60, 80, 3)).astype(np.uint8)
-        PIL.Image.fromarray(img).resize((640, 480), PIL.Image.BICUBIC) \
-            .save(tmp_path / im.name)
-    rec.write_binary(tmp_path / "model")
-    return rec
-
-
-def test_run_ba_and_cli_on_cpu(tmp_path):
-    from pixsfm_tpu_torch.refine_colmap import PixSfM, main
-    rec = _write_ba_scene(tmp_path)
-    conf = {"mapping": {"BA": {"optimizer": {"solver": {
-        "max_num_iterations": 4}}}}}
-    out = PixSfM(conf, device="cpu").run_ba(rec, tmp_path)
-    assert out["obs_grid_T"] == [0] and out["iterations"][0] >= 1
-    assert out["final_cost"][0] < out["initial_cost"][0]
-    assert out["cg_iterations"][0] > 0
-    main(["bundle_adjuster", "--input_path", str(tmp_path / "model"),
-          "--output_path", str(tmp_path / "out"), "--image_dir",
-          str(tmp_path), "--device", "cpu",
-          "mapping.BA.optimizer.solver.max_num_iterations=2"])
-    before, after = JRec.read(tmp_path / "model"), JRec.read(tmp_path / "out")
-    assert after.points3D.keys() == before.points3D.keys()
-    moved = [np.linalg.norm(after.points3D[p].xyz - q.xyz)
-             for p, q in before.points3D.items()]
-    assert np.isfinite(moved).all() and 0 < max(moved) < 0.5

@@ -16,9 +16,8 @@ Tolerances (each test's docstring repeats its own):
   largest absolute value (the IRLS references agree to rtol 1e-4 in
   ``tests/test_torch_ba.py``), and identical maps, keypoint ids, corners,
   scales and upsampling factors;
-- ``PixSfM("low_memory").triangulation`` against the JAX package's at the
-  tolerances of ``tests/test_torch_sfm.py::test_triangulation_hloc_matches_jax``,
-  except the costmap BA's final cost (rtol 1e-3; the test says why).
+- ``PixSfM("low_memory").triangulation``: ``tests/test_torch_low_memory_
+  flow.py``.
 """
 
 import jax
@@ -377,8 +376,9 @@ def test_low_memory_preset_builds():
 def test_use_cache_without_path_runs_and_a_path_raises(tmp_path):
     """``use_cache: true`` with no cache path is ignored, as the JAX
     package ignores it (``pixsfm_tpu/extract.py:42``): the preset's
-    extractor cuts 8 px bf16 patches; a cache path raises and names the
-    ROADMAP item that brings the H5 cache."""
+    extractor cuts 8 px bf16 patches. With a cache path (the H5 cache,
+    which once raised here) the same patches are written to the cache and
+    load from it."""
     from pixsfm_tpu_torch.extract import features_from_image_list
     from pixsfm_tpu_torch.refine_hloc import PixSfM
     ext = PixSfM("low_memory", device="cpu").extractor
@@ -389,45 +389,9 @@ def test_use_cache_without_path_runs_and_a_path_raises(tmp_path):
     fm = features_from_image_list(ext, ["a.png"], {"a.png": img}, kps)
     patches = fm.fset(0).get_map("a.png").patches
     assert patches.shape == (2, 8, 8, 128) and patches.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="Features, rest"):
-        features_from_image_list(ext, ["a.png"], {"a.png": img}, kps,
-                                 cache_path=tmp_path / "cache.h5")
+    cached = features_from_image_list(ext, ["a.png"], {"a.png": img}, kps,
+                                      cache_path=tmp_path / "cache.h5")
+    assert (tmp_path / "cache.h5").exists() and not cached.fset(0).maps
+    assert torch.equal(cached.fset(0).get_map("a.png").patches, patches)
 
 
-def test_low_memory_triangulation_matches_jax(tmp_path):
-    """``PixSfM("low_memory").triangulation`` (topological_reference KA ->
-    triangulation -> points-only costmap BA) on hloc files against the JAX
-    package's, float32 feature storage, the JAX S2DNet weights carried
-    across: refined keypoints atol 1e-3 px, points atol 1e-3, KA costs and
-    the BA's initial cost rtol 1e-4 (``tests/test_torch_sfm.py::
-    test_triangulation_hloc_matches_jax``). The BA's final cost is held at
-    rtol 1e-3: after the preset's 100 LM iterations with inner iterations
-    the points agree within 8e-5, but costmap BA's near-singular steps
-    (``tests/test_torch_ba.py::test_adjuster_refine_matches``) leave its
-    flat final cost 6e-4 apart (1.5e-7 of 2.4e-4)."""
-    from pixsfm_tpu.config import load_config as j_load_config
-    from tests.test_torch_ka import _pipelines
-    from tests.test_torch_sfm import _write_plane_scene
-    keypoints, P3, paths = _write_plane_scene(tmp_path)
-    conf = j_load_config("low_memory", extra={"dense_features": {
-        "dtype": "float"}}).to_dict()
-    jsfm, tsfm = _pipelines(conf)
-    assert type(tsfm.bundle_adjuster).__name__ == "CostMapBundleAdjuster"
-    jrec, jout = jsfm.triangulation(tmp_path / "out_j", tmp_path / "ref",
-                                    tmp_path, *paths)
-    trec, tout = tsfm.triangulation(tmp_path / "out_t", tmp_path / "ref",
-                                    tmp_path, *paths)
-    assert tout["triangulation"]["num_points3D"] == len(P3)
-    assert trec.points3D.keys() == jrec.points3D.keys()
-    for iid, im in jrec.images.items():
-        np.testing.assert_allclose(trec.images[iid].xys, im.xys, atol=1e-3)
-    for pid, p in jrec.points3D.items():
-        assert trec.points3D[pid].track == p.track
-        np.testing.assert_allclose(trec.points3D[pid].xyz, p.xyz, atol=1e-3)
-    for stage, k, rtol in (("KA", "initial_cost", 1e-4),
-                           ("KA", "final_cost", 1e-4),
-                           ("BA", "initial_cost", 1e-4),
-                           ("BA", "final_cost", 1e-3)):
-        np.testing.assert_allclose(tout[stage][k], jout[stage][k], rtol=rtol)
-    for stage in ("KA", "BA"):
-        assert tout[stage]["final_cost"][0] < tout[stage]["initial_cost"][0]

@@ -138,28 +138,3 @@ def test_run_scene_localization_matches_jax(scene):
     assert (scene / "loc_t" / "results_localization.json").exists()
 
 
-def test_run_scene_loftr_matches_jax(scene):
-    """The detector-free method at the harnesses' defaults (match
-    threshold 0.2): random LoFTR weights pass no pair in either package, so
-    both triangulation runs end with the same number of points (0), write
-    their results and raise nowhere on the empty graph; the localization
-    harness ends with every query unlocalized."""
-    from pixsfm_tpu.eval.eth3d.triangulation import run_scene as jrun
-    from pixsfm_tpu_torch.eval.eth3d.localization import \
-        run_scene_localization as tloc
-    from pixsfm_tpu_torch.eval.eth3d.triangulation import run_scene as trun
-    mj = jrun(scene / "synthetic_scene", scene / "loftr_j",
-              conf=HARNESS_CONF, tolerances=TOLERANCES, method="loftr")
-    stats = {}
-    mt = trun(scene / "synthetic_scene", scene / "loftr_t",
-              conf=HARNESS_CONF, tolerances=TOLERANCES, method="loftr",
-              device="cpu", stats=stats)
-    assert mt["num_points"] == mj["num_points"] == 0
-    assert mt == pytest.approx(mj)
-    assert stats["matched_pairs"] == stats["num_pairs"] == 0
-    assert json.loads((scene / "loftr_t" / "results.json").read_text()) == \
-        pytest.approx(mt)
-    rt = tloc(scene / "synthetic_scene", scene / "loftr_loc_t",
-              conf=LOC_CONF, num_holdout=1, method="loftr", device="cpu")
-    assert rt["num_queries"] == 1 and rt["errors_m"] == [None]
-    assert (scene / "loftr_loc_t" / "results_localization.json").exists()

@@ -53,7 +53,9 @@ def test_every_module_imports_without_jax():
                  "eval.eth3d.localization", "features.models.loftr",
                  "configs", "eval.eth3d.plot_triangulation",
                  "eval.eth3d.plot_localization", "parallel",
-                 "parallel.sharded", "util.profiling"):
+                 "parallel.sharded", "util.profiling", "features.h5cache",
+                 "features.store_references", "native", "util.visualize",
+                 "eval.eth3d.download"):
         assert f"pixsfm_tpu_torch.{name}" in _module_names()
 
 

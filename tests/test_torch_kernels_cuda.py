@@ -1335,3 +1335,60 @@ def test_parallel_knob_across_cards_matches_one_card(dev):
         assert a["success"] and b["success"]
         np.testing.assert_allclose(b["qvec"], a["qvec"], atol=2e-4)
         np.testing.assert_allclose(b["tvec"], a["tvec"], atol=2e-3)
+
+
+def _views(n, h, w, seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {f"v{i}.png": rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+            for i in range(n)}
+
+
+def test_batched_extraction_cuda_matches_cpu(dev):
+    """``batch_size: 3`` over five views (groups of three and two) on the
+    card against the CPU, and against ``batch_size: 1`` on the card: the
+    same ids and corners, patches within one bf16 step (4e-3 at unit
+    norm; cuDNN may choose other convolution algorithms per batch size)."""
+    import numpy as np
+
+    from pixsfm_tpu_torch.extract import features_from_image_list
+    from pixsfm_tpu_torch.features.extractor import FeatureExtractor
+
+    views = _views(5, 120, 160)
+    rng = np.random.default_rng(1)
+    kps = {n: rng.uniform([2, 2], [158, 118], (40, 2)) for n in views}
+    out = {}
+    for device, bs in (("cuda", 3), ("cpu", 3), ("cuda", 1)):
+        ext = FeatureExtractor({"batch_size": bs}, device=device)
+        out[device, bs] = features_from_image_list(ext, list(views), views,
+                                                   kps)
+    ref = out["cuda", 3].fset(0)
+    for key in (("cpu", 3), ("cuda", 1)):
+        other = out[key].fset(0)
+        for n in views:
+            a, b = ref.get_map(n), other.get_map(n)
+            assert a.keypoint_ids() == b.keypoint_ids()
+            np.testing.assert_array_equal(a.corners, b.corners)
+            torch.testing.assert_close(a.patches.float().cpu(),
+                                       b.patches.float().cpu(), atol=4e-3,
+                                       rtol=0)
+
+
+def test_s2dnet_combine_cuda_matches_cpu(dev):
+    """``S2DNet(combine=True, num_layers=3)`` on the card against the CPU
+    (float32, TF32 off on both) on a 100x76 image (non-integer ratios to
+    the coarse levels), within 1e-4 of the largest value."""
+    import numpy as np
+
+    from pixsfm_tpu_torch.features.models.s2dnet import S2DNet
+
+    img = np.random.default_rng(2).uniform(0, 1, (76, 100, 3)).astype(
+        np.float32)
+    conf = {"num_layers": 3, "combine": True, "pretrained": None}
+    with torch.no_grad():
+        outs = [S2DNet(conf, device=d)(
+            torch.from_numpy(img).permute(2, 0, 1)[None].to(d))[0].cpu()
+            for d in ("cuda", "cpu")]
+    assert outs[0].shape == (1, 128, 76, 100)
+    top = float(outs[1].abs().max())
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4 * top

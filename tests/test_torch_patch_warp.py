@@ -12,13 +12,18 @@ Tolerances:
   residuals differ by the same order there);
 - ``ba_solve`` with ``src_idx`` on the flat CG layout and on the dense step:
   final cost rtol 1e-5, states atol 1e-4 (as
-  ``tests/test_torch_ba.py::test_ba_solve_inner_iterations``);
+  ``tests/test_torch_ba_inner.py::test_ba_solve_inner_iterations``);
 - ``extract_references`` with 16 NCC nodes and ``compute_offsets3D``:
   sources equal, descriptors atol 1e-5, offsets atol 1e-5;
 - the counterparts of ``tests/test_costmap_patchwarp_ba.py::
   test_patch_warp_{ba_aligns_points,joint_source_poses,constant_source_flag}``
   and ``tests/test_mixed_fm_ba.py::test_mixed_patch_warp_ba`` keep JAX's
   assertions and add the port's final cost against JAX's at rtol 1e-4.
+
+The references test and the longer adjuster tests live in
+``tests/test_torch_patch_warp_flow.py`` and
+``tests/test_torch_patch_warp_poses.py`` (so that the test suite's workers
+share the long tests), with this file's helpers.
 
 The scenes are ``tests/test_feature_reference_ba.featuremetric_scene``;
 where NCC is on, each channel also gets a strong ramp and a slight
@@ -36,20 +41,17 @@ from pixsfm_tpu.base.cameras import Camera as JCam
 from pixsfm_tpu.base.geometry import exp_quat, quat_mul, quat_normalize
 from pixsfm_tpu.base.interpolation import InterpolationConfig as JInterp
 from pixsfm_tpu.base.losses import RobustLoss as JLoss
-from pixsfm_tpu.bundle_adjustment import extract_references as j_refs
 from pixsfm_tpu.bundle_adjustment.main import \
     PatchWarpBundleAdjuster as JPW
 from pixsfm_tpu.bundle_adjustment.patch_warp import \
     build_patch_warp_residual as j_build
 from pixsfm_tpu.bundle_adjustment.problem import pack_ba_problem as j_pack
-from pixsfm_tpu.features.featuremaps import FeatureView as JView
 from pixsfm_tpu.ops import schur as jschur
 from pixsfm_tpu.sfm.synthetic import synthetic_reconstruction as j_synth
 from pixsfm_tpu_torch.base.interpolation import InterpolationConfig
 from pixsfm_tpu_torch.base.losses import RobustLoss
 from pixsfm_tpu_torch.base.projection import project_with_jac
 from pixsfm_tpu_torch.bundle_adjustment import PatchWarpBundleAdjuster
-from pixsfm_tpu_torch.bundle_adjustment import extract_references as t_refs
 from pixsfm_tpu_torch.bundle_adjustment.main import (_RESIDUAL_BUILDERS,
                                                      BundleAdjuster)
 from pixsfm_tpu_torch.features import featuremaps as tfm
@@ -57,7 +59,6 @@ from pixsfm_tpu_torch.ops import schur as tschur
 from tests.test_bundle_adjustment import perturb
 from tests.test_costmap_patchwarp_ba import track_consistency
 from tests.test_feature_reference_ba import featuremetric_scene
-from tests.test_mixed_fm_ba import split_cameras_mixed
 from tests.test_torch_ba import _one_torch_thread  # noqa: F401
 from tests.test_torch_ba import _port_fset, _to_port
 
@@ -338,40 +339,6 @@ def test_ba_solve_src_idx_matches(layout):
 
 
 # ---------------------------------------------------------------------------
-# references with node windows, NCC and 3D node offsets
-# ---------------------------------------------------------------------------
-
-def test_extract_references_nodes_match():
-    """16 NCC nodes (the photometric preset's) with ``compute_offsets3D``,
-    on two camera models: sources equal, descriptors atol 1e-5, node
-    offsets atol 1e-5."""
-    jrec, jfset = _textured(*featuremetric_scene(seed=9, n_images=4,
-                                                 n_points=10))
-    _pinhole_halves(jrec)
-    perturb(jrec, np.random.default_rng(3), pose_rot=0.002, pose_t=0.004,
-            point_sigma=0.004)
-    trec, tfset = _to_port(jrec), _port_fset(jfset, 8, 16)
-    conf = {"iters": 10, "compute_offsets3D": True,
-            "keep_observations": True}
-    pids = sorted(jrec.points3D)
-    kw = dict(mode="BICUBIC", l2_normalize=False, ncc_normalize=True,
-              nodes=NODES16)
-    jr = j_refs(jrec, jfset, JView.from_reconstruction(jfset, jrec, pids),
-                conf, JInterp(**kw))
-    tr = t_refs(trec, tfset, tfm.FeatureView.from_reconstruction(
-        tfset, trec, pids), conf, InterpolationConfig(**kw))
-    assert jr.keys() == tr.keys()
-    for pid in jr:
-        assert tr[pid].source == jr[pid].source
-        assert tr[pid].descriptor.shape == (16 * 8,)
-        np.testing.assert_allclose(tr[pid].descriptor, jr[pid].descriptor,
-                                   atol=1e-5)
-        assert tr[pid].node_offsets3D.shape == (16, 3)
-        np.testing.assert_allclose(tr[pid].node_offsets3D,
-                                   jr[pid].node_offsets3D, atol=1e-5)
-
-
-# ---------------------------------------------------------------------------
 # the adjuster against JAX's (the JAX package's own patch-warp tests, with
 # their assertions, on the port)
 # ---------------------------------------------------------------------------
@@ -404,43 +371,6 @@ def _conf(nodes, refine_extrinsics, iters, ref_iters, **opt):
                                      "use_inner_iterations": False}, **opt},
             "references": {"loss": {"name": "cauchy", "params": [0.25]},
                            "iters": ref_iters, "compute_offsets3D": False}}
-
-
-@pytest.mark.parametrize("mixed", [False, True], ids=["aligns_points",
-                                                      "mixed_models"])
-def test_patch_warp_ba_aligns_points(mixed):
-    """``test_patch_warp_ba_aligns_points`` and, with half the views on a
-    RADIAL camera, ``test_mixed_patch_warp_ba``: points only, the track
-    spread falls below 0.6x."""
-    rng = np.random.default_rng(0)
-    jrec, jfset = featuremetric_scene(seed=9)
-    if mixed:
-        split_cameras_mixed(jrec)
-    for p in jrec.points3D.values():
-        p.xyz = p.xyz + rng.normal(0, 0.008, 3)
-    out, trec, spread0 = _refine_both(_conf(NODES16, False, 25, 10),
-                                      jrec, jfset)
-    assert out["joint_source_poses"] is False
-    assert len({c.model for c in trec.cameras.values()}) == 1 + mixed
-    assert track_consistency(trec) < spread0 * 0.6
-
-
-def test_patch_warp_joint_source_poses():
-    """``test_patch_warp_joint_source_poses``: poses and points perturbed,
-    the source poses a second block; spread below 0.6x and the mean
-    translation error falls."""
-    rng = np.random.default_rng(0)
-    jrec, jfset = featuremetric_scene(seed=10)
-    true_t = {iid: im.tvec.copy() for iid, im in jrec.images.items()}
-    perturb(jrec, rng, pose_rot=0.002, pose_t=0.004, point_sigma=0.004)
-    err0 = np.mean([np.linalg.norm(im.tvec - true_t[i])
-                    for i, im in jrec.images.items()])
-    out, trec, spread0 = _refine_both(_conf(NODES16, True, 30, 10),
-                                      jrec, jfset)
-    assert out["joint_source_poses"] is True
-    assert track_consistency(trec) < spread0 * 0.6
-    assert np.mean([np.linalg.norm(im.tvec - true_t[i])
-                    for i, im in trec.images.items()]) < err0
 
 
 def test_patch_warp_constant_source_flag():
