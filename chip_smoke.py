@@ -11,12 +11,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 2. K1 (bicubic window interpolation, ``ops/interpolate_cuda.py``) against its
    plain PyTorch version on the card at the main path's shapes, bf16 and f32
    storage, L2 on and off, queries on the patch border; then at small shapes
-   that reach its general variant and the edges of the vector one (channel
-   counts that are no multiple of 8, f32 rows of 128 channels, 3 x 3
-   patches, a base that is not 16-byte aligned); then at VGGNet's widths
-   (phase 21(d)) at the KA shape, bf16 and f32, L2 on and off: 64 channels
-   (general variant), 256 and 512 (vector variant), each also timed
-   through the general variant.
+   that reach its general variant and the edges of the vector and narrow
+   ones (channel counts that are no multiple of 8, f32 rows of 128 and 64
+   channels, 1-8 channels, patches of 3 x 3, 16 x 2 and 1 x 5, a base that
+   is not 16-byte aligned); then at VGGNet's widths (phase 21(d)) at the
+   KA shape, bf16 and f32, L2 on and off: 64 channels (vector variant), 256
+   and 512 (wide variant). Each timing of K1 also times its general
+   variant (the first design) on the same inputs, forced through
+   ``interpolate_rows(..., variant="general")``.
 3. K2 (batched Jacobi PCG, ``ops/cg_cuda.py``) against its plain version,
    folded-damping and explicit forms, each variant (register, general) at
    the main path's shape (P = 128 systems of N = 112, 15 steps) and at
@@ -195,7 +197,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    was added): the cost must fall. (a) K1
    at the path's shape: one chunk's node queries, 16 per observation of
    8192, over one bf16 16x16x3 window per observation of (c), L2 off (the
-   general variant), as phase 2 checks it.
+   narrow variant), as phase 2 checks it.
 21. The ETH3D evaluation flow (``eval/eth3d``) on one rendered
    ``make_synthetic_scene`` of ``ETH3D_VIEWS`` 1600x1200 views and
    ``ETH3D_POINTS`` points with ``ETH3D_PATCH`` px textures. (a)
@@ -332,8 +334,9 @@ main paths (KA, BA, triangulation), its error against the plain version, its
 time per launch (CUDA events), the plain version's time and the bound computed
 from this run's inputs (``cold_ms``: K1 on query sets that change from launch
 to launch, so that no tap is left in the L2 cache; ``general_ms`` and
-``general_cold_ms``: the same two for K1's general variant, forced by a
-misaligned copy of the rows, which is the kernel's earlier design; K2's
+``general_cold_ms``: the same two for K1's general variant, forced through
+``variant="general"``, which is the kernel's first design; K1's
+``variant``: the variant that took the timed inputs; K2's
 ``variant``, ``cold_ms`` on changing systems and ``general_ms``, its earlier
 design; K3b's ``variant`` and ``onepass_ms``, its earlier design;
 ``in_situ_ms``: the profiler's device time per launch inside the stage;
@@ -346,7 +349,7 @@ path's BA shape, the last at its QKA shape) with that
 path's launches and the figures at its shape (``"low_memory"``: the
 launches of 19(c) and 19(d), split in ``launches_by_run``, and K1 timed
 at 19(a); ``"photometric"``: the launches of 20(c) and 20(d), K1 timed at
-20(a), its ``general_ms`` the same variant; ``"eth3d"``: the launches of
+20(a) on the narrow variant; ``"eth3d"``: the launches of
 21(b) and of 21(c) on 16x16 patches, with phase 2's figures
 at the KA shape; ``"eth3d_dense_query"``: 21(c)'s launches on the queries'
 dense maps, with the figures on the first such launch's inputs;
@@ -625,20 +628,12 @@ def check_k1(torch, interpolate_cuda, n_patches, n_queries, dtypes,
     turn = iter(range(10 ** 9))
     cold_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
         rows, ps, ps, C, *sets[next(turn) % n_sets], l2), reps=40, warmup=8)
-    # the general variant on the same queries: a copy of the rows one
-    # element past an aligned base, which the 16-byte loads cannot take
-    # (the photometric path's 3 channels take it anyway)
-    shifted = torch.empty(rows.numel() + 8, device=dev,
-                          dtype=rows.dtype)[1:rows.numel() + 1].view_as(rows)
-    shifted.copy_(rows)
-    if interpolate_cuda.kernel_variant(shifted) != "general":
-        raise SystemExit("K1 took 16-byte loads on a misaligned base")
+    # the general variant (the kernel's first design) on the same queries
     general_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
-        shifted, ps, ps, C, row_base, r, c, l2))
+        rows, ps, ps, C, row_base, r, c, l2, variant="general"))
     general_cold_ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
-        shifted, ps, ps, C, *sets[next(turn) % n_sets], l2), reps=40,
-        warmup=8)
-    del shifted
+        rows, ps, ps, C, *sets[next(turn) % n_sets], l2, variant="general"),
+        reps=40, warmup=8)
     bound_ms, bound_by, bytes_ = _k1_bound(torch, ps, ps, C, row_base, r, c,
                                            l2, elem_bytes=2)
     took = interpolate_cuda.kernel_variant(rows)
@@ -653,16 +648,20 @@ def check_k1(torch, interpolate_cuda, n_patches, n_queries, dtypes,
                          f"path's shape")
     return dict(max_abs_err=worst, ms=ms, cold_ms=cold_ms,
                 general_ms=general_ms, general_cold_ms=general_cold_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                variant=took)
 
 
 def check_k1_edges(torch, interpolate_cuda):
     """K1 against its plain version at small shapes that reach the general
-    variant and the edges of the vector one, at the tolerances of
-    :func:`check_k1`. Returns the largest error."""
+    variant and the edges of the vector and narrow ones, at the tolerances
+    of :func:`check_k1`. Returns the largest error."""
     dev = torch.device("cuda")
     tols = {torch.float32: 2e-5, torch.bfloat16: 5e-3}
-    # (dtype, C, H, W, misaligned base, expected variant)
+    # (dtype, C, H, W, misaligned base, expected variant); 1501 queries
+    # leave a ragged last warp for the narrow variant, whose 1-8 channel
+    # maps hold intensities in [0.25, 1) (near a zero vector, L2 at 1-2
+    # channels amplifies any summation order's rounding past 2e-5)
     cases = [(torch.bfloat16, 20, 16, 16, False, "general"),
              (torch.bfloat16, 136, 16, 16, False, "general"),
              (torch.float32, 20, 16, 16, False, "general"),
@@ -671,13 +670,28 @@ def check_k1_edges(torch, interpolate_cuda):
              (torch.float32, 128, 3, 3, False, "vector"),
              (torch.bfloat16, 20, 3, 3, False, "general"),
              (torch.bfloat16, 128, 16, 16, True, "general"),
-             (torch.float32, 128, 16, 16, True, "general")]
+             (torch.float32, 128, 16, 16, True, "general"),
+             (torch.bfloat16, 64, 3, 3, False, "vector"),
+             (torch.float32, 64, 16, 2, False, "vector"),
+             (torch.bfloat16, 64, 16, 16, True, "general"),
+             (torch.bfloat16, 3, 16, 16, True, "narrow"),
+             (torch.float32, 3, 3, 3, True, "narrow"),
+             (torch.bfloat16, 1, 16, 2, False, "narrow"),
+             (torch.float32, 2, 1, 5, True, "narrow"),
+             (torch.bfloat16, 4, 3, 3, False, "narrow"),
+             (torch.float32, 5, 16, 16, False, "narrow"),
+             (torch.bfloat16, 8, 2, 16, True, "narrow")]
     worst = 0.0
     for dtype, C, H, W, misaligned, want in cases:
         gen = torch.Generator(device=dev).manual_seed(C + H)
         n_patches, n = 40, 1501
         numel = n_patches * H * W * C
-        buf = torch.randn(numel + 8, generator=gen, device=dev).to(dtype)
+        if C <= 8:
+            buf = 0.25 + 0.75 * torch.rand(numel + 8, generator=gen,
+                                           device=dev)
+        else:
+            buf = torch.randn(numel + 8, generator=gen, device=dev)
+        buf = buf.to(dtype)
         # one element past an aligned base: 2 or 4 bytes off
         rows = buf[1:numel + 1] if misaligned else buf[:numel]
         rows = rows.view(n_patches * H, W, C)
@@ -2725,13 +2739,13 @@ def photometric_phase(torch, np, PixSfM, load_config, interpolate_cuda,
     torch.cuda.empty_cache()
     # (a) K1 at the path's shape: one BA chunk (8192 observations) of node
     # queries, 16 per observation, over one bf16 16x16x3 window each, L2
-    # off (the general variant: 3 channels)
+    # off (the narrow variant: 3 channels)
     from pixsfm_tpu_torch.base.interpolation import InterpolationConfig
     nodes = InterpolationConfig.from_conf(
         load_config("photometric").interpolation).nodes
     k1 = check_k1(torch, interpolate_cuda, n_patches=n_obs,
                   n_queries=8192 * len(nodes), dtypes=(torch.bfloat16,),
-                  C=3, l2=False, variant="general", nodes=nodes)
+                  C=3, l2=False, variant="narrow", nodes=nodes)
     launches = {k: launches_tri[k] + launches_ba[k] for k in launches_tri}
     print(f"phase 20: {time.perf_counter() - t20:.1f} s")
     return launches, launches_tri, launches_ba, k1, in_situ
@@ -3027,14 +3041,14 @@ def eth3d_phase(torch, np, PixSfM, load_config, interpolate_cuda, cg_cuda,
                                      out["final_cost"])):
         raise SystemExit("VGGNet KA: a level's cost did not fall")
     # K1 in situ per width: the same KA again under the profiler (the
-    # general variant serves 64 channels, the wide kernel 256 and 512)
+    # vector kernel serves 64 channels, the wide kernel 256 and 512)
     _, t_v, busy_v, kern_v, tab_v = profile_stage(
         torch, lambda: sfm.run_ka(kps2, images, matches=matches,
                                   scores=scores))
     in_situ_vgg = {}
     for C in widths:
         hits = [(c, ms) for n, c, ms in kern_v if "interp_kernel" in n
-                and ("general" in n if C == 64 else f", {C}>" in n)]
+                and f", {C}>" in n]
         if not hits:
             raise SystemExit(f"VGGNet KA: the profile shows no K1 launch "
                              f"at C = {C}")
@@ -4302,11 +4316,11 @@ def main() -> int:
                   n_queries=P * K, dtypes=(torch.float32, torch.bfloat16))
     k1["edge_max_abs_err"] = check_k1_edges(torch, interpolate_cuda)
     # the widths of VGGNet's levels (phase 21(d)) at the KA shape: 64 takes
-    # the general variant, 256 and 512 the vector one
+    # the vector variant, 256 and 512 the wide one
     k1_wide = {C: check_k1(torch, interpolate_cuda, n_patches=20000,
                            n_queries=P * K,
                            dtypes=(torch.float32, torch.bfloat16), C=C,
-                           variant="general" if C == 64 else "vector")
+                           variant="vector" if C == 64 else "wide")
                for C in (64, 256, 512)}
     torch.cuda.empty_cache()
     k2 = check_k2(torch, cg_cuda, P=P, N=2 * K, iters=15)

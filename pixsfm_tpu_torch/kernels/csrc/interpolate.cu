@@ -22,58 +22,82 @@
 // and with loads alone 24 us of its 44 us. The 64 narrow loads per lane and
 // their address arithmetic set its time, not the FMAs and not the bytes.
 //
-// Two variants, vector (two kernels) and general; pixsfm_interp_rows picks
-// one from C, the storage type and the pointers' alignment (the Python
-// wrapper does not choose):
+// Four variants; pixsfm_interp_rows picks one from C, the storage type and
+// the pointers' alignment (the Python wrapper does not choose, but may force
+// one for checks and timing):
 //
-// - interp_kernel_vec<T, C>, for C = 128 (S2DNet, DSIFT, R2D2), bf16 or f32
-//   rows, when rows and the outputs are 16-byte aligned. A pixel is
-//   C * sizeof(T) / 16 = 16
-//   (bf16) or 32 (f32) 16-byte units and each lane owns one unit (8 bf16 /
-//   4 f32 channels), so one warp-wide ld.global.nc.v4 fetches 2 taps or 1
-//   (bf16: the two half-warps read two taps of one row). All of a query's
-//   loads (8 per lane in bf16, where the general variant makes 64) are
-//   requested before the first use; bf16 pairs are unpacked with a shift and
-//   a mask; sums are float32. In bf16 the half-warps' partial sums are
-//   combined with one xor shuffle per accumulator; the L2 norm and the two
-//   chain-rule dots are reductions over a pixel's lanes, and the three
-//   outputs leave as float4 stores (3 per lane). The grid is persistent:
+// - vector: interp_kernel_vec<T, C>, for C = 128 (S2DNet, DSIFT, R2D2) and
+//   C = 64 (VGGNet's conv1_2), bf16 or f32 rows, when rows and the outputs
+//   are 16-byte aligned. A pixel is C * sizeof(T) / 16 16-byte units (16 or
+//   32 at C = 128, 8 or 16 at C = 64) and each lane owns one unit (8 bf16 /
+//   4 f32 channels), so one warp-wide ld.global.nc.v4 fetches 32 / units
+//   taps of one row (bf16: 2 at C = 128, 4 at C = 64; f32: 1 and 2). All of
+//   a query's loads (8 per lane in bf16 at C = 128, where the general
+//   variant makes 64; 4 at C = 64, where it makes 32) are requested before
+//   the first use; bf16 pairs are unpacked with a shift and a mask; sums
+//   are float32. The lane groups' partial sums (different taps of the same
+//   channels) are combined with xor shuffles, one step per doubling of the
+//   groups (bf16: 1 at C = 128, 2 at C = 64; f32: 0 and 1); the L2 norm and
+//   the two chain-rule dots are reductions over a pixel's lanes, and the
+//   three outputs leave as float4 stores. The grid is persistent:
 //   a warp walks queries q, q + stride, ...
 //   and software-pipelines them in registers: while query q is reduced, the
 //   taps of q + stride and the (r, c, row_base) of q + 2 stride are already
 //   requested, so a warp has two queries' bytes in flight and its
 //   index -> address -> taps -> store chain overlaps the next one's. The
 //   number of warps is chosen so that every warp gets the same number of
-//   queries (8192 queries -> 2048 warps x 4). The channel count is a
+//   queries (8192 queries -> 2048 warps x 4). At C = 64 in bf16, whose 4
+//   loads per lane hold half the bytes and half the registers of C = 128's
+//   8, an SM holds 20 warps instead of 16 (24 spill). The channel count is a
 //   template parameter: no loop has a run-time predicate. Register
 //   prefetching was chosen over a cp.async shared-memory ring: the taps are
 //   used once, straight from the registers they arrive in, and at 16 warps
 //   per SM two queries per warp already keep 128 KiB in flight per SM (8
 //   warps for f32 rows, whose 16 loads per lane and query take twice the
-//   registers). Measured in bf16: 16 warps per SM beat 8, 12, 20 and 24 (the
-//   last two spill), and walking queries beat one query per warp by a
-//   quarter. The two tap buffers are separate arrays that swap roles in an
-//   unrolled pair of steps: indexed as one array they went to local memory
-//   and the kernel took twice as long.
+//   registers). Measured in bf16 at C = 128: 16 warps per SM beat 8, 12, 20
+//   and 24 (the last two spill), and walking queries beat one query per
+//   warp by a quarter. The two tap buffers are separate arrays that swap
+//   roles in an unrolled pair of steps: indexed as one array they went to
+//   local memory and the kernel took twice as long.
 //
-// - interp_kernel_wide<T, C>, the same 16-byte loads for the wider maps of
-//   VGGNet and D2-Net: C = 256 and 512, bf16 or f32, on 16-byte aligned
-//   bases. A pixel is 32 * kPer units (kPer = 1, 2 or 4) and lane l owns
-//   units l, l + 32, ..., so each warp-wide load reads 512 contiguous bytes
-//   of one tap. One warp per query; the taps are requested a batch of rows
-//   at a time, 16 loads per lane in flight (4 rows at kPer = 1, 2 at 2, 1 at
-//   4), and a lane keeps 8 or 16 channels of sums; the L2 norm and the two
-//   chain-rule dots are warp sums. Bound by bytes like the 128-channel
-//   kernel (a query reads 16 taps x 512 or 1024 bytes in bf16); it was
-//   written for being right and simple, not tuned.
+// - wide: interp_kernel_wide<T, C>, the same 16-byte loads for the wider
+//   maps of VGGNet and D2-Net: C = 256 and 512, bf16 or f32, on 16-byte
+//   aligned bases. A pixel is 32 * kPer units (kPer = 1, 2 or 4) and lane l
+//   owns units l, l + 32, ..., so each warp-wide load reads 512 contiguous
+//   bytes of one tap. One warp per query; the taps are requested a batch of
+//   rows at a time, 16 loads per lane in flight (4 rows at kPer = 1, 2 at
+//   2, 1 at 4), and a lane keeps 8 or 16 channels of sums; the L2 norm and
+//   the two chain-rule dots are warp sums. Bound by bytes like the
+//   128-channel kernel (a query reads 16 taps x 512 or 1024 bytes in
+//   bf16); it was written for being right and simple, not tuned.
 //
-// - interp_kernel_general<T, K>, everything else the function takes: any
-//   C <= 512 that the vector variants do not (also not a multiple of 8: the
-//   1-3 channels of the image "features" come here; VGGNet's 64) and
-//   misaligned bases. One warp per query, lane l owns channels l, l + 32,
+// - narrow: interp_kernel_narrow<T, C>, for 1 <= C <= 8 (the 1-3 channels
+//   of the image "features": the photometric preset's node windows in
+//   patch-warp BA, its references, the photometric KA and patch-warp QBA),
+//   bf16 or f32, any alignment. One warp per query would leave 29 of 32
+//   lanes idle at C = 3, so here one thread serves one query and a warp 32
+//   queries. A thread computes its own weights, requests all 16 x C tap
+//   loads before the first use (C <= 4; two rows of taps at a time beyond,
+//   so that no more than 64 values are in flight), keeps 3 x C sums in
+//   registers and applies the L2 chain rule by itself. Its loads are
+//   scalar, one per tap and channel, so what they cost is the distinct
+//   cache lines a warp-wide load touches: the node windows of patch-warp
+//   BA are 16 consecutive queries on one patch row (ops/interpolate_cuda.py
+//   interpolate_node_rows), so a warp's taps fall on two observations'
+//   7x7-pixel neighbourhoods and L1 serves most of them. Requesting the
+//   taps a row at a time measured the same as all at once, and at the
+//   photometric shape the kernel runs within 3x its byte bound, so the
+//   windows are not staged in shared memory. The [32, C] outputs of a warp
+//   go through shared memory and leave as C contiguous 128-byte stores per
+//   output.
+//
+// - general: interp_kernel_general<T, K>, everything else the function
+//   takes: 9 <= C <= 512 other than 64, 128, 256 and 512, and misaligned
+//   bases at C > 8. One warp per query, lane l owns channels l, l + 32,
 //   ..., scalar loads; K = 8 channels per lane up to C = 256, 16 beyond.
-//   All variants take any H and W (W < 4: every column tap clamps) and
-//   offsets past 2^31.
+//
+// All variants take any H and W (W < 4: every column tap clamps) and
+// offsets past 2^31.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (pixsfm_tpu_torch/kernels/__init__.py).
@@ -159,14 +183,17 @@ __device__ __forceinline__ Query load_query(const int32_t* row_base,
 template <typename T, int C>
 struct VecShape {
   static constexpr int kVec = 16 / sizeof(T);     // channels per lane
-  static constexpr int kLanes = C / kVec;         // lanes per pixel: 16 or 32
+  static constexpr int kLanes = C / kVec;         // lanes per pixel: 8-32
   static constexpr int kGroups = 32 / kLanes;     // taps per warp-wide load
   static constexpr int kLoads = 16 / kGroups;     // loads per lane and query
   static constexpr int kCols = 4 / kGroups;       // column taps of a lane
-  // two queries' taps live in registers: 64 of them at 8 loads, 128 at 16
-  static constexpr int kBlocksPerSM = kLoads > 8 ? 2 : 4;
-  static_assert(C % kVec == 0 && (kLanes == 16 || kLanes == 32),
-                "a pixel must be 16 or 32 16-byte units");
+  // two queries' taps live in registers: 32 of them at 4 loads, 64 at 8,
+  // 128 at 16; fewer registers leave room for more warps (at 4 loads, 6
+  // blocks per SM spill)
+  static constexpr int kBlocksPerSM = kLoads > 8 ? 2 : kLoads > 4 ? 4 : 5;
+  static_assert(C % kVec == 0 &&
+                    (kLanes == 8 || kLanes == 16 || kLanes == 32),
+                "a pixel must be 8, 16 or 32 16-byte units");
 };
 
 // Request the lane's taps of one query: load i * kCols + jj is tap
@@ -196,14 +223,18 @@ __device__ __forceinline__ void request_taps(
   }
 }
 
-// A lane's channels of one output as one float4 store per lane. In bf16 both
-// half-warps hold the same 8 sums: half g stores the g-th float4.
+// A lane's channels of one output as one float4 store per lane. After the
+// reduction every lane group holds the same sums: in f32 group 0 stores the
+// lane's float4, in bf16 groups 0 and 1 store its first and second float4,
+// and any further groups store nothing.
 __device__ __forceinline__ void store4(float* __restrict__ out,
-                                       const float (&x)[4], int) {
+                                       const float (&x)[4], int group) {
+  if (group) return;
   *reinterpret_cast<float4*>(out) = make_float4(x[0], x[1], x[2], x[3]);
 }
 __device__ __forceinline__ void store4(float* __restrict__ out,
                                        const float (&x)[8], int group) {
+  if (group > 1) return;
   const float4 v = group ? make_float4(x[4], x[5], x[6], x[7])
                          : make_float4(x[0], x[1], x[2], x[3]);
   *reinterpret_cast<float4*>(out + 4 * group) = v;
@@ -488,6 +519,134 @@ interp_kernel_wide(const T* __restrict__ rows,
 }
 
 // ---------------------------------------------------------------------------
+// narrow variant (1 <= C <= 8)
+// ---------------------------------------------------------------------------
+
+constexpr int kNarrowWarps = 4;
+
+// One stored element as it arrives in a register, and as a float.
+__device__ __forceinline__ float load_raw(const float* p) { return __ldg(p); }
+__device__ __forceinline__ unsigned short load_raw(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(unsigned short x) {
+  return __uint_as_float(static_cast<unsigned>(x) << 16);
+}
+
+// One output of a warp's queries: the lanes' [32, C] sums through the warp's
+// shared buffer, then C stores of 32 contiguous floats (count: the floats
+// of the warp's queries that exist).
+template <int C>
+__device__ __forceinline__ void store_warp(float* __restrict__ out,
+                                           float* buf, const float (&x)[C],
+                                           int lane, int count) {
+#pragma unroll
+  for (int k = 0; k < C; ++k) buf[lane * C + k] = x[k];
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int i = lane + 32 * k;
+    if (i < count) out[i] = buf[i];
+  }
+  __syncwarp();
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(32 * kNarrowWarps)
+interp_kernel_narrow(const T* __restrict__ rows,
+                     const int32_t* __restrict__ row_base,
+                     const float* __restrict__ rq,
+                     const float* __restrict__ cq, int n, int h, int w,
+                     int l2, float* __restrict__ f_out,
+                     float* __restrict__ dr_out, float* __restrict__ dc_out) {
+  // all 16 taps in flight up to C = 4, two rows of them beyond
+  constexpr int B = C <= 4 ? 4 : 2;
+  __shared__ float stage[kNarrowWarps][32 * C];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int first = (blockIdx.x * kNarrowWarps + warp) * 32;
+  if (first >= n) return;  // whole warp leaves together
+  // lanes past the last query compute its value again and store nothing
+  const int q = min(first + lane, n - 1);
+
+  const Query s = load_query(row_base, rq, cq, q);
+  const float fr = floorf(s.r);
+  const float fc = floorf(s.c);
+  float wr[4], dwr[4], wc[4], dwc[4];
+  catmull_rom(s.r - fr, wr, dwr);
+  catmull_rom(s.c - fc, wc, dwc);
+  const int br = static_cast<int>(fr);
+  const int bc = static_cast<int>(fc);
+  int64_t col[4], row[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    col[k] = static_cast<int64_t>(min(max(bc - 1 + k, 0), w - 1)) * C;
+    row[k] = (static_cast<int64_t>(s.base) + min(max(br - 1 + k, 0), h - 1)) *
+             w * C;
+  }
+
+  float f[C], fdr[C], fdc[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) f[k] = fdr[k] = fdc[k] = 0.f;
+#pragma unroll
+  for (int i0 = 0; i0 < 4; i0 += B) {
+    decltype(load_raw(rows)) taps[B][4][C];
+#pragma unroll
+    for (int ii = 0; ii < B; ++ii)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int k = 0; k < C; ++k)
+          taps[ii][j][k] = load_raw(rows + row[i0 + ii] + col[j] + k);
+#pragma unroll
+    for (int ii = 0; ii < B; ++ii) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float a = wr[i0 + ii] * wc[j];
+        const float b = dwr[i0 + ii] * wc[j];
+        const float d = wr[i0 + ii] * dwc[j];
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+          const float v = widen(taps[ii][j][k]);
+          f[k] = fmaf(a, v, f[k]);
+          fdr[k] = fmaf(b, v, fdr[k]);
+          fdc[k] = fmaf(d, v, fdc[k]);
+        }
+      }
+    }
+  }
+
+  if (l2) {
+    // XLA form of the JAX package: 1 / max(||f||, 1e-20)
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) ss += f[k] * f[k];
+    const float inv = 1.0f / fmaxf(sqrtf(ss), 1e-20f);
+    float pr = 0.f, pc = 0.f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      f[k] *= inv;
+      fdr[k] *= inv;
+      fdc[k] *= inv;
+      pr += f[k] * fdr[k];
+      pc += f[k] * fdc[k];
+    }
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      fdr[k] -= pr * f[k];
+      fdc[k] -= pc * f[k];
+    }
+  }
+
+  const int64_t o = static_cast<int64_t>(first) * C;
+  const int count = min(32, n - first) * C;
+  store_warp<C>(f_out + o, stage[warp], f, lane, count);
+  store_warp<C>(dr_out + o, stage[warp], fdr, lane, count);
+  store_warp<C>(dc_out + o, stage[warp], fdc, lane, count);
+}
+
+// ---------------------------------------------------------------------------
 // general variant
 // ---------------------------------------------------------------------------
 
@@ -641,15 +800,39 @@ int launch_general(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int C>
+int launch_narrow(const Args& a) {
+  constexpr int per_block = 32 * kNarrowWarps;
+  const int blocks = (a.n + per_block - 1) / per_block;
+  interp_kernel_narrow<T, C><<<blocks, per_block, 0, a.stream>>>(
+      static_cast<const T*>(a.rows), a.row_base, a.r, a.c, a.n, a.h, a.w,
+      a.l2, a.f, a.dfdr, a.dfdc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The variants by code (pixsfm_interp_variant's and pixsfm_interp_rows').
+enum Variant { kGeneral = 0, kVector = 1, kWide = 2, kNarrow = 3 };
+
 template <typename T>
-int launch_vector(const Args& a) {
-  switch (a.ch) {
-    case 128:
-      return launch_vec<T, 128>(a);
-    case 256:
-      return launch_wide<T, 256>(a);
+int launch(int variant, const Args& a) {
+  switch (variant) {
+    case kVector:
+      return a.ch == 64 ? launch_vec<T, 64>(a) : launch_vec<T, 128>(a);
+    case kWide:
+      return a.ch == 256 ? launch_wide<T, 256>(a) : launch_wide<T, 512>(a);
+    case kNarrow:
+      switch (a.ch) {
+        case 1: return launch_narrow<T, 1>(a);
+        case 2: return launch_narrow<T, 2>(a);
+        case 3: return launch_narrow<T, 3>(a);
+        case 4: return launch_narrow<T, 4>(a);
+        case 5: return launch_narrow<T, 5>(a);
+        case 6: return launch_narrow<T, 6>(a);
+        case 7: return launch_narrow<T, 7>(a);
+        default: return launch_narrow<T, 8>(a);
+      }
     default:
-      return launch_wide<T, 512>(a);
+      return launch_general<T>(a);
   }
 }
 
@@ -663,33 +846,55 @@ extern "C" {
 
 int pixsfm_interp_max_channels() { return kMaxChannels; }
 
-// Which variant pixsfm_interp_rows takes for these arguments: 1 = vector
-// (interp_kernel_vec at C = 128, interp_kernel_wide at 256 and 512), 0 =
-// general (for tests and the smoke run; same rule as the launch).
-int pixsfm_interp_variant(const void* rows, int dtype, int ch, const float* f,
-                          const float* dfdr, const float* dfdc) {
-  if (!(aligned16(rows) && aligned16(f) && aligned16(dfdr) && aligned16(dfdc)))
-    return 0;
-  return (dtype == 0 || dtype == 1) && (ch == 128 || ch == 256 || ch == 512);
+// Whether variant (0 = general, 1 = vector, 2 = wide, 3 = narrow) takes
+// these arguments: general every C up to 512; narrow 1 <= C <= 8 at any
+// alignment; vector C = 64 or 128 and wide C = 256 or 512, when rows and
+// the outputs are 16-byte aligned (a null output pointer counts as
+// aligned, as torch allocates them).
+int pixsfm_interp_takes(int variant, const void* rows, int dtype, int ch,
+                        const float* f, const float* dfdr,
+                        const float* dfdc) {
+  if ((dtype != 0 && dtype != 1) || ch < 1 || ch > kMaxChannels) return 0;
+  const bool aligned = aligned16(rows) && aligned16(f) && aligned16(dfdr) &&
+                       aligned16(dfdc);
+  switch (variant) {
+    case kGeneral: return 1;
+    case kNarrow: return ch <= 8;
+    case kVector: return aligned && (ch == 64 || ch == 128);
+    case kWide: return aligned && (ch == 256 || ch == 512);
+    default: return 0;
+  }
 }
 
-// dtype: 0 = float32 rows, 1 = bfloat16 rows. Returns the cudaError_t of
-// the launch (0 = success).
+// Which variant pixsfm_interp_rows takes for these arguments when none is
+// forced: narrow up to 8 channels, else vector or wide where they take the
+// arguments, else general (for tests and the smoke run; the launch's rule).
+int pixsfm_interp_variant(const void* rows, int dtype, int ch, const float* f,
+                          const float* dfdr, const float* dfdc) {
+  const Variant order[3] = {kNarrow, kVector, kWide};
+  for (int i = 0; i < 3; ++i)
+    if (pixsfm_interp_takes(order[i], rows, dtype, ch, f, dfdr, dfdc))
+      return order[i];
+  return kGeneral;
+}
+
+// dtype: 0 = float32 rows, 1 = bfloat16 rows. variant: -1 = the automatic
+// choice (pixsfm_interp_variant), else the variant to force (checks and
+// timing), which must take the arguments. Returns the cudaError_t of the
+// launch (0 = success).
 int pixsfm_interp_rows(const void* rows, int dtype, const int32_t* row_base,
                        const float* r, const float* c, int n, int h, int w,
                        int ch, int l2, float* f, float* dfdr, float* dfdc,
-                       void* stream) {
-  if (ch > kMaxChannels || (dtype != 0 && dtype != 1))
+                       int variant, void* stream) {
+  if (variant < 0) variant = pixsfm_interp_variant(rows, dtype, ch, f, dfdr,
+                                                   dfdc);
+  if (!pixsfm_interp_takes(variant, rows, dtype, ch, f, dfdr, dfdc))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const Args a{rows, row_base, r, c, n, h, w, ch, l2, f, dfdr, dfdc,
                static_cast<cudaStream_t>(stream)};
-  if (pixsfm_interp_variant(rows, dtype, ch, f, dfdr, dfdc)) {
-    return dtype == 0 ? launch_vector<float>(a)
-                      : launch_vector<__nv_bfloat16>(a);
-  }
-  return dtype == 0 ? launch_general<float>(a)
-                    : launch_general<__nv_bfloat16>(a);
+  return dtype == 0 ? launch<float>(variant, a)
+                    : launch<__nv_bfloat16>(variant, a);
 }
 
 }  // extern "C"

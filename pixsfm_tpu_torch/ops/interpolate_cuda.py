@@ -7,16 +7,19 @@ PyTorch version (``base.interpolation.bicubic_window_eval_rows`` +
 ``l2_normalize_with_grad``). A CUDA tensor never takes the plain path: a
 kernel that fails to build or launch raises.
 
-The CUDA source holds two variants, a vector one (16-byte loads, for bf16 or
-f32 rows of 128, 256 or 512 channels on a 16-byte aligned base: S2DNet,
-DSIFT and R2D2 at 128, VGGNet's and D2-Net's wider maps) and a general one
-(everything else up to 512 channels, e.g. VGGNet's 64 and the images' 1-3).
-The C entry point chooses between them; :func:`kernel_variant` reports its
-choice.
+The CUDA source holds four variants (:data:`VARIANTS`): ``vector`` (16-byte
+loads, a lane per 16 bytes of a pixel, for bf16 or f32 rows of 64 or 128
+channels on a 16-byte aligned base: S2DNet, DSIFT and R2D2 at 128,
+VGGNet's first level at 64), ``wide`` (the same loads for 256 or 512
+channels: VGGNet's and D2-Net's wider maps), ``narrow`` (one thread per
+query for 1 to 8 channels at any alignment: the images' 1-3) and
+``general`` (one warp per query, everything else up to 512 channels). The C
+entry point chooses; :func:`kernel_variant` reports its choice, and
+``interpolate_rows(..., variant=)`` forces one for checks and timing.
 
 :func:`interpolate_node_rows` reads node windows (patch-warp BA and its
 references): the node offsets of every query expand into one launch on
-that query's patch row; the general variant serves their 3-channel raw
+that query's patch row; the narrow variant serves their 3-channel raw
 intensities.
 
 :func:`interpolate` and :func:`interpolate_nodes` are the one route that
@@ -35,6 +38,7 @@ kernel's own derivatives.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -47,7 +51,7 @@ from ..base.interpolation import (InterpolationConfig,
 
 __all__ = ["interpolate_rows", "interpolate_rows_plain",
            "interpolate_node_rows", "interpolate", "interpolate_nodes",
-           "interpolate_fwd", "kernel_variant", "launches",
+           "interpolate_fwd", "kernel_variant", "VARIANTS", "launches",
            "launches_by_channels"]
 
 # Number of kernel launches since the last reset (set it to 0 to reset),
@@ -56,6 +60,9 @@ launches = 0
 launches_by_channels = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# K1's variants, indexed by their code in the C entry points.
+VARIANTS = ("general", "vector", "wide", "narrow")
 
 
 def interpolate_rows_plain(rows, H: int, W: int, C: int, row_base, r, c,
@@ -73,34 +80,42 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pixsfm_interp_rows.argtypes = [p, i, p, p, p, i, i, i, i, i,
-                                           p, p, p, p]
+                                           p, p, p, i, p]
         lib.pixsfm_interp_rows.restype = i
         lib.pixsfm_interp_max_channels.argtypes = []
         lib.pixsfm_interp_max_channels.restype = i
         lib.pixsfm_interp_variant.argtypes = [p, i, i, p, p, p]
         lib.pixsfm_interp_variant.restype = i
+        lib.pixsfm_interp_takes.argtypes = [i, p, i, i, p, p, p]
+        lib.pixsfm_interp_takes.restype = i
         lib._typed = True
     return lib
 
 
 def kernel_variant(rows) -> str:
-    """``"vector"`` or ``"general"``: the variant the C entry point takes for
+    """One of :data:`VARIANTS`: the variant the C entry point takes for
     these CUDA ``rows [NR, W, C]`` (outputs come from ``torch.empty`` and
-    are always aligned)."""
-    code = _lib().pixsfm_interp_variant(rows.data_ptr(), _DTYPES[rows.dtype],
-                                        rows.shape[-1], 0, 0, 0)
-    return "vector" if code else "general"
+    are always aligned): ``narrow`` for C <= 8; ``vector`` for C = 64 or
+    128 and ``wide`` for C = 256 or 512 on a 16-byte aligned base;
+    ``general`` otherwise."""
+    return VARIANTS[_lib().pixsfm_interp_variant(
+        rows.data_ptr(), _DTYPES[rows.dtype], rows.shape[-1], 0, 0, 0)]
 
 
 def interpolate_rows(rows, H: int, W: int, C: int, row_base, r, c,
-                     l2_normalize: bool):
+                     l2_normalize: bool, *, variant: Optional[str] = None):
     """``(f, dfdr, dfdc)`` ``[N, C]`` float32 at patch coordinates (r, c).
 
     ``rows [NR, W, C]`` (float32 or bfloat16) is the flat row view of the
     packed ``[B, H, W, C]`` patches, ``row_base [N]`` the first row of each
-    query's patch (``patch_row * H``), ``r, c [N]`` float32.
+    query's patch (``patch_row * H``), ``r, c [N]`` float32. ``variant``
+    forces one of :data:`VARIANTS` on the card (for checks and timing; it
+    raises where that variant does not take these rows); ``None`` is the C
+    entry point's own choice.
     """
     global launches
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"interpolate_rows: unknown variant {variant!r}")
     if not rows.is_cuda:
         return interpolate_rows_plain(rows, H, W, C, row_base, r, c,
                                       l2_normalize)
@@ -118,6 +133,13 @@ def interpolate_rows(rows, H: int, W: int, C: int, row_base, r, c,
     if C > lib.pixsfm_interp_max_channels():
         raise ValueError(f"interpolate_rows: C={C} exceeds the kernel's "
                          f"{lib.pixsfm_interp_max_channels()} channels")
+    code = -1 if variant is None else VARIANTS.index(variant)
+    if code >= 0 and not lib.pixsfm_interp_takes(
+            code, rows.data_ptr(), _DTYPES[rows.dtype], C, 0, 0, 0):
+        where = "" if rows.data_ptr() % 16 == 0 else \
+            " on a base that is not 16-byte aligned"
+        raise ValueError(f"interpolate_rows: the {variant} variant does not "
+                         f"take {str(rows.dtype)[6:]} rows of C={C}{where}")
     dev = rows.device
     row_base = row_base.to(device=dev, dtype=torch.int32).contiguous()
     r = r.to(device=dev, dtype=torch.float32).contiguous()
@@ -133,7 +155,7 @@ def interpolate_rows(rows, H: int, W: int, C: int, row_base, r, c,
         err = lib.pixsfm_interp_rows(
             rows.data_ptr(), _DTYPES[rows.dtype], row_base.data_ptr(),
             r.data_ptr(), c.data_ptr(), N, H, W, C, int(bool(l2_normalize)),
-            f.data_ptr(), dfdr.data_ptr(), dfdc.data_ptr(), stream)
+            f.data_ptr(), dfdr.data_ptr(), dfdc.data_ptr(), code, stream)
     if err:
         raise RuntimeError(f"interpolate_rows: kernel launch failed "
                            f"(cudaError {err})")
