@@ -328,6 +328,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``FR_FFD_TRACKS`` tracks equal to the numpy plain versions, both timed.
    (e) ``util.misc.total_memory`` / ``free_memory``. The H5 cache needs
    h5py; without it a line says the cache is left to the CPU tests.
+26. The public API. (a) ``PixSfM("default")`` by name runs ``run_ka`` on
+   phase 5's scene: its keypoints within ``DEFAULT_KP_ATOL`` of phase 5's
+   dict-config run, with the same K1 and K2 launches; then ``refine_colmap
+   keypoint_adjuster --config_path default`` on phase 13's database, within
+   ``DB_KP_ATOL`` of phase 13's ``run_ka``. (b) The patch interpolation
+   API on the card (``base.interpolation``): ``bicubic_window_eval`` on
+   1024 bf16 16x16x128 patches, ``interpolate_with_grad`` with 4096 queries
+   on one 1200x1600x128 bf16 map, and ``interpolate_nodes_with_grad`` with
+   2x2 nodes and NCC on a 3-channel float32 view of phase 5's scene, each
+   against the plain version on the same inputs (phase 2's limits; NCC
+   within 1e-4 of each array's largest entry), one K1 launch per BICUBIC
+   call and none for a BILINEAR one; each call's K1 variant, K1's time on
+   the call's launch inputs, the call's and the plain version's times.
+   (c) K1's L2 at 1-3 channels on zero-crossing N(0, 1) maps, float32 and
+   bf16 storage: the narrow variant's largest error against the float64
+   plain version at most ``L2_F64_FACTOR`` times the float32 plain
+   version's; the general variant's (forced) printed beside them.
 
 Then one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
 main paths (KA, BA, triangulation), its error against the plain version, its
@@ -361,7 +378,11 @@ launch; ``"sharded"``: the launches of 24(a)-(d), split in
 launch; ``"features_rest"``: the launches of 25(a)-(c), split in
 ``launches_by_run``, with the figures on 25(b)'s first launch;
 ``"vggnet"``: one entry per width, ``channels`` 64 / 256 / 512, with
-21(d)'s launches at that width and phase 2's figures at it); K2's and
+21(d)'s launches at that width and phase 2's figures at it;
+``"default_preset"``: the launches of 26(a), split in ``launches_by_run``,
+with phase 2's figures at the KA shape; ``"public_api"``: the launches of
+26(b)'s calls, split in ``launches_by_run``, with the figures of
+``bicubic_window_eval`` and each call's in ``by_call``); K2's and
 K3a/b/c's entries sum their launches over the paths and list them in ``launches_by_path`` (K3's ``in_situ_low_memory_ms``
 from 19(c); K2's ``features_rest``: its figures on 25(b)'s first launch);
 and last ``{"ok": true, "device": {...}}``.
@@ -4276,6 +4297,285 @@ def features_rest_phase(torch, np, PixSfM, interpolate_cuda, cg_cuda,
     return launches, by_run, k1, k2
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the default preset by name, the patch API, K1's L2 at 1-3
+# channels against float64
+# ---------------------------------------------------------------------------
+
+# 26(a): PixSfM("default") against phase 5's dict-config run (the same code
+# on the same inputs: equal but for float32 summation order)
+DEFAULT_KP_ATOL = 1e-5
+# 26(c): K1's largest error against the float64 plain version may be at
+# most this many times the float32 plain version's (the narrow variant, which
+# serves 1-8 channels, sums in double with L2 on; the general one, which
+# takes these widths only when forced, sums in float32 and is printed)
+L2_F64_FACTOR = 2.0
+
+
+def k1_l2_float64_errors(torch, interpolate_cuda, C, dtype, seed):
+    """K1's narrow and general variants and the float32 plain version, L2
+    on, against the float64 plain version on zero-crossing N(0, 1) maps of
+    ``C`` channels stored in ``dtype`` (1501 queries over 40 16x16 patches,
+    up to 1.5 px past their border; ``scripts/k1_l2_conditioning.py``'s
+    data for ``seed``): the largest |. - float64| over (f, df/dr, df/dc) of
+    each, and the smallest ||f|| of the queries."""
+    dev = torch.device("cuda")
+    H = W = 16
+    n, n_patches = 1501, 40
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn((n_patches * H, W, C), generator=gen, device=dev,
+                       dtype=torch.float32).to(dtype)
+    rb = torch.randint(0, n_patches, (n,), generator=gen, device=dev) * H
+    r = torch.rand(n, generator=gen, device=dev) * (H + 2.0) - 1.5
+    c = torch.rand(n, generator=gen, device=dev) * (W + 2.0) - 1.5
+    args = (rows, H, W, C, rb, r, c, True)
+    ref = interpolate_cuda.interpolate_rows_plain(*args,
+                                                  dtype=torch.float64)
+    errs = {}
+    for name, out in (
+            ("narrow", interpolate_cuda.interpolate_rows(*args,
+                                                         variant="narrow")),
+            ("general", interpolate_cuda.interpolate_rows(
+                *args, variant="general")),
+            ("plain f32", interpolate_cuda.interpolate_rows_plain(*args))):
+        errs[name] = max(float((a.double() - b).abs().max())
+                         for a, b in zip(out, ref))
+    f = interpolate_cuda.interpolate_rows_plain(rows, H, W, C, rb, r, c,
+                                                False, dtype=torch.float64)[0]
+    errs["min_norm"] = float(torch.linalg.vector_norm(f, dim=-1).min())
+    return errs
+
+
+def _chunked_plain(torch, fn, n, chunk=256):
+    """``fn(lo, hi)``'s outputs over ``[0, n)`` in chunks, concatenated:
+    the plain reads of a whole map gather a ``[chunk, 4, W, C]`` window
+    each."""
+    parts = [fn(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def public_api_phase(torch, np, PixSfM, interpolate_cuda, cg_cuda,
+                     ka_scene, ka_run, kp_db_ref):
+    """Phase 26 (see the module docstring). Returns the launches of (a)'s
+    two runs, those of (b)'s calls, and the K1 figures of each call."""
+    import tempfile
+
+    import PIL.Image
+
+    from pixsfm_tpu_torch import refine_colmap
+    from pixsfm_tpu_torch.base import interpolation as api
+    from pixsfm_tpu_torch.util.colmap import read_keypoints_from_db
+    t_phase = time.perf_counter()
+    images, kp0, matches, scores = ka_scene
+    kp_dict, launches_dict = ka_run
+    dev = torch.device("cuda")
+
+    # (a) the default preset by name: run_ka, then the database command
+    sfm = PixSfM("default", device="cuda")
+    torch.cuda.synchronize()
+    interpolate_cuda.launches = 0
+    cg_cuda.launches = 0
+    t0 = time.perf_counter()
+    kp_named, out = sfm.run_ka({k: v.copy() for k, v in kp0.items()}, images,
+                               matches=matches, scores=scores)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_a = {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches}
+    diff = max(float(np.abs(kp_named[n] - kp_dict[n]).max())
+               for n in kp_dict)
+    print(f"phase 26(a): PixSfM(\"default\").run_ka on phase 5's scene "
+          f"{wall:.2f} s, launches {launches_a} (phase 5: {launches_dict}); "
+          f"max |kp(by name) - kp(phase 5)| = {diff:.2e} px (limit "
+          f"{DEFAULT_KP_ATOL} px)")
+    if not diff <= DEFAULT_KP_ATOL or launches_a != launches_dict:
+        raise SystemExit("PixSfM(\"default\") and the default dict config "
+                         "disagree")
+    del sfm
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_name:
+        tmp = Path(tmp_name)
+        (tmp / "images").mkdir()
+        for name, img in images.items():
+            PIL.Image.fromarray(img).save(tmp / "images" / name)
+        kp32 = {n: v.astype(np.float32) for n, v in kp0.items()}
+        H, W = next(iter(images.values())).shape[:2]
+        write_database(np, tmp / "db.db", kp32, matches, W=W, H=H)
+        interpolate_cuda.launches = 0
+        cg_cuda.launches = 0
+        t0 = time.perf_counter()
+        refine_colmap.main(["keypoint_adjuster", "--database_path",
+                            str(tmp / "db.db"), "--output_path",
+                            str(tmp / "db_out.db"), "--image_dir",
+                            str(tmp / "images"), "--config_path", "default"])
+        wall_db = time.perf_counter() - t0
+        launches_db = {"K1": interpolate_cuda.launches,
+                       "K2": cg_cuda.launches}
+        kp_db = read_keypoints_from_db(tmp / "db_out.db")
+    diff_db = max(float(np.abs(kp_db[n] - kp_db_ref[n]).max())
+                  for n in kp_db_ref)
+    print(f"phase 26(a): keypoint_adjuster --config_path default on phase "
+          f"13's database {wall_db:.2f} s, launches {launches_db}; max "
+          f"|kp(database) - kp(run_ka)| = {diff_db:.2e} px (limit "
+          f"{DB_KP_ATOL} px)")
+    if not diff_db <= DB_KP_ATOL or min(launches_db.values()) <= 0:
+        raise SystemExit("keypoint_adjuster --config_path default disagrees "
+                         "with run_ka")
+
+    # (b) the patch API on the card
+    tols = {torch.float32: 2e-5, torch.bfloat16: 5e-3}
+    gen = torch.Generator(device=dev).manual_seed(26)
+    figures, launches_b = {}, {}
+
+    def held(name, out, ref, plain, rows, H, W, C, row_base, r, c, l2,
+             api_call, atol=None):
+        """The call's outputs against the plain version's (``atol``, else
+        1e-4 of each array's largest entry: NCC); K1 timed on the call's
+        launch inputs, the whole call, the plain version."""
+        torch.cuda.synchronize()
+        if atol is None:
+            err = max(float((a - b).abs().max()) / float(b.abs().max())
+                      for a, b in zip(out, ref))
+            limit, what = 1e-4, "of the largest entry"
+        else:
+            err, limit, what = _max_err(out, ref), atol, "atol"
+        if not err <= limit or not all(bool(torch.isfinite(o).all())
+                                       for o in out):
+            raise SystemExit(f"phase 26(b): {name} disagrees with its plain "
+                             f"version: {err} ({what} {limit})")
+        ms = _time_ms(lambda: interpolate_cuda.interpolate_rows(
+            rows, H, W, C, row_base, r, c, l2))
+        api_ms = _time_ms(api_call)
+        bound_ms, bound_by, bytes_ = _k1_bound(
+            torch, H, W, C, row_base, r, c, l2,
+            elem_bytes=rows.element_size())
+        took = interpolate_cuda.kernel_variant(rows)
+        plain_ms = _time_ms(plain, reps=2, warmup=1)
+        figures[name] = dict(max_abs_err=err, ms=ms, api_ms=api_ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, variant=took)
+        print(f"phase 26(b): {name}: max |call - plain| = {err:.3e} "
+              f"({what} {limit:.1e}), {took} variant; K1 {ms:.4f} ms, the "
+              f"call {api_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bytes_ / 1e6:.2f} MB)")
+
+    def launched(name, fn):
+        before = interpolate_cuda.launches
+        out = fn()
+        torch.cuda.synchronize()
+        launches_b[name] = interpolate_cuda.launches - before
+        return out
+
+    # 1024 bf16 16x16x128 patches, one query each
+    N, ps, C = 1024, 16, 128
+    patches = torch.randn((N, ps, ps, C), generator=gen, device=dev).to(
+        torch.bfloat16)
+    r = torch.rand(N, generator=gen, device=dev) * (ps + 2.0) - 1.5
+    c = torch.rand(N, generator=gen, device=dev) * (ps + 2.0) - 1.5
+    interpolate_cuda.launches = 0
+    out = launched("bicubic_window_eval",
+                   lambda: api.bicubic_window_eval(patches, r, c))
+    rows = patches.reshape(N * ps, ps, C)
+    rb = torch.arange(N, dtype=torch.int32, device=dev) * ps
+
+    def plain_patches():
+        return interpolate_cuda.interpolate_rows_plain(rows, ps, ps, C, rb,
+                                                       r, c, False)
+
+    held("bicubic_window_eval", out, plain_patches(), plain_patches, rows,
+         ps, ps, C, rb, r, c, False,
+         lambda: api.bicubic_window_eval(patches, r, c),
+         atol=tols[torch.bfloat16])
+    del patches, rows, out
+
+    # 4096 queries on one 1200x1600x128 bf16 map (a dense query map, 21(c))
+    Hm, Wm, n = 1200, 1600, 4096
+    fmap = torch.randn((Hm, Wm, C), generator=gen, device=dev).to(
+        torch.bfloat16)
+    r = torch.rand(n, generator=gen, device=dev) * (Hm + 2.0) - 1.5
+    c = torch.rand(n, generator=gen, device=dev) * (Wm + 2.0) - 1.5
+    conf = api.InterpolationConfig()
+    out = launched("interpolate_with_grad",
+                   lambda: api.interpolate_with_grad(fmap, r, c, conf))
+    rb = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    def plain_map(lo, hi):
+        return interpolate_cuda.interpolate_rows_plain(
+            fmap, Hm, Wm, C, rb[lo:hi], r[lo:hi], c[lo:hi], True)
+
+    def plain_whole():
+        return _chunked_plain(torch, plain_map, n)
+
+    held("interpolate_with_grad", out, plain_whole(), plain_whole, fmap, Hm,
+         Wm, C, rb, r, c, True,
+         lambda: api.interpolate_with_grad(fmap, r, c, conf),
+         atol=tols[torch.bfloat16])
+    # BILINEAR reads the same map in plain PyTorch: no launch
+    bil = launched("interpolate_with_grad BILINEAR",
+                   lambda: api.interpolate_with_grad(
+                       fmap, r[:256], c[:256],
+                       api.InterpolationConfig(mode="BILINEAR")))
+    if not all(bool(torch.isfinite(o).all()) for o in bil):
+        raise SystemExit("phase 26(b): non-finite BILINEAR reads")
+    del fmap, out, bil
+
+    # 2x2 nodes with NCC on a 3-channel float32 image of phase 5's scene
+    image = torch.from_numpy(next(iter(images.values()))).to(
+        device=dev, dtype=torch.float32) / 255.0
+    Hi, Wi = image.shape[:2]
+    nodes = [[-0.5, -0.5], [0.5, -0.5], [-0.5, 0.5], [0.5, 0.5]]
+    conf = api.InterpolationConfig(l2_normalize=False, ncc_normalize=True,
+                                   nodes=nodes)
+    r = 8.0 + torch.rand(n, generator=gen, device=dev) * (Hi - 16.0)
+    c = 8.0 + torch.rand(n, generator=gen, device=dev) * (Wi - 16.0)
+    out = launched("interpolate_nodes_with_grad",
+                   lambda: api.interpolate_nodes_with_grad(image, r, c,
+                                                           conf))
+    rb = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    def plain_nodes(lo, hi):
+        return api.interpolate_node_rows_with_grad(
+            image, Hi, Wi, 3, rb[lo:hi], r[lo:hi], c[lo:hi], conf)
+
+    def plain_windows():
+        return _chunked_plain(torch, plain_nodes, n)
+
+    # NCC divides the reads' rounding by each channel's spread over the
+    # nodes: within 1e-4 of each array's largest entry, as the on-card
+    # tests hold it
+    held("interpolate_nodes_with_grad", out, plain_windows(), plain_windows,
+         image, Hi, Wi, 3, *api.node_queries(rb, r, c, nodes), False,
+         lambda: api.interpolate_nodes_with_grad(image, r, c, conf))
+    del image, out
+    expect = {"bicubic_window_eval": 1, "interpolate_with_grad": 1,
+              "interpolate_with_grad BILINEAR": 0,
+              "interpolate_nodes_with_grad": 1}
+    print(f"phase 26(b): K1 launches by call {launches_b}")
+    if launches_b != expect:
+        raise SystemExit(f"phase 26(b): K1 launches {launches_b}, expected "
+                         f"{expect}")
+
+    # (c) K1's L2 at 1-3 channels against float64
+    for dtype in (torch.float32, torch.bfloat16):
+        for C in (1, 2, 3):
+            for seed in (20, 21, 22):
+                e = k1_l2_float64_errors(torch, interpolate_cuda, C, dtype,
+                                         seed)
+                limit = L2_F64_FACTOR * e["plain f32"]
+                print(f"phase 26(c): K1 L2 C={C} {str(dtype)[6:]} N(0, 1) "
+                      f"maps seed {seed} (min ||f|| {e['min_norm']:.2e}): "
+                      f"max |. - float64| narrow {e['narrow']:.3e}, general "
+                      f"{e['general']:.3e}, plain f32 {e['plain f32']:.3e} "
+                      f"(limit for the narrow variant {L2_F64_FACTOR} x "
+                      f"plain f32 = {limit:.3e})")
+                if not e["narrow"] <= limit:
+                    raise SystemExit(
+                        f"K1's L2 at C={C} ({dtype}, seed {seed}) lies "
+                        f"farther from float64 than {L2_F64_FACTOR} x the "
+                        f"plain float32 version")
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
+    return {"run_ka": launches_a, "keypoint_adjuster": launches_db}, \
+        launches_b, figures
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", default=None,
@@ -4378,6 +4678,7 @@ def main() -> int:
     if min(launches.values()) <= 0:
         raise SystemExit(f"a kernel did not launch on the main path: "
                          f"{launches}")
+    kp_dict_config = {k: v.copy() for k, v in kp1.items()}   # phase 26(a)
 
     # -- phase 6: where the time goes (a second run, not counted) --------------
     from pixsfm_tpu_torch.extract import features_from_graph
@@ -5083,6 +5384,13 @@ def main() -> int:
         (reference, views_t, kps_t, matches_t, scores_t, truth_t, err_raw,
          err_tri, n_tri_pts))
 
+    # -- phase 26: the default preset by name, the patch API, K1's L2 ------
+    launches_dp_by_run, launches_api, k1_api = public_api_phase(
+        torch, np, PixSfM, interpolate_cuda, cg_cuda,
+        (images, kp0, matches, scores), (kp_dict_config, launches), kp_ref)
+    launches_dp = {k: sum(v[k] for v in launches_dp_by_run.values())
+                   for k in ("K1", "K2")}
+
     # -- report ----------------------------------------------------------------
     # K1 runs on both paths at different shapes: one entry per path, each
     # with that path's launches and the figures measured at its shape
@@ -5093,7 +5401,8 @@ def main() -> int:
              "eth3d_dense_query": {"K1": launches_e3_dense},
              "vggnet": launches_vgg, "eth3d_loftr": launches_lf,
              "interp_options": launches_op, "sharded": launches_sh,
-             "features_rest": launches_fr}
+             "features_rest": launches_fr, "default_preset": launches_dp,
+             "public_api": {"K1": sum(launches_api.values())}}
     both = {k: sum(n.get(k, 0) for n in paths.values())
             for k in ("K1", "K2", "K3a", "K3b", "K3c")}
     print(f"launches on the main paths: {paths}")
@@ -5185,6 +5494,27 @@ def main() -> int:
              launches_by_run={k: v["K1"]
                               for k, v in launches_fr_by_run.items()},
              library_ms=None, **k1_fr),
+        dict(name="bicubic_window_interp_l2", path="default_preset",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=launches_dp["K1"],
+             launches_by_run={k: v["K1"]
+                              for k, v in launches_dp_by_run.items()},
+             library_ms=None,
+             timed_at="the KA shape of phase 2 (C = 128)", **k1),
+        dict(name="bicubic_window_interp_l2", path="public_api",
+             route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",
+             replaces="pixsfm_tpu/ops/interpolate_pallas.py:186",
+             launches=sum(launches_api.values()),
+             launches_by_run=launches_api, library_ms=None,
+             by_call=k1_api,
+             timed_at="bicubic_window_eval: 1024 queries on 1024 bf16 "
+                      "16x16x128 patches",
+             **{k: k1_api["bicubic_window_eval"][k]
+                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "variant")}),
         *(dict(name="bicubic_window_interp_l2", path="vggnet", channels=C,
                route="cuda",
                source="pixsfm_tpu_torch/kernels/csrc/interpolate.cu",

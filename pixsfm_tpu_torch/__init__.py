@@ -30,6 +30,13 @@ logger.addHandler(handler)
 logger.propagate = False
 
 
+def set_debug():
+    """Raise the package logger and its handler to DEBUG (reference:
+    pixsfm/__init__.py:28-30)."""
+    logger.setLevel(logging.DEBUG)
+    handler.setLevel(logging.DEBUG)
+
+
 def resolve_device(device=None) -> torch.device:
     """``None``/``"auto"`` mean ``cuda``. A CUDA device without a GPU raises:
     the port never drops to the CPU on its own."""
@@ -42,3 +49,4 @@ def resolve_device(device=None) -> torch.device:
 
 
 from .config import DictConfig, OmegaConf, load_config, merge  # noqa: E402,F401
+from . import base  # noqa: E402,F401

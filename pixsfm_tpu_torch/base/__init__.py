@@ -1,5 +1,27 @@
 """Numeric core of the port: geometry, camera models, projection,
-interpolation, robust losses, match graph."""
+interpolation, robust losses, match graph (the names ``pixsfm_tpu.base``
+exports, and its default config subtrees)."""
+
+from .geometry import (  # noqa: F401
+    quat_normalize, quat_mul, quat_conj, quat_rotate, quat_to_rotmat,
+    rotmat_to_quat, exp_quat, log_quat, apply_pose, invert_pose, pose_update,
+    angle_between_quats,
+)
+from .cameras import (  # noqa: F401
+    CAMERA_MODELS, Camera, CameraModelSpec, img_from_cam, cam_from_img,
+)
+from .projection import (  # noqa: F401
+    world_to_pixel, pixel_to_world, calculate_depth, point_in_front,
+)
+from .interpolation import (  # noqa: F401
+    InterpolationConfig, interpolate, interpolate_with_grad,
+    interpolate_nodes, interpolate_nodes_with_grad, ncc_normalize,
+)
+from .losses import RobustLoss, make_loss  # noqa: F401
+from .graph import (  # noqa: F401
+    Graph, compute_track_labels, compute_score_labels, compute_root_labels,
+    count_track_edges, count_edges_AB,
+)
 
 # Default config subtrees (reference: pixsfm/base/main.py:1-22)
 interpolation_default_conf = {

@@ -238,6 +238,11 @@ class Camera:
     def model_id(self) -> int:
         return CAMERA_MODELS[self.model].model_id
 
+    @property
+    def mean_focal_length(self) -> float:
+        idxs = CAMERA_MODELS[self.model].focal_idxs
+        return float(np.mean([self.params[i] for i in idxs]))
+
     def img_from_cam(self, uv) -> np.ndarray:
         return img_from_cam(self.model, torch.as_tensor(self.params),
                             torch.as_tensor(np.asarray(uv, np.float64))

@@ -17,9 +17,11 @@ import numpy as np
 import torch
 
 __all__ = [
-    "quat_normalize", "quat_mul", "quat_rotate", "quat_to_rotmat",
-    "rotmat_to_quat", "exp_quat", "apply_pose", "quat_to_rotmat_np",
-    "rotmat_to_quat_np", "exp_quat_np", "qvec_from_numpy",
+    "quat_normalize", "quat_mul", "quat_conj", "quat_rotate",
+    "quat_to_rotmat", "rotmat_to_quat", "exp_quat", "log_quat",
+    "apply_pose", "invert_pose", "pose_update", "angle_between_quats",
+    "quat_to_rotmat_np", "rotmat_to_quat_np", "exp_quat_np",
+    "qvec_from_numpy",
 ]
 
 
@@ -37,6 +39,10 @@ def quat_mul(q1, q2):
         w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
         w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
     ], dim=-1)
+
+
+def quat_conj(q):
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
 
 
 def quat_rotate(q, v):
@@ -105,9 +111,39 @@ def exp_quat(phi):
     return torch.cat([w, k * phi], dim=-1)
 
 
+def log_quat(q):
+    """Unit quaternion -> so(3) tangent (..., 3)."""
+    q = quat_normalize(q)
+    q = torch.where(q[..., :1] < 0, -q, q)
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    vn = torch.linalg.vector_norm(q[..., 1:], dim=-1)
+    theta = 2.0 * torch.atan2(vn, w)
+    scale = torch.where(vn < 1e-9, torch.full_like(vn, 2.0),
+                        theta / torch.clamp(vn, min=1e-12))
+    return scale[..., None] * q[..., 1:]
+
+
 def apply_pose(qvec, tvec, X):
     """World point -> camera frame: R(q) X + t."""
     return quat_rotate(qvec, X) + tvec
+
+
+def invert_pose(qvec, tvec):
+    """The camera-to-world pose ``(q^-1, -R(q^-1) t)``."""
+    qinv = quat_conj(quat_normalize(qvec))
+    return qinv, -quat_rotate(qinv, tvec)
+
+
+def pose_update(qvec, tvec, delta):
+    """Apply 6-DoF tangent delta = [dphi(3), dt(3)]: q'=exp(dphi)q, t'=t+dt."""
+    q_new = quat_normalize(quat_mul(exp_quat(delta[..., :3]), qvec))
+    return q_new, tvec + delta[..., 3:]
+
+
+def angle_between_quats(q1, q2):
+    """Rotation angle between two orientations, in radians."""
+    d = torch.abs(torch.sum(quat_normalize(q1) * quat_normalize(q2), dim=-1))
+    return 2.0 * torch.arccos(torch.clamp(d, -1.0, 1.0))
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ __all__ = [
     "Graph", "compute_track_labels", "compute_score_labels",
     "compute_root_labels", "compute_track_labels_numpy",
     "compute_score_labels_numpy", "compute_root_labels_numpy",
+    "count_track_edges", "count_edges_AB",
 ]
 
 
@@ -62,6 +63,9 @@ class Graph:
             self.node_feature_idxs.append(int(feature_idx))
         return nid
 
+    def add_node(self, image_name: str, feature_idx: int) -> int:
+        return self.find_or_create_node(image_name, feature_idx)
+
     def register_matches(self, image_name1: str, image_name2: str,
                          matches: np.ndarray,
                          similarities: Optional[np.ndarray] = None) -> None:
@@ -95,6 +99,27 @@ class Graph:
         return (np.asarray(self.edges_src, dtype=np.int64),
                 np.asarray(self.edges_dst, dtype=np.int64),
                 np.asarray(self.edges_sim, dtype=np.float64))
+
+    def get_degrees(self) -> np.ndarray:
+        """Edges per node."""
+        deg = np.zeros(self.num_nodes, dtype=np.int64)
+        src, dst, _ = self.edges_array()
+        np.add.at(deg, src, 1)
+        np.add.at(deg, dst, 1)
+        return deg
+
+    def get_scores(self) -> np.ndarray:
+        """Summed edge similarities per node."""
+        scores = np.zeros(self.num_nodes)
+        src, dst, sim = self.edges_array()
+        np.add.at(scores, src, sim)
+        np.add.at(scores, dst, sim)
+        return scores
+
+    def get_edges(self) -> List[Tuple[int, int, float]]:
+        src, dst, sim = self.edges_array()
+        return list(zip(src.tolist(), dst.tolist(), sim.tolist()))
+
 
 def _uf_find(parent: np.ndarray, i: int) -> int:
     root = i
@@ -206,3 +231,27 @@ def compute_root_labels_numpy(graph: Graph, track_labels: np.ndarray,
             has_root[t] = True
             is_root[i] = True
     return is_root
+
+
+def count_track_edges(graph: Graph, track_labels: np.ndarray) -> np.ndarray:
+    """Intra-track edge count per track. Reference: graph.cc:283-302."""
+    n_tracks = int(track_labels.max()) + 1 if graph.num_nodes else 0
+    counts = np.zeros(n_tracks, dtype=np.int64)
+    src, dst, _ = graph.edges_array()
+    same = track_labels[src] == track_labels[dst]
+    np.add.at(counts, track_labels[src[same]], 1)
+    return counts
+
+
+def count_edges_AB(graph: Graph, track_labels: np.ndarray,
+                   is_root: np.ndarray) -> np.ndarray:
+    """Per-track (root-touching, non-root) intra-track edge counts
+    ``[n_tracks, 2]``. Reference: graph.cc:258-281."""
+    n_tracks = int(track_labels.max()) + 1 if graph.num_nodes else 0
+    counts = np.zeros((n_tracks, 2), dtype=np.int64)
+    src, dst, _ = graph.edges_array()
+    same = track_labels[src] == track_labels[dst]
+    root_edge = is_root[src] | is_root[dst]
+    np.add.at(counts[:, 0], track_labels[src[same & root_edge]], 1)
+    np.add.at(counts[:, 1], track_labels[src[same & ~root_edge]], 1)
+    return counts

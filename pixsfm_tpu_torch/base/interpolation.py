@@ -19,7 +19,7 @@ derivatives d/dr, d/dc, d/drdc (one channel each), what the JAX package's
 ``interpolate_residual_with_grad`` returns for them plus the cross
 derivative.
 
-Node windows (:func:`interpolate_nodes_with_grad`): every query is
+Node windows (:func:`interpolate_node_rows_with_grad`): every query is
 evaluated at ``config.nodes`` offsets ``(dx, dy)`` around it, and with
 ``ncc_normalize`` each channel is brought to mean 0 / std 1 across the
 nodes with the chain rule through the derivatives
@@ -37,8 +37,20 @@ read). :func:`interpolate_rows_with_grad` is the JAX package's node-aware
 ``interpolate_with_grad`` over a flat row view: the flattened ``[N,
 n_nodes * C]`` node window when ``n_nodes > 1`` (NCC across the nodes when
 configured), the single point otherwise (where NCC is ignored, as there);
-:func:`interpolate_nodes_with_grad` evaluates the node window for one node
-too (``interpolate_nodes``, the reference extraction's read).
+:func:`interpolate_node_rows_with_grad` evaluates the node window for one
+node too (``interpolate_nodes``, the reference extraction's read).
+
+The patch API of the JAX package (:func:`interpolate`,
+:func:`interpolate_with_grad`, :func:`interpolate_nodes`,
+:func:`interpolate_nodes_with_grad`, :func:`bicubic_window_eval`,
+:func:`inbounds_weight`) reads one ``[H, W, C]`` patch (or ``bicubic_window_eval``
+a stack of them) at queries ``r, c`` that are scalars (JAX's single query,
+outputs ``[D]``) or tensors of one shape ``[...]`` (what JAX users get with
+``vmap``, outputs ``[..., D]``). Patches of any storage dtype are read in
+float32, as there. BICUBIC / CERES_BICUBIC reads of a CUDA patch go through
+kernel K1 (``ops/interpolate_cuda``), one launch per call; the other modes,
+``cross=True`` (K1 computes no second derivative) and CPU patches take the
+plain row functions above.
 
 :func:`check_window_config` refuses the gradient-field modes on feature
 patches (``ValueError``): they read the cost patches of costmap BA.
@@ -57,9 +69,12 @@ __all__ = [
     "bicubic_window_eval_rows", "l2_normalize_with_grad",
     "bicubic_window_eval_rows_d2", "check_window_config",
     "bounds_violation", "gradient_field_eval", "ncc_normalize",
-    "ncc_normalize_with_grad", "node_queries", "interpolate_nodes_with_grad",
-    "GRADIENT_FIELD_MODES", "output_dim", "mode_eval_rows",
-    "point_eval_rows", "interpolate_rows_with_grad", "check_residual_config",
+    "ncc_normalize_with_grad", "node_queries",
+    "interpolate_node_rows_with_grad", "GRADIENT_FIELD_MODES", "output_dim",
+    "mode_eval_rows", "point_eval_rows", "interpolate_rows_with_grad",
+    "check_residual_config", "interpolate", "interpolate_with_grad",
+    "interpolate_nodes", "interpolate_nodes_with_grad", "bicubic_window_eval",
+    "inbounds_weight",
 ]
 
 # scalar-output modes, which ignore node windows and the L2 normalization
@@ -174,14 +189,18 @@ def _dense_taps(x, size: int, taps, tap_weights):
     return torch.einsum("...t,...ts->...s", tap_weights, onehot)
 
 
-def bicubic_window_eval_rows(rows, H: int, W: int, C: int, row_base, r, c):
+def bicubic_window_eval_rows(rows, H: int, W: int, C: int, row_base, r, c,
+                             dtype=torch.float32):
     """Window eval against a flat ``[total_rows, W, C]`` row view.
 
     ``row_base[n]`` is the first row of query n's patch (``patch_row * H``).
-    Returns ``(f, dfdr, dfdc)``, each ``[N, C]`` float32. Row taps are a
-    4-row gather clamped inside the patch; column taps are dense clamped
-    weights, so duplicated border taps accumulate (== Grid2D clamped reads).
+    Returns ``(f, dfdr, dfdc)``, each ``[N, C]`` in ``dtype``, the type the
+    queries and the window are read and summed in (float32; float64 gives a
+    reference for the float32 reads). Row taps are a 4-row gather clamped
+    inside the patch; column taps are dense clamped weights, so duplicated
+    border taps accumulate (== Grid2D clamped reads).
     """
+    r, c = r.to(dtype), c.to(dtype)
     taps = torch.arange(-1, 3, device=r.device)
     fr = torch.floor(r)
     wr, dwr = catmull_rom_weights(r - fr)                  # [N, 4]
@@ -190,7 +209,7 @@ def bicubic_window_eval_rows(rows, H: int, W: int, C: int, row_base, r, c):
     dwc = _dense_taps(c, W, taps, dwc4)
     ri = torch.clamp(fr.to(torch.int64)[:, None] + taps, 0, H - 1)
     idx = row_base.to(torch.int64)[:, None] + ri           # [N, 4]
-    win = rows[idx].to(torch.float32)                      # [N, 4, W, C]
+    win = rows[idx].to(dtype)                              # [N, 4, W, C]
     wcs = torch.stack([wc, dwc], dim=1)                    # [N, 2, W]
     mix = torch.einsum("nawc,nsw->nsac", win, wcs)         # [N, 2, 4, C]
     colmix, dcolmix = mix[:, 0], mix[:, 1]
@@ -367,8 +386,8 @@ def point_eval_rows(rows, H: int, W: int, C: int, row_base, r, c,
     return f, dfdr, dfdc
 
 
-def interpolate_nodes_with_grad(rows, H: int, W: int, C: int, row_base, r,
-                                c, config: InterpolationConfig):
+def interpolate_node_rows_with_grad(rows, H: int, W: int, C: int, row_base,
+                                    r, c, config: InterpolationConfig):
     """Node windows ``(f, dfdr, dfdc)``, each ``[N, n_nodes, D]`` float32,
     at patch coordinates ``(r, c)`` of the flat row view ``rows [NR, W,
     C]`` (``row_base`` as for :func:`bicubic_window_eval_rows`): every node
@@ -396,8 +415,8 @@ def interpolate_rows_with_grad(rows, H: int, W: int, C: int, row_base, r, c,
     Plain PyTorch on any device; ``ops/interpolate_cuda.interpolate`` routes
     BICUBIC reads on the card through kernel K1."""
     if _node_path(config):
-        out = interpolate_nodes_with_grad(rows, H, W, C, row_base, r, c,
-                                          config)
+        out = interpolate_node_rows_with_grad(rows, H, W, C, row_base, r, c,
+                                              config)
         return tuple(a.reshape(a.shape[0], -1) for a in out)
     return point_eval_rows(rows, H, W, C, row_base, r, c, config)
 
@@ -411,6 +430,150 @@ def bounds_violation(r, c, H: int, W: int):
     zero = torch.zeros_like(r)
     return (torch.maximum(r - (H - 1.0), zero) + torch.maximum(-r, zero)
             + torch.maximum(c - (W - 1.0), zero) + torch.maximum(-c, zero))
+
+
+# ---------------------------------------------------------------------------
+# the patch API of the JAX package (one patch, scalar or batched queries)
+# ---------------------------------------------------------------------------
+
+def inbounds_weight(r, c, H: int, W: int):
+    """1.0 inside the patch extent [0, H-1] x [0, W-1], else 0.0 (float32,
+    the shape of ``r``)."""
+    inside = (r >= 0.0) & (r <= H - 1.0) & (c >= 0.0) & (c <= W - 1.0)
+    return torch.as_tensor(inside).to(torch.float32)
+
+
+def _readable(patch):
+    """``patch`` in a storage type the reads take: float32 and bfloat16 as
+    they are, anything else in float32 (the JAX package reads every type
+    in float32)."""
+    if patch.dtype in (torch.float32, torch.bfloat16):
+        return patch.contiguous()
+    return patch.to(torch.float32).contiguous()
+
+
+def _queries(patch, r, c):
+    """Flat float32 queries ``r, c [n]`` on the patch's device, the shape
+    they broadcast to, and a zero ``row_base [n]``."""
+    r = torch.as_tensor(r, dtype=torch.float32, device=patch.device)
+    c = torch.as_tensor(c, dtype=torch.float32, device=patch.device)
+    r, c = torch.broadcast_tensors(r, c)
+    shape = tuple(r.shape)
+    r, c = r.reshape(-1), c.reshape(-1)
+    return r, c, torch.zeros_like(r, dtype=torch.int32), shape
+
+
+def _on_k1(mode: str) -> bool:
+    return mode in ("BICUBIC", "CERES_BICUBIC")
+
+
+def _point_with_cross(patch, row_base, r, c, config: InterpolationConfig):
+    """``(f, dfdr, dfdc, dfdrc)``, each ``[n, D]``, of one point per query,
+    L2-normalized with the chain rule on the first three where the config
+    asks (the JAX package does not chain-rule dfdrc), plain PyTorch."""
+    H, W, C = patch.shape
+    if config.mode in _GRADIENT_FIELDS:
+        return gradient_field_eval(patch[None], row_base, r, c, config.mode)
+    if _on_k1(config.mode):
+        f, dfdr, dfdc, _, dfdrc, _ = bicubic_window_eval_rows_d2(
+            patch, H, W, C, row_base, r, c)
+    else:
+        f, dfdr, dfdc = mode_eval_rows(patch, H, W, C, row_base, r, c,
+                                       config.mode)
+        dfdrc = torch.zeros_like(f)
+    if config.l2_normalize and config.mode not in GRADIENT_FIELD_MODES:
+        f, (dfdr, dfdc) = l2_normalize_with_grad(f, (dfdr, dfdc))
+    return f, dfdr, dfdc, dfdrc
+
+
+def _point_reads(patch, row_base, r, c, config: InterpolationConfig):
+    """``(f, dfdr, dfdc)``, each ``[n, D]``, of one point per query: K1
+    for BICUBIC (its plain version on a CPU patch), else plain."""
+    if _on_k1(config.mode):
+        from ..ops import interpolate_cuda
+        H, W, C = patch.shape
+        return interpolate_cuda.interpolate_rows(patch, H, W, C, row_base,
+                                                 r, c, config.l2_normalize)
+    return _point_with_cross(patch, row_base, r, c, config)[:3]
+
+
+def _node_reads(patch, row_base, r, c, config: InterpolationConfig):
+    """``(f, dfdr, dfdc)``, each ``[n, n_nodes, D]``: every node of every
+    query in one read (one K1 launch for BICUBIC on the card), then NCC
+    across the nodes when configured."""
+    n, n_nodes = r.shape[0], config.n_nodes
+    if _on_k1(config.mode):
+        from ..ops import interpolate_cuda
+        H, W, C = patch.shape
+        return interpolate_cuda.interpolate_nodes(patch, H, W, C, row_base,
+                                                  r, c, config)
+    out = _point_reads(patch, *node_queries(row_base, r, c, config.nodes),
+                       config)
+    f, dfdr, dfdc = (a.reshape(n, n_nodes, a.shape[-1]) for a in out)
+    if config.ncc_normalize:
+        f, (dfdr, dfdc) = ncc_normalize_with_grad(f, (dfdr, dfdc))
+    return f, dfdr, dfdc
+
+
+def interpolate_nodes_with_grad(patch, r, c, config: InterpolationConfig):
+    """Node windows of one ``[H, W, C]`` patch: ``(f, dfdr, dfdc)``, each
+    ``[..., n_nodes, D]`` float32, every node ``(dx, dy)`` read at ``(r +
+    dy, c + dx)`` (interpolation.h:708-717), NCC-normalized across the
+    nodes with the chain rule when configured (the JAX package's
+    ``interpolate_nodes_with_grad``)."""
+    patch = _readable(patch)
+    r, c, row_base, shape = _queries(patch, r, c)
+    out = _node_reads(patch, row_base, r, c, config)
+    return tuple(a.reshape(*shape, *a.shape[1:]) for a in out)
+
+
+def interpolate_nodes(patch, r, c, config: InterpolationConfig):
+    """The values of :func:`interpolate_nodes_with_grad`, ``[...,
+    n_nodes, D]``."""
+    return interpolate_nodes_with_grad(patch, r, c, config)[0]
+
+
+def interpolate_with_grad(patch, r, c, config=None, cross: bool = False):
+    """``(f, dfdr, dfdc)`` (and ``dfdrc`` with ``cross``), each ``[...,
+    D]`` float32, with the normalization chain rule: the flattened
+    node-major window ``D = n_nodes * C`` (NCC chain-ruled) when the config
+    has several nodes and a feature mode, one point otherwise
+    (``interpolate_with_grad`` of the JAX package). ``cross`` reads one
+    point and returns the mixed derivative, which L2 leaves alone, as
+    there; the gradient-field modes ignore nodes and L2."""
+    config = config or InterpolationConfig()
+    patch = _readable(patch)
+    r, c, row_base, shape = _queries(patch, r, c)
+    if cross:
+        out = _point_with_cross(patch, row_base, r, c, config)
+    elif _node_path(config):
+        out = (a.reshape(a.shape[0], -1)
+               for a in _node_reads(patch, row_base, r, c, config))
+    else:
+        out = _point_reads(patch, row_base, r, c, config)
+    return tuple(a.reshape(*shape, a.shape[-1]) for a in out)
+
+
+def interpolate(patch, r, c, config=None):
+    """The value of :func:`interpolate_with_grad`, ``[..., D]``: the
+    (optionally normalized) descriptor at ``(r, c)``, or the flattened
+    node window (``interpolate`` of the JAX package)."""
+    return interpolate_with_grad(patch, r, c, config)[0]
+
+
+def bicubic_window_eval(patches, r, c):
+    """Bicubic reads with derivatives of a stack of patches: ``patches [N,
+    H, W, C]`` (any storage dtype), query n on patch n at ``(r[n], c[n])``
+    -> ``(f, dfdr, dfdc)``, each ``[N, C]`` float32, no normalization (the
+    JAX package's ``bicubic_window_eval``). One K1 launch on the card."""
+    from ..ops import interpolate_cuda
+    N, H, W, C = patches.shape
+    rows = _readable(patches).reshape(N * H, W, C)
+    row_base = torch.arange(N, dtype=torch.int32, device=rows.device) * H
+    r = torch.as_tensor(r, dtype=torch.float32, device=rows.device)
+    c = torch.as_tensor(c, dtype=torch.float32, device=rows.device)
+    return interpolate_cuda.interpolate_rows(rows, H, W, C, row_base, r, c,
+                                             False)
 
 
 # ---------------------------------------------------------------------------

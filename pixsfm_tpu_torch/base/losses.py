@@ -11,7 +11,7 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["RobustLoss", "make_loss"]
+__all__ = ["robust_loss", "loss_weight", "RobustLoss", "make_loss"]
 
 
 def _rho(name: str, s, params: Sequence[float]):
@@ -124,3 +124,13 @@ def make_loss(conf=None, scale: float = 1.0) -> RobustLoss:
     name = conf.get("name", "trivial") if hasattr(conf, "get") else conf["name"]
     params = conf.get("params", []) if hasattr(conf, "get") else conf["params"]
     return RobustLoss(name, list(params or []), scale=scale)
+
+
+def robust_loss(name, s, params=()):
+    """rho(s) of the loss ``name`` (unscaled)."""
+    return _rho(name, s, params)
+
+
+def loss_weight(name, s, params=()):
+    """rho'(s) of the loss ``name``, the IRLS weight (unscaled)."""
+    return _drho(name, s, params)

@@ -17,7 +17,8 @@ from .geometry import apply_pose, quat_normalize, quat_rotate, \
     quat_to_rotmat_np
 
 __all__ = ["project_with_jac", "world_to_pixel", "calculate_depth",
-           "pixel_to_world", "project_np", "reproj_errors_np"]
+           "point_in_front", "pixel_to_world", "project_np",
+           "reproj_errors_np"]
 
 
 def project_with_jac(model: str, cam_params, qvec, tvec, X, z_eps=1e-8):
@@ -75,6 +76,11 @@ def world_to_pixel(model: str, cam_params, qvec, tvec, X):
 def calculate_depth(qvec, tvec, X):
     """Depth of world point(s) in the camera frame (projection.h:20-38)."""
     return apply_pose(qvec, tvec, X)[..., 2]
+
+
+def point_in_front(qvec, tvec, X, eps=1e-9):
+    """Whether world point(s) lie in front of the camera (depth > eps)."""
+    return calculate_depth(qvec, tvec, X) > eps
 
 
 def pixel_to_world(model: str, cam_params, qvec, tvec, xy, depth):

@@ -52,6 +52,13 @@ class Reference:
     costs: Optional[np.ndarray] = None    # [T] distance to robust mean
     track_descriptors: Optional[np.ndarray] = None  # [T, C]
 
+    @property
+    def channels(self) -> int:
+        return self.descriptor.shape[-1]
+
+    def has_observations(self) -> bool:
+        return self.observations is not None
+
 
 def robust_mean_irls(descriptors, valid, loss: RobustLoss, iters: int,
                      l2_normalize: bool = True):

@@ -21,11 +21,21 @@ import copy
 from typing import Any, Dict, List, Optional, Union
 
 __all__ = [
+    "MISSING",
     "DictConfig",
     "OmegaConf",
     "load_config",
     "merge",
 ]
+
+
+class _Missing:
+    def __repr__(self):
+        return "???"
+
+
+# OmegaConf's marker of a value the user must set
+MISSING = _Missing()
 
 
 def _parse_value(text: str) -> Any:
@@ -225,10 +235,26 @@ class OmegaConf:
     """API shim matching the subset of omegaconf.OmegaConf pixsfm uses."""
 
     @staticmethod
+    def create(data: Union[Dict, str, None] = None) -> DictConfig:
+        """A config from a dict, YAML text or another config (copied)."""
+        if data is None:
+            return DictConfig()
+        if isinstance(data, str):
+            import yaml
+            return DictConfig(yaml.safe_load(data) or {})
+        if isinstance(data, DictConfig):
+            return data.copy()
+        return DictConfig(copy.deepcopy(data))
+
+    @staticmethod
     def load(path) -> DictConfig:
         import yaml
         with open(path, "r") as f:
             return DictConfig(yaml.safe_load(f) or {})
+
+    @staticmethod
+    def merge(*configs) -> DictConfig:
+        return merge(*configs)
 
     @staticmethod
     def from_dotlist(dotlist: List[str]) -> DictConfig:
@@ -245,6 +271,29 @@ class OmegaConf:
                 node = node._data[part]
             node[parts[-1]] = _parse_value(value)
         return conf
+
+    @staticmethod
+    def from_cli(argv: Optional[List[str]] = None) -> DictConfig:
+        """The ``key=value`` entries of ``argv`` (default ``sys.argv[1:]``)."""
+        if argv is None:
+            import sys
+            argv = [a for a in sys.argv[1:] if "=" in a]
+        return OmegaConf.from_dotlist(argv)
+
+    @staticmethod
+    def to_container(conf, resolve: bool = True):
+        if isinstance(conf, DictConfig):
+            return conf.to_dict(resolve=resolve)
+        return conf
+
+    @staticmethod
+    def set_struct(conf, flag: bool):  # accepted for API parity; no-op
+        return None
+
+    @staticmethod
+    def set_readonly(conf, flag: bool):  # accepted for API parity; no-op
+        return None
+
 
 def load_config(name_or_path, extra: Optional[Union[Dict, DictConfig]] = None,
                 cli: Optional[List[str]] = None) -> DictConfig:

@@ -34,7 +34,22 @@ from .featuremaps import (DeviceFeatureMap, FeatureMap, kDensePatchId,
                           storage_dtype, window_cut)
 from .models import get_model
 
-__all__ = ["FeatureExtractor"]
+__all__ = ["FeatureExtractor", "extract_patches_numpy"]
+
+# the ``resize`` option's PIL filters (PIL.Image.Resampling's values)
+RESIZE_FILTERS = {"LANCZOS": 1, "BILINEAR": 2, "BICUBIC": 3, "NEAREST": 0}
+
+
+def extract_patches_numpy(featuremap: np.ndarray, corners: np.ndarray,
+                          ps: int) -> np.ndarray:
+    """Window-gather ``[H, W, C]`` -> ``[N, ps, ps, C]`` at the top-left
+    ``corners [N, 2]`` ``(x, y)`` (reference:
+    features/extract_patches.py:14-44)."""
+    out = np.empty((len(corners), ps, ps, featuremap.shape[-1]),
+                   featuremap.dtype)
+    for i, (cx, cy) in enumerate(corners):
+        out[i] = featuremap[cy:cy + ps, cx:cx + ps]
+    return out
 
 
 class FeatureExtractor:
@@ -79,6 +94,10 @@ class FeatureExtractor:
     def channels_per_level(self) -> List[int]:
         return list(self.model.output_dims) * len(self.conf.pyr_scales)
 
+    @property
+    def num_levels(self) -> int:
+        return len(self.channels_per_level)
+
     # -- image loading ------------------------------------------------------
     @staticmethod
     def _size(image):
@@ -100,7 +119,7 @@ class FeatureExtractor:
         if isinstance(image, np.ndarray):
             image = PIL.Image.fromarray(image)
         return image.resize((w_new, h_new),
-                            getattr(PIL.Image, str(self.conf.resize)))
+                            RESIZE_FILTERS[str(self.conf.resize)])
 
     def load_image(self, image_path):
         """Open + decode an image with PIL (draft decoding with
@@ -145,6 +164,27 @@ class FeatureExtractor:
                         fm[i], img_size, keypoints_list[i], ids_list[i],
                         as_dict=as_dict))
         return out
+
+    # -- memory estimation (reference extractor.py:242-264) -----------------
+    def estimate_req_memory(self, image_path, num_kps: int) -> float:
+        """Bytes of the stored features of one image: its ``num_kps``
+        windows when sparse, else its dense maps at every level (NaN when
+        the model states no scales)."""
+        n_bytes = {"bfloat16": 2, "float16": 2, "float32": 4,
+                   "float64": 8}[self.storage_dtype]
+        if self.conf.sparse:
+            return (self.conf.patch_size ** 2 * sum(self.channels_per_level)
+                    * num_kps * n_bytes)
+        if self.model.scales is None:
+            return float("nan")
+        import PIL.Image
+        image = PIL.Image.open(image_path)
+        req = 0.0
+        for pyr_scale in self.conf.pyr_scales:
+            w, h = self.scaled_image_size(image, pyr_scale)
+            for i, c in enumerate(self.model.output_dims):
+                req += w * h / self.model.scales[i] ** 2 * c * n_bytes
+        return req
 
     # -- main entry ---------------------------------------------------------
     @torch.no_grad()

@@ -89,7 +89,14 @@
 //   photometric shape the kernel runs within 3x its byte bound, so the
 //   windows are not staged in shared memory. The [32, C] outputs of a warp
 //   go through shared memory and leave as C contiguous 128-byte stores per
-//   output.
+//   output. With L2 on, a thread computes its weights, sums and chain rule
+//   in double and rounds each output once: at 1-3 channels ||f|| comes near
+//   0 on zero-crossing maps, the chain rule divides the rounding of f by
+//   ||f||^2, and float32 sums in any order land up to 1e-2 from the float64
+//   result (scripts/k1_l2_conditioning.py); summed in double, the kernel
+//   gives the float64 result rounded to float32. L2 off (every path that
+//   reads these widths) keeps float32 sums; no preset runs L2 at 1-3
+//   channels.
 //
 // - general: interp_kernel_general<T, K>, everything else the function
 //   takes: 9 <= C <= 512 other than 64, 128, 256 and 512, and misaligned
@@ -105,6 +112,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "device_info.h"
 
@@ -534,15 +543,40 @@ __device__ __forceinline__ float widen(unsigned short x) {
   return __uint_as_float(static_cast<unsigned>(x) << 16);
 }
 
+// The Catmull-Rom weights, the FMA, the square root and the maximum in the
+// narrow variant's sum type (float, or double with L2).
+__device__ __forceinline__ void catmull_rom(double t, double w[4],
+                                            double dw[4]) {
+  const double t2 = t * t;
+  const double t3 = t2 * t;
+  w[0] = -0.5 * t3 + t2 - 0.5 * t;
+  w[1] = 1.5 * t3 - 2.5 * t2 + 1.0;
+  w[2] = -1.5 * t3 + 2.0 * t2 + 0.5 * t;
+  w[3] = 0.5 * t3 - 0.5 * t2;
+  dw[0] = -1.5 * t2 + 2.0 * t - 0.5;
+  dw[1] = 4.5 * t2 - 5.0 * t;
+  dw[2] = -4.5 * t2 + 4.0 * t + 0.5;
+  dw[3] = 1.5 * t2 - t;
+}
+__device__ __forceinline__ float mad(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double mad(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ double inv_norm(double ss) {
+  return 1.0 / fmax(sqrt(ss), 1e-20);
+}
+
 // One output of a warp's queries: the lanes' [32, C] sums through the warp's
 // shared buffer, then C stores of 32 contiguous floats (count: the floats
 // of the warp's queries that exist).
-template <int C>
+template <int C, typename A>
 __device__ __forceinline__ void store_warp(float* __restrict__ out,
-                                           float* buf, const float (&x)[C],
+                                           float* buf, const A (&x)[C],
                                            int lane, int count) {
 #pragma unroll
-  for (int k = 0; k < C; ++k) buf[lane * C + k] = x[k];
+  for (int k = 0; k < C; ++k) buf[lane * C + k] = static_cast<float>(x[k]);
   __syncwarp();
 #pragma unroll
   for (int k = 0; k < C; ++k) {
@@ -552,14 +586,16 @@ __device__ __forceinline__ void store_warp(float* __restrict__ out,
   __syncwarp();
 }
 
-template <typename T, int C>
+// L2: normalize with the chain rule, summing in double (see the top).
+template <typename T, int C, bool L2>
 __global__ void __launch_bounds__(32 * kNarrowWarps)
 interp_kernel_narrow(const T* __restrict__ rows,
                      const int32_t* __restrict__ row_base,
                      const float* __restrict__ rq,
                      const float* __restrict__ cq, int n, int h, int w,
-                     int l2, float* __restrict__ f_out,
-                     float* __restrict__ dr_out, float* __restrict__ dc_out) {
+                     float* __restrict__ f_out, float* __restrict__ dr_out,
+                     float* __restrict__ dc_out) {
+  using A = typename std::conditional<L2, double, float>::type;
   // all 16 taps in flight up to C = 4, two rows of them beyond
   constexpr int B = C <= 4 ? 4 : 2;
   __shared__ float stage[kNarrowWarps][32 * C];
@@ -573,9 +609,10 @@ interp_kernel_narrow(const T* __restrict__ rows,
   const Query s = load_query(row_base, rq, cq, q);
   const float fr = floorf(s.r);
   const float fc = floorf(s.c);
-  float wr[4], dwr[4], wc[4], dwc[4];
-  catmull_rom(s.r - fr, wr, dwr);
-  catmull_rom(s.c - fc, wc, dwc);
+  // the offsets within the cell are exact in float
+  A wr[4], dwr[4], wc[4], dwc[4];
+  catmull_rom(static_cast<A>(s.r - fr), wr, dwr);
+  catmull_rom(static_cast<A>(s.c - fc), wc, dwc);
   const int br = static_cast<int>(fr);
   const int bc = static_cast<int>(fc);
   int64_t col[4], row[4];
@@ -586,9 +623,9 @@ interp_kernel_narrow(const T* __restrict__ rows,
              w * C;
   }
 
-  float f[C], fdr[C], fdc[C];
+  A f[C], fdr[C], fdc[C];
 #pragma unroll
-  for (int k = 0; k < C; ++k) f[k] = fdr[k] = fdc[k] = 0.f;
+  for (int k = 0; k < C; ++k) f[k] = fdr[k] = fdc[k] = 0;
 #pragma unroll
   for (int i0 = 0; i0 < 4; i0 += B) {
     decltype(load_raw(rows)) taps[B][4][C];
@@ -603,27 +640,27 @@ interp_kernel_narrow(const T* __restrict__ rows,
     for (int ii = 0; ii < B; ++ii) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float a = wr[i0 + ii] * wc[j];
-        const float b = dwr[i0 + ii] * wc[j];
-        const float d = wr[i0 + ii] * dwc[j];
+        const A a = wr[i0 + ii] * wc[j];
+        const A b = dwr[i0 + ii] * wc[j];
+        const A d = wr[i0 + ii] * dwc[j];
 #pragma unroll
         for (int k = 0; k < C; ++k) {
-          const float v = widen(taps[ii][j][k]);
-          f[k] = fmaf(a, v, f[k]);
-          fdr[k] = fmaf(b, v, fdr[k]);
-          fdc[k] = fmaf(d, v, fdc[k]);
+          const A v = widen(taps[ii][j][k]);
+          f[k] = mad(a, v, f[k]);
+          fdr[k] = mad(b, v, fdr[k]);
+          fdc[k] = mad(d, v, fdc[k]);
         }
       }
     }
   }
 
-  if (l2) {
+  if constexpr (L2) {
     // XLA form of the JAX package: 1 / max(||f||, 1e-20)
-    float ss = 0.f;
+    double ss = 0.0;
 #pragma unroll
     for (int k = 0; k < C; ++k) ss += f[k] * f[k];
-    const float inv = 1.0f / fmaxf(sqrtf(ss), 1e-20f);
-    float pr = 0.f, pc = 0.f;
+    const double inv = inv_norm(ss);
+    double pr = 0.0, pc = 0.0;
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       f[k] *= inv;
@@ -804,9 +841,13 @@ template <typename T, int C>
 int launch_narrow(const Args& a) {
   constexpr int per_block = 32 * kNarrowWarps;
   const int blocks = (a.n + per_block - 1) / per_block;
-  interp_kernel_narrow<T, C><<<blocks, per_block, 0, a.stream>>>(
-      static_cast<const T*>(a.rows), a.row_base, a.r, a.c, a.n, a.h, a.w,
-      a.l2, a.f, a.dfdr, a.dfdc);
+  const T* rows = static_cast<const T*>(a.rows);
+  if (a.l2)
+    interp_kernel_narrow<T, C, true><<<blocks, per_block, 0, a.stream>>>(
+        rows, a.row_base, a.r, a.c, a.n, a.h, a.w, a.f, a.dfdr, a.dfdc);
+  else
+    interp_kernel_narrow<T, C, false><<<blocks, per_block, 0, a.stream>>>(
+        rows, a.row_base, a.r, a.c, a.n, a.h, a.w, a.f, a.dfdr, a.dfdc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,5 +2,6 @@
 
 from .main import (  # noqa: F401
     FeatureMetricKeypointAdjuster, KeypointAdjuster, KeypointAdjustmentSetup,
-    build_matching_graph, extract_patchdata_from_graph, find_problem_labels,
+    TopologicalReferenceKeypointAdjuster, build_matching_graph,
+    extract_patchdata_from_graph, find_problem_labels,
 )

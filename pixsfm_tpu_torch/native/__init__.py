@@ -9,6 +9,10 @@ the first time a function here is called, and loaded with ``ctypes``, as
 is imported. A failed build raises with the compiler's output; there is no
 quiet fallback. ``base/graph.py`` keeps the numpy versions as the plain
 versions the tests hold this core to.
+
+``lib`` (the loaded ``ctypes`` library) and ``available()`` are the JAX
+package's names: reading ``lib`` or calling ``available()`` builds the
+core if needed, and a failed build raises.
 """
 
 from __future__ import annotations
@@ -23,9 +27,10 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["SOURCE", "BUILD_DIR", "CXX_FLAGS", "build", "load",
-           "compute_track_labels_native", "compute_score_labels_native",
-           "compute_root_labels_native", "ffd_bin_packing_native"]
+__all__ = ["SOURCE", "BUILD_DIR", "CXX_FLAGS", "build", "load", "lib",
+           "available", "compute_track_labels_native",
+           "compute_score_labels_native", "compute_root_labels_native",
+           "ffd_bin_packing_native"]
 
 SOURCE = Path(__file__).parent / "graph_core.cpp"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -90,6 +95,21 @@ def load() -> ctypes.CDLL:
         lib.psf_ffd_bin_packing.restype = ctypes.c_int64
         _lib = lib
         return lib
+
+
+def available() -> bool:
+    """True once the core is built and loaded; a failed build raises (the
+    port has no numpy fallback on the main path)."""
+    load()
+    return True
+
+
+def __getattr__(name):
+    # ``lib`` is loaded on first access, so importing the package runs no
+    # compiler
+    if name == "lib":
+        return load()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _p64(a: np.ndarray):

@@ -44,7 +44,7 @@ import torch
 
 from ..base.interpolation import (InterpolationConfig,
                                   bicubic_window_eval_rows,
-                                  interpolate_nodes_with_grad,
+                                  interpolate_node_rows_with_grad,
                                   interpolate_rows_with_grad,
                                   l2_normalize_with_grad,
                                   ncc_normalize_with_grad, node_queries)
@@ -66,9 +66,12 @@ VARIANTS = ("general", "vector", "wide", "narrow")
 
 
 def interpolate_rows_plain(rows, H: int, W: int, C: int, row_base, r, c,
-                           l2_normalize: bool):
-    """Plain PyTorch version of the kernel, on any device."""
-    f, dfdr, dfdc = bicubic_window_eval_rows(rows, H, W, C, row_base, r, c)
+                           l2_normalize: bool, dtype=torch.float32):
+    """Plain PyTorch version of the kernel, on any device; ``dtype=
+    torch.float64`` computes it in float64 (a reference for the float32
+    kernel and plain version, outputs float64)."""
+    f, dfdr, dfdc = bicubic_window_eval_rows(rows, H, W, C, row_base, r, c,
+                                             dtype)
     if l2_normalize:
         f, (dfdr, dfdc) = l2_normalize_with_grad(f, (dfdr, dfdc))
     return f, dfdr, dfdc
@@ -172,7 +175,7 @@ def interpolate_node_rows(rows, H: int, W: int, C: int, row_base, r, c,
     node_queries``, all on the query's own patch row) in one
     :func:`interpolate_rows` call. NCC is the caller's
     (``base.interpolation.ncc_normalize_with_grad``); the plain version is
-    ``base.interpolation.interpolate_nodes_with_grad``."""
+    ``base.interpolation.interpolate_node_rows_with_grad``."""
     n = len(nodes)
     out = interpolate_rows(rows, H, W, C, *node_queries(row_base, r, c,
                                                         nodes),
@@ -192,8 +195,8 @@ def interpolate_nodes(rows, H: int, W: int, C: int, row_base, r, c,
     BICUBIC / CERES_BICUBIC read through :func:`interpolate_node_rows`
     (kernel K1 on CUDA, one launch), the other modes plain PyTorch."""
     if not _on_kernel(config):
-        return interpolate_nodes_with_grad(rows, H, W, C, row_base, r, c,
-                                           config)
+        return interpolate_node_rows_with_grad(rows, H, W, C, row_base, r, c,
+                                               config)
     f, dfdr, dfdc = interpolate_node_rows(rows, H, W, C, row_base, r, c,
                                           config.nodes, config.l2_normalize)
     if config.ncc_normalize:

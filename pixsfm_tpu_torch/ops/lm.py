@@ -26,7 +26,8 @@ import torch
 
 from .cg_cuda import pcg_solve, pcg_solve_plain
 
-__all__ = ["LMOptions", "LMSummary", "lm_solve", "block_jacobi_pcg"]
+__all__ = ["LMOptions", "LMState", "LMSummary", "lm_solve",
+           "block_jacobi_pcg"]
 
 
 @dataclass(frozen=True)
@@ -76,6 +77,23 @@ class LMOptions:
             cg_iterations=int(get("cg_iterations", 15) or 15),
             cg_block_size=int(get("cg_block_size", 1) or 1),
         )
+
+
+class LMState(NamedTuple):
+    """What one LM iteration hands the next (the JAX package's loop
+    carry); ``it`` is the host's iteration count."""
+    x: torch.Tensor            # [P, N]
+    H: torch.Tensor            # [P, N, N] normal equations at x (carried so
+    g: torch.Tensor            # [P, N]    each iteration runs ONE system eval)
+    lam: torch.Tensor          # [P]
+    nu: torch.Tensor           # [P] lambda growth factor
+    cost: torch.Tensor         # [P]
+    done: torch.Tensor         # [P] bool
+    it: int
+    iterations: torch.Tensor   # [P] iterations actually used
+    cost_window: torch.Tensor  # [P, W] recent accepted costs (nonmonotonic)
+    best_x: torch.Tensor       # [P, N] lowest-cost iterate seen
+    best_cost: torch.Tensor    # [P]
 
 
 class LMSummary(NamedTuple):
@@ -214,88 +232,98 @@ def lm_solve(system_fn: Callable,
     x = torch.clamp(x0, lower, upper)
     cost0, H, g = system_fn(x)
     cost0 = torch.where(problem_mask, cost0, torch.zeros_like(cost0))
-    cost = cost0
 
     # problems with no free params are trivially done
     done = ~param_mask.any(dim=1) | ~problem_mask
     W = max(int(opts.nonmonotonic_window), 1)
     lam = (torch.full((P,), opts.initial_lambda, dtype=f32, device=dev)
            if lam0 is None else lam0.to(device=dev, dtype=f32))
-    nu = torch.full((P,), 2.0, dtype=f32, device=dev)
-    iterations = torch.zeros((P,), dtype=torch.int32, device=dev)
-    cost_window = cost0[:, None].expand(P, W).clone()
-    best_x = x
-    best_cost = cost0
+    state = LMState(
+        x=x, H=H, g=g, lam=lam,
+        nu=torch.full((P,), 2.0, dtype=f32, device=dev), cost=cost0,
+        done=done, it=0,
+        iterations=torch.zeros((P,), dtype=torch.int32, device=dev),
+        cost_window=cost0[:, None].expand(P, W).clone(), best_x=x,
+        best_cost=cost0)
 
-    it = 0
     # the loop condition is the one host sync of each iteration
-    while it < opts.max_iterations and bool((~done).any()):
-        # ONE system eval per iteration: H/g at the current iterate are
-        # carried; on rejection x is unchanged, so they stay exact.
-        dx, D = _masked_solve(H, g, lam, param_mask, opts)
-        x_new = torch.clamp(x + dx, lower, upper)
-        dx_eff = x_new - x
+    while state.it < opts.max_iterations and bool((~state.done).any()):
+        state = _lm_iteration(state, system_fn, param_mask, mask_f, lower,
+                              upper, opts)
 
-        new_cost, H_new, g_new = system_fn(x_new)
-        # Madsen-Nielsen gain ratio: predicted reduction of the damped model
-        pred = 0.5 * torch.sum(dx_eff * (lam[:, None] * D * dx_eff - g), dim=1)
-        actual = cost - new_cost
-        rho = actual / torch.clamp(pred, min=1e-30)
-        if opts.use_nonmonotonic_steps:
-            # GLL acceptance: beat the max cost over the recent window
-            ref_cost = torch.amax(cost_window, dim=1)
-            accept = (new_cost < ref_cost) & (pred > 0) & ~done
-        else:
-            accept = (actual > 0) & (pred > 0) & ~done
-
-        # lambda update (Nielsen)
-        lam_acc = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
-                                    min=1.0 / 3.0)
-        lam_new = torch.clamp(torch.where(accept, lam_acc, lam * nu),
-                              opts.min_lambda, opts.max_lambda)
-        nu = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
-
-        if opts.gradient_tolerance > 0:
-            # gradient at the iterate this step started from
-            grad_inf = torch.amax(torch.abs(g * mask_f), dim=1)
-
-        a1 = accept[:, None]
-        x = torch.where(a1, x_new, x)
-        H = torch.where(accept[:, None, None], H_new, H)
-        g = torch.where(a1, g_new, g)
-        cost_prev = cost
-        cost = torch.where(accept, new_cost, cost)
-
-        # rolling window of accepted costs + best-iterate tracking
-        cost_window = torch.where(
-            a1, torch.cat([cost_window[:, 1:], new_cost[:, None]], dim=1),
-            cost_window)
-        improve = accept & (new_cost < best_cost)
-        best_x = torch.where(improve[:, None], x_new, best_x)
-        best_cost = torch.where(improve, new_cost, best_cost)
-
-        # convergence tests (Ceres semantics)
-        step_norm = torch.linalg.vector_norm(dx_eff * mask_f, dim=1)
-        x_norm = torch.linalg.vector_norm(x * mask_f, dim=1)
-        ptol = opts.parameter_tolerance
-        conv = accept & (step_norm <= ptol * (x_norm + ptol))
-        if opts.function_tolerance > 0:
-            conv = conv | (accept & (torch.abs(actual) <= opts.function_tolerance
-                                     * torch.clamp(cost_prev, min=1e-30)))
-        if opts.gradient_tolerance > 0:
-            conv = conv | (grad_inf <= opts.gradient_tolerance)
-        # stuck: lambda blown up
-        conv = conv | (lam_new >= opts.max_lambda)
-        iterations = iterations + (~done).to(torch.int32)
-        done = done | conv
-        lam = lam_new
-        it += 1
-
+    x, cost, lam = state.x, state.cost, state.lam
+    best_x, best_cost = state.best_x, state.best_cost
     # with non-monotonic acceptance the final iterate may be worse than the
     # best one seen; return the best (Ceres returns the lowest-cost state)
     x_out = torch.where((best_cost < cost)[:, None], best_x, x)
     cost_out = torch.minimum(best_cost, cost)
     summary = LMSummary(initial_cost=cost0, final_cost=cost_out,
-                        iterations=iterations,
-                        converged=done & problem_mask, lam=lam)
+                        iterations=state.iterations,
+                        converged=state.done & problem_mask, lam=lam)
     return x_out, summary
+
+
+def _lm_iteration(s: LMState, system_fn, param_mask, mask_f, lower, upper,
+                  opts: LMOptions) -> LMState:
+    """One LM iteration of :func:`lm_solve` on its carried state."""
+    x, H, g, lam, nu, cost, done = s.x, s.H, s.g, s.lam, s.nu, s.cost, s.done
+    # ONE system eval per iteration: H/g at the current iterate are
+    # carried; on rejection x is unchanged, so they stay exact.
+    dx, D = _masked_solve(H, g, lam, param_mask, opts)
+    x_new = torch.clamp(x + dx, lower, upper)
+    dx_eff = x_new - x
+
+    new_cost, H_new, g_new = system_fn(x_new)
+    # Madsen-Nielsen gain ratio: predicted reduction of the damped model
+    pred = 0.5 * torch.sum(dx_eff * (lam[:, None] * D * dx_eff - g), dim=1)
+    actual = cost - new_cost
+    rho = actual / torch.clamp(pred, min=1e-30)
+    if opts.use_nonmonotonic_steps:
+        # GLL acceptance: beat the max cost over the recent window
+        ref_cost = torch.amax(s.cost_window, dim=1)
+        accept = (new_cost < ref_cost) & (pred > 0) & ~done
+    else:
+        accept = (actual > 0) & (pred > 0) & ~done
+
+    # lambda update (Nielsen)
+    lam_acc = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+    lam_new = torch.clamp(torch.where(accept, lam_acc, lam * nu),
+                          opts.min_lambda, opts.max_lambda)
+    nu = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+
+    if opts.gradient_tolerance > 0:
+        # gradient at the iterate this step started from
+        grad_inf = torch.amax(torch.abs(g * mask_f), dim=1)
+
+    a1 = accept[:, None]
+    x = torch.where(a1, x_new, x)
+    H = torch.where(accept[:, None, None], H_new, H)
+    g = torch.where(a1, g_new, g)
+    cost_prev = cost
+    cost = torch.where(accept, new_cost, cost)
+
+    # rolling window of accepted costs + best-iterate tracking
+    cost_window = torch.where(
+        a1, torch.cat([s.cost_window[:, 1:], new_cost[:, None]], dim=1),
+        s.cost_window)
+    improve = accept & (new_cost < s.best_cost)
+    best_x = torch.where(improve[:, None], x_new, s.best_x)
+    best_cost = torch.where(improve, new_cost, s.best_cost)
+
+    # convergence tests (Ceres semantics)
+    step_norm = torch.linalg.vector_norm(dx_eff * mask_f, dim=1)
+    x_norm = torch.linalg.vector_norm(x * mask_f, dim=1)
+    ptol = opts.parameter_tolerance
+    conv = accept & (step_norm <= ptol * (x_norm + ptol))
+    if opts.function_tolerance > 0:
+        conv = conv | (accept & (torch.abs(actual) <= opts.function_tolerance
+                                 * torch.clamp(cost_prev, min=1e-30)))
+    if opts.gradient_tolerance > 0:
+        conv = conv | (grad_inf <= opts.gradient_tolerance)
+    # stuck: lambda blown up
+    conv = conv | (lam_new >= opts.max_lambda)
+    return LMState(x=x, H=H, g=g, lam=lam_new, nu=nu, cost=cost,
+                   done=done | conv, it=s.it + 1,
+                   iterations=s.iterations + (~done).to(torch.int32),
+                   cost_window=cost_window, best_x=best_x,
+                   best_cost=best_cost)

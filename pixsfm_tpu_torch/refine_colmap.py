@@ -85,7 +85,10 @@ class PixSfM:
             return c
 
         def _strategy_conf(name):
-            sc = merge(mapping.get(name), {})
+            # resolved while still attached to the root: a detached copy
+            # would resolve ``interpolation: ${..interpolation}`` (the
+            # default preset's) against itself
+            sc = merge(mapping.get(name).to_dict(resolve=True), {})
             sc = merge(sc, {"interpolation": self.conf.interpolation})
             explicit = _user_sub("mapping", name, "interpolation")
             if explicit is not None:
@@ -178,6 +181,15 @@ class PixSfM:
         return cache_path
 
 
+def add_common_args(parser):
+    """The options both commands share, as the JAX package's
+    ``add_common_args``; :func:`main` adds ``--device``."""
+    parser.add_argument("--image_dir", type=Path, required=True)
+    parser.add_argument("--config_path", type=str, default=None)
+    parser.add_argument("--cache_path", type=Path, default=None)
+    parser.add_argument("dotlist", nargs="*")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="pixsfm_tpu_torch COLMAP refinement")
@@ -189,11 +201,8 @@ def main(argv=None):
     p_ba.add_argument("--input_path", type=Path, required=True)
     p_ba.add_argument("--output_path", type=Path, required=True)
     for p in (p_ka, p_ba):
-        p.add_argument("--image_dir", type=Path, required=True)
-        p.add_argument("--config_path", type=str, default=None)
-        p.add_argument("--cache_path", type=Path, default=None)
+        add_common_args(p)
         p.add_argument("--device", type=str, default=None)
-        p.add_argument("dotlist", nargs="*")
     args = parser.parse_args(argv)
     conf = load_config(args.config_path, cli=args.dotlist) \
         if args.config_path else OmegaConf.from_dotlist(args.dotlist)

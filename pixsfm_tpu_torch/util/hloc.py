@@ -15,8 +15,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 __all__ = [
-    "list_h5_names", "read_image_pairs", "read_keypoints_hloc",
-    "write_keypoints_hloc", "read_matches_hloc",
+    "list_h5_names", "read_image_pairs", "write_image_pairs",
+    "read_keypoints_hloc", "write_keypoints_hloc", "read_matches_hloc",
+    "write_matches_hloc",
 ]
 
 
@@ -35,6 +36,11 @@ def read_image_pairs(path) -> List[Tuple[str, str]]:
     with open(path, "r") as f:
         return [tuple(p.split()) for p in f.read().rstrip("\n").split("\n")
                 if p.strip()]
+
+
+def write_image_pairs(path, pairs) -> None:
+    with open(path, "w") as f:
+        f.write("\n".join(" ".join(p) for p in pairs))
 
 
 def read_keypoints_hloc(path, names: Optional[List[str]] = None
@@ -83,3 +89,24 @@ def read_matches_hloc(path, pairs) -> Tuple[List[np.ndarray],
             matches.append(m)
             scores.append(s)
     return matches, scores
+
+
+def write_matches_hloc(path, pairs, matches,
+                       scores: Optional[List[np.ndarray]] = None) -> None:
+    """Write matches in hloc's ``matches0`` / ``matching_scores0`` format,
+    one group ``name1/name2`` per pair (scores 1 where none are given)."""
+    import h5py
+    with h5py.File(str(path), "w") as f:
+        for i, (name1, name2) in enumerate(pairs):
+            g = f.create_group(f"{name1}/{name2}")
+            m = np.asarray(matches[i])
+            n_kp1 = int(m[:, 0].max()) + 1 if len(m) else 0
+            m0 = np.full(n_kp1, -1, np.int64)
+            s0 = np.zeros(n_kp1, np.float32)
+            m0[m[:, 0]] = m[:, 1]
+            if scores is not None and len(scores[i]):
+                s0[m[:, 0]] = scores[i]
+            else:
+                s0[m[:, 0]] = 1.0
+            g.create_dataset("matches0", data=m0)
+            g.create_dataset("matching_scores0", data=s0)

@@ -182,16 +182,17 @@ def test_ncc_normalize_matches():
 @pytest.mark.parametrize("l2,ncc", [(False, True), (True, False),
                                     (True, True)])
 def test_node_windows_match(l2, ncc):
-    """``interpolate_nodes_with_grad`` (16 nodes, queries up to and past the
-    window border, one window flat: sigma = 0) against JAX's per-patch
-    ``interpolate_nodes_with_grad``; ``interpolate_node_rows``, the kernel
-    wrapper, gives the plain version's numbers on CPU tensors: atol 1e-5."""
+    """``interpolate_node_rows_with_grad`` (16 nodes, queries up to and
+    past the window border, one window flat: sigma = 0) against JAX's
+    per-patch ``interpolate_nodes_with_grad``; ``interpolate_node_rows``,
+    the kernel wrapper, gives the plain version's numbers on CPU tensors:
+    atol 1e-5."""
     import jax
     from pixsfm_tpu.base.interpolation import InterpolationConfig as JInterp
     from pixsfm_tpu.base.interpolation import \
         interpolate_nodes_with_grad as j_nodes
     from pixsfm_tpu_torch.base.interpolation import \
-        interpolate_nodes_with_grad
+        interpolate_node_rows_with_grad
     from pixsfm_tpu_torch.ops.interpolate_cuda import interpolate_node_rows
     rng = np.random.default_rng(22)
     rows, row_base, r, c = _inputs(rng, "float32", n_patches=5, n=12, ps=16,
@@ -207,7 +208,7 @@ def test_node_windows_match(l2, ncc):
     patches = jnp.asarray(rows.reshape(5, 16, 16, 3))
     want = jax.vmap(lambda p, rr, cc: j_nodes(p, rr, cc, JInterp(**kw)))(
         patches[row_base // 16], jnp.asarray(r), jnp.asarray(c))
-    got = interpolate_nodes_with_grad(
+    got = interpolate_node_rows_with_grad(
         torch.from_numpy(rows), 16, 16, 3, torch.from_numpy(row_base),
         torch.from_numpy(r), torch.from_numpy(c), InterpolationConfig(**kw))
     for a, b in zip(got, want):

@@ -184,6 +184,92 @@ def _k1_rect_inputs(dev, dtype, H, W, C, n, misaligned, seed, n_patches=40,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_l2_narrow_widths_against_float64(dev, dtype):
+    """K1 with L2 at 1-3 channels on zero-crossing N(0, 1) maps (1501
+    queries over 40 16x16 patches, up to 1.5 px past the border), where
+    ||f|| comes near 0 and float32 orders part: the narrow variant's (it
+    sums in double with L2 on) largest error against the plain version
+    computed in float64 is at most twice the float32 plain version's, over
+    three seeds. ``-s`` prints it beside the general variant's (forced; it
+    sums in float32) and the plain version's."""
+    H = W = 16
+    n, n_patches = 1501, 40
+    for C, seed in ((C, seed) for C in (1, 2, 3) for seed in (20, 21, 22)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        rows = torch.randn((n_patches * H, W, C), generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+        rb = torch.randint(0, n_patches, (n,), generator=gen,
+                           device=dev) * H
+        r = torch.rand(n, generator=gen, device=dev) * (H + 2.0) - 1.5
+        c = torch.rand(n, generator=gen, device=dev) * (W + 2.0) - 1.5
+        args = (rows, H, W, C, rb, r, c, True)
+        ref = interpolate_cuda.interpolate_rows_plain(*args,
+                                                      dtype=torch.float64)
+        errs = {}
+        for name, out in (
+                ("narrow", interpolate_cuda.interpolate_rows(
+                    *args, variant="narrow")),
+                ("general", interpolate_cuda.interpolate_rows(
+                    *args, variant="general")),
+                ("plain f32", interpolate_cuda.interpolate_rows_plain(*args))):
+            assert all(a.dtype == torch.float32 for a in out)
+            errs[name] = max(float((a.double() - b).abs().max())
+                             for a, b in zip(out, ref))
+        print(f"K1 L2 C={C} {dtype} seed {seed}: max |. - float64| {errs}")
+        assert errs["narrow"] <= 2 * errs["plain f32"]
+
+
+def test_patch_api_launches_k1(dev):
+    """The patch API on CUDA tensors: one K1 launch per BICUBIC call
+    (``interpolate`` / ``interpolate_with_grad`` / ``interpolate_nodes`` /
+    ``interpolate_nodes_with_grad`` / ``bicubic_window_eval``, scalar or
+    batched queries), none for BILINEAR, for ``cross=True`` or for a CPU
+    patch; the results equal the CPU patch's within the K1 tolerances
+    (NCC within 1e-4 of each array's largest entry)."""
+    from pixsfm_tpu_torch.base import interpolation as api
+    gen = torch.Generator(device=dev).manual_seed(5)
+    patch = torch.randn((24, 20, 16), generator=gen, device=dev).to(
+        torch.bfloat16)
+    # inside, so that no NCC window is clamped flat past the border
+    r = torch.rand((6, 7), generator=gen, device=dev) * 20.0 + 1.5
+    c = torch.rand((6, 7), generator=gen, device=dev) * 16.0 + 1.5
+    nodes = api.InterpolationConfig(ncc_normalize=True, l2_normalize=False,
+                                    nodes=NODES16[:4])
+    cases = [
+        (lambda p, a, b: api.interpolate(p, a, b), 1, False),
+        (lambda p, a, b: api.interpolate_with_grad(p, a, b), 1, False),
+        (lambda p, a, b: api.interpolate_with_grad(p, 3.25, 4.5), 1, False),
+        (lambda p, a, b: api.interpolate_nodes(p, a, b, nodes), 1, True),
+        (lambda p, a, b: api.interpolate_nodes_with_grad(p, a, b, nodes), 1,
+         True),
+        (lambda p, a, b: api.interpolate_with_grad(p, a, b, nodes), 1, True),
+        (lambda p, a, b: api.interpolate_with_grad(
+            p, a, b, api.InterpolationConfig(mode="BILINEAR")), 0, False),
+        (lambda p, a, b: api.interpolate_with_grad(p, a, b, cross=True), 0,
+         False),
+        (lambda p, a, b: api.bicubic_window_eval(
+            p[None].expand(42, -1, -1, -1), a.reshape(-1), b.reshape(-1)), 1,
+         False),
+    ]
+    for k, (fn, want, ncc) in enumerate(cases):
+        before = interpolate_cuda.launches
+        out = fn(patch, r, c)
+        torch.cuda.synchronize()
+        assert interpolate_cuda.launches - before == want, k
+        cpu_before = interpolate_cuda.launches
+        ref = fn(patch.cpu(), r.cpu(), c.cpu())
+        assert interpolate_cuda.launches == cpu_before, k
+        out = out if isinstance(out, tuple) else (out,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for a, b in zip(out, ref):
+            assert a.is_cuda and a.dtype == torch.float32 and \
+                a.shape == b.shape, k
+            atol = 1e-4 * float(b.abs().max()) if ncc else \
+                K1_ATOL[torch.bfloat16]
+            torch.testing.assert_close(a.cpu(), b, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l2", [False, True])
 @pytest.mark.parametrize("C", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("misaligned", [False, True])
@@ -934,7 +1020,7 @@ def test_k1_node_windows_match_plain(dev, dtype, ncc):
     NCC across the nodes within 1e-4 (NCC divides by each channel's spread
     over the nodes)."""
     from pixsfm_tpu_torch.base.interpolation import (
-        InterpolationConfig, interpolate_nodes_with_grad,
+        InterpolationConfig, interpolate_node_rows_with_grad,
         ncc_normalize_with_grad)
     rows, row_base, r, c = _k1_inputs(dev, dtype, n_patches=300, n=2000,
                                       C=3)
@@ -945,7 +1031,7 @@ def test_k1_node_windows_match_plain(dev, dtype, ncc):
     if ncc:
         g, d = ncc_normalize_with_grad(out[0], out[1:])
         out = (g, *d)
-    ref = interpolate_nodes_with_grad(
+    ref = interpolate_node_rows_with_grad(
         rows.cpu(), 16, 16, 3, row_base.cpu(), r.cpu(), c.cpu(),
         InterpolationConfig(l2_normalize=False, ncc_normalize=ncc,
                             nodes=NODES16))
@@ -1120,7 +1206,7 @@ def test_k1_node_rows_128_channels_match_plain(dev, dtype, l2, ncc):
     1e-4 of each array's largest entry (it divides by each channel's
     spread over the nodes)."""
     from pixsfm_tpu_torch.base.interpolation import (
-        InterpolationConfig, interpolate_nodes_with_grad)
+        InterpolationConfig, interpolate_node_rows_with_grad)
     rows, row_base, r, c = _k1_inputs(dev, dtype, n_patches=200, n=1000)
     assert interpolate_cuda.kernel_variant(rows) == "vector"
     interp = InterpolationConfig(l2_normalize=l2, ncc_normalize=ncc,
@@ -1128,9 +1214,9 @@ def test_k1_node_rows_128_channels_match_plain(dev, dtype, l2, ncc):
     before = interpolate_cuda.launches
     out = interpolate_cuda.interpolate_nodes(rows, 16, 16, 128, row_base, r,
                                              c, interp)
-    ref = interpolate_nodes_with_grad(rows.cpu(), 16, 16, 128,
-                                      row_base.cpu(), r.cpu(), c.cpu(),
-                                      interp)
+    ref = interpolate_node_rows_with_grad(rows.cpu(), 16, 16, 128,
+                                          row_base.cpu(), r.cpu(), c.cpu(),
+                                          interp)
     torch.cuda.synchronize()
     assert interpolate_cuda.launches == before + 1
     for a, b in zip(out, ref):
