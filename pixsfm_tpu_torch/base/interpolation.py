@@ -64,6 +64,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..util.profiling import to_device
+
 __all__ = [
     "InterpolationConfig", "INTERPOLATOR_TYPES", "catmull_rom_weights",
     "bicubic_window_eval_rows", "l2_normalize_with_grad",
@@ -311,7 +313,7 @@ def node_queries(row_base, r, c, nodes):
     """The ``N * n_nodes`` window queries of node windows around ``N``
     queries, node-major within each query: ``(row_base, r + dy, c + dx)``
     for the node offsets ``nodes [n_nodes, 2]`` ``(dx, dy)``."""
-    nodes = torch.as_tensor(np.asarray(nodes, np.float32), device=r.device)
+    nodes = to_device(np.asarray(nodes, np.float32), r.device)
     n = nodes.shape[0]
     return (row_base.repeat_interleave(n), (r[:, None] + nodes[:, 1])
             .reshape(-1), (c[:, None] + nodes[:, 0]).reshape(-1))

@@ -43,7 +43,6 @@ BICUBIC, each window one row block).
 from __future__ import annotations
 
 import dataclasses
-import time
 from copy import deepcopy
 from typing import Dict
 
@@ -64,6 +63,7 @@ from ..features.featuremaps import FeatureView
 from ..ops import schur
 from ..ops.interpolate_cuda import interpolate, interpolate_fwd
 from ..util.misc import bucket
+from ..util.profiling import host, span, to_device
 from ..ops.schur import (BAObservations, BAOptions, BAState, ba_solve,
                          make_pair_list)
 from ..parallel.sharded import parallel_mesh
@@ -177,12 +177,9 @@ class _Patches:
 
     def __init__(self, pf, dev):
         _, self.H, self.W, self.C = pf.patches.shape
-        self.corners = torch.as_tensor(pf.corners, dtype=torch.float32,
-                                       device=dev)
-        self.scales = torch.as_tensor(pf.scales, dtype=torch.float32,
-                                      device=dev)
-        self.ups = torch.as_tensor(pf.upsampling, dtype=torch.float32,
-                                   device=dev)
+        self.corners = to_device(pf.corners, dev, torch.float32)
+        self.scales = to_device(pf.scales, dev, torch.float32)
+        self.ups = to_device(pf.upsampling, dev, torch.float32)
 
     def coords(self, row, pix):
         """Patch coords ``pc [n, 2]`` of ``pix`` and ``d pc / d pix``."""
@@ -476,17 +473,52 @@ class BundleAdjuster:
         ``eval_bytes_per_obs``: the float32 temporaries one observation's
         Jacobian evaluation holds; once the layout is chosen (with
         ``obs_chunk``, as in the JAX package) the evaluation chunk is cut
-        to the largest power of two under ``_EVAL_CHUNK_BYTES``."""
-        t0 = time.time()
+        to the largest power of two under ``_EVAL_CHUNK_BYTES``.
+        The summary's ``time`` is the duration of its three spans,
+        ``ba.layout``, ``ba.lm`` and ``ba.unpack``."""
+        with span("ba.layout", timed=True) as layout:
+            laid = self._layout(packed, residual_key, obs_data, ctx, loss,
+                                opts, obs_valid, src_idx, eval_bytes_per_obs)
+        if laid is None:
+            logger.info("BA: empty problem (no observations); skipping.")
+            return dict(initial_cost=0.0, final_cost=0.0, iterations=0,
+                        time=layout.seconds)
+        solve, state0, opts, Np = laid
+        with span("ba.lm", timed=True) as lm:
+            seg = int(opts.segment_iterations)
+            if seg <= 0:
+                state, summary = solve(state0, opts)
+                out = {k: v for k, v in summary.items()
+                       if k not in ("lam", "done")}
+            else:
+                state, out = self._run_segments(solve, state0, opts, seg)
+        with span("ba.unpack", timed=True) as unpack:
+            packed.unpack_into(
+                reconstruction,
+                *(host(a, "sync.unpack").numpy() for a in (
+                    state.qvec, state.tvec, state.cams, state.xyz[:Np])))
+        out["linear_solver"] = opts.linear_solver
+        out["obs_grid_T"] = int(opts.obs_grid_T)
+        out["time"] = layout.seconds + lm.seconds + unpack.seconds
+        logger.info("BA Time: %.3fs, cost change: %.6g --> %.6g (%d iters, "
+                    "%d CG steps)", out["time"], out["initial_cost"],
+                    out["final_cost"], int(out["iterations"]),
+                    int(out["cg_iterations"]))
+        self._maybe_print_summary(out, packed)
+        return out
+
+    def _layout(self, packed: PackedBA, residual_key, obs_data, ctx, loss,
+                opts: BAOptions, obs_valid, src_idx, eval_bytes_per_obs):
+        """The padded layout of :meth:`_run_ba_cached` on the device:
+        ``(solve(state, opts, **kw), state0, opts, Np)``, or None for a
+        problem with no observation."""
         dev = self.device
         mesh = self._parallel_mesh()
         ndev = 1 if mesh is None else mesh.size
         O = len(packed.obs_img)
         Np = len(packed.point_ids)
         if O == 0 or Np == 0:
-            logger.info("BA: empty problem (no observations); skipping.")
-            return dict(initial_cost=0.0, final_cost=0.0, iterations=0,
-                        time=time.time() - t0)
+            return None
         O_pad = bucket(O + 1)          # always >= 1 padded slot (pair pad)
         O_pad = -(-O_pad // ndev) * ndev     # a shardable observation axis
         Np_pad = bucket(Np, minimum=4)
@@ -550,8 +582,7 @@ class BundleAdjuster:
                 opts.obs_chunk, 1 << (int(fit).bit_length() - 1)), 256)))
 
         def put(a, dtype=None, device=dev):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                   device=device)
+            return to_device(np.ascontiguousarray(a), device, dtype)
 
         # under a mesh the host arrays stay on the host: ba_solve moves
         # each shard's slice to its own device
@@ -585,36 +616,17 @@ class BundleAdjuster:
                          put(xyz))
         point_free = np.zeros(Np_pad, bool)
         point_free[:Np] = packed.point_free
+        free = (put(packed.pose_free), put(packed.tvec_free),
+                put(packed.cam_free), put(point_free))
         build, build_jac = _RESIDUAL_BUILDERS[residual_key[0]]
 
         def solve(state, opts, **kw):
             return ba_solve(
-                build(*residual_key[1:]), state, obs, loss,
-                put(packed.pose_free), put(packed.tvec_free),
-                put(packed.cam_free), put(point_free), opts=opts, ctx=ctx,
-                residual_jac_fn=build_jac(*residual_key[1:]), mesh=mesh,
-                **kw)
+                build(*residual_key[1:]), state, obs, loss, *free, opts=opts,
+                ctx=ctx, residual_jac_fn=build_jac(*residual_key[1:]),
+                mesh=mesh, **kw)
 
-        seg = int(opts.segment_iterations)
-        if seg <= 0:
-            state, summary = solve(state0, opts)
-            out = {k: v for k, v in summary.items()
-                   if k not in ("lam", "done")}
-        else:
-            state, out = self._run_segments(solve, state0, opts, seg)
-        packed.unpack_into(reconstruction, state.qvec.cpu().numpy(),
-                           state.tvec.cpu().numpy(),
-                           state.cams.cpu().numpy(),
-                           state.xyz.cpu().numpy()[:Np])
-        out["linear_solver"] = opts.linear_solver
-        out["obs_grid_T"] = int(opts.obs_grid_T)
-        out["time"] = time.time() - t0
-        logger.info("BA Time: %.3fs, cost change: %.6g --> %.6g (%d iters, "
-                    "%d CG steps)", out["time"], out["initial_cost"],
-                    out["final_cost"], int(out["iterations"]),
-                    int(out["cg_iterations"]))
-        self._maybe_print_summary(out, packed)
-        return out
+        return solve, state0, opts, Np
 
     @staticmethod
     def _run_segments(solve, state, opts: BAOptions, seg: int):
@@ -675,13 +687,15 @@ class BundleAdjuster:
         levels = (level_indices if level_indices not in (None, "all")
                   else list(reversed(range(feature_manager.num_levels))))
         outputs: Dict[str, list] = {}
-        for _ in range(int(self.conf.get("repeats", 1))):
-            for level in levels:
-                out = self.refine(reconstruction,
-                                  feature_manager.fset(level),
-                                  problem_setup=problem_setup)
-                for k, v in out.items():
-                    outputs.setdefault(k, []).append(v)
+        with span("ba"):
+            for _ in range(int(self.conf.get("repeats", 1))):
+                for level in levels:
+                    with span("ba.level"):
+                        out = self.refine(reconstruction,
+                                          feature_manager.fset(level),
+                                          problem_setup=problem_setup)
+                    for k, v in out.items():
+                        outputs.setdefault(k, []).append(v)
         return outputs
 
 
@@ -695,8 +709,9 @@ class GeometricBundleAdjuster(BundleAdjuster):
 
     def refine(self, reconstruction, feature_set=None,
                problem_setup=None) -> Dict:
-        packed, model, mi = self._pack(reconstruction, problem_setup)
-        obs_data = (np.asarray(packed.obs_xy, np.float32),)
+        with span("ba.pack"):
+            packed, model, mi = self._pack(reconstruction, problem_setup)
+            obs_data = (np.asarray(packed.obs_xy, np.float32),)
         return self._run_ba_cached(
             reconstruction, packed, ("geometric", model),
             obs_data if mi is None else obs_data + (mi,), None,
@@ -704,7 +719,9 @@ class GeometricBundleAdjuster(BundleAdjuster):
 
     def refine_multilevel(self, reconstruction, feature_manager=None,
                           problem_setup=None) -> Dict:
-        out = self.refine(reconstruction, None, problem_setup=problem_setup)
+        with span("ba"), span("ba.level"):
+            out = self.refine(reconstruction, None,
+                              problem_setup=problem_setup)
         return {k: [v] for k, v in out.items()}
 
 
@@ -719,58 +736,65 @@ class FeatureReferenceBundleAdjuster(BundleAdjuster):
                references=None) -> Dict:
         from .references import extract_references
 
-        packed, model, mi = self._pack(reconstruction, problem_setup)
-        interp = InterpolationConfig.from_conf(self.conf.get("interpolation"))
-        check_window_config(interp)
-        view = FeatureView.from_reconstruction(feature_set, reconstruction,
-                                               packed.point_ids)
-        pf = view.packed
-        t_ref = time.time()
-        if references is None:
-            references = extract_references(
-                reconstruction, feature_set, view, self.conf.references,
-                interp, point3D_ids=packed.point_ids,
-                mesh=self._parallel_mesh())
-        t_ref = time.time() - t_ref
+        with span("ba.pack"):
+            packed, model, mi = self._pack(reconstruction, problem_setup)
+            interp = InterpolationConfig.from_conf(
+                self.conf.get("interpolation"))
+            check_window_config(interp)
+            view = FeatureView.from_reconstruction(feature_set,
+                                                   reconstruction,
+                                                   packed.point_ids)
+            pf = view.packed
+        with span("ba.references", timed=True) as refs:
+            if references is None:
+                references = extract_references(
+                    reconstruction, feature_set, view, self.conf.references,
+                    interp, point3D_ids=packed.point_ids,
+                    mesh=self._parallel_mesh())
 
         # per-observation patch row + target descriptor; observations
         # without an extracted patch or a reference get weight 0
-        O = len(packed.obs_img)
-        names = {iid: im.name for iid, im in reconstruction.images.items()}
-        rows = np.asarray([pf.row_or(names[int(iid)], int(p2d)) for iid, p2d
-                           in zip(packed.obs_image_id, packed.obs_p2D_idx)],
-                          np.int64).reshape(O)
-        D = output_dim(interp.mode, pf.channels, interp.n_nodes)
-        desc = np.zeros((len(packed.point_ids), D), np.float32)
-        has_ref = np.zeros(len(packed.point_ids), bool)
-        for s, pid in enumerate(packed.point_ids):
-            ref = references.get(int(pid))
-            if ref is not None:
-                desc[s] = ref.descriptor
-                has_ref[s] = True
-        obs_valid = (rows >= 0) & has_ref[packed.obs_pt]
-        if not obs_valid.all():
-            logger.warning("feature_reference BA: %d/%d observations have no "
-                           "patch/reference; excluded.",
-                           int((~obs_valid).sum()), O)
-        rows = np.where(obs_valid, rows, 0)
-        targets = np.where(obs_valid[:, None], desc[packed.obs_pt], 0.0)
-        obs_data = (rows, targets.astype(np.float32))
-        if mi is not None:
-            obs_data += (mi,)
-        key, ctx = "feature_reference", _PatchRows(pf, self.device)
-        if self._parallel_mesh() is not None:
-            # the multi-device payload layout: each observation carries its
-            # own window, so the feature payload splits with the shards
-            key, ctx = key + "_window", ()
-            obs_data = window_obs_data(pf, rows, obs_data)
+        with span("ba.pack"):
+            O = len(packed.obs_img)
+            names = {iid: im.name
+                     for iid, im in reconstruction.images.items()}
+            rows = np.asarray([pf.row_or(names[int(iid)], int(p2d))
+                               for iid, p2d in zip(packed.obs_image_id,
+                                                   packed.obs_p2D_idx)],
+                              np.int64).reshape(O)
+            D = output_dim(interp.mode, pf.channels, interp.n_nodes)
+            desc = np.zeros((len(packed.point_ids), D), np.float32)
+            has_ref = np.zeros(len(packed.point_ids), bool)
+            for s, pid in enumerate(packed.point_ids):
+                ref = references.get(int(pid))
+                if ref is not None:
+                    desc[s] = ref.descriptor
+                    has_ref[s] = True
+            obs_valid = (rows >= 0) & has_ref[packed.obs_pt]
+            if not obs_valid.all():
+                logger.warning("feature_reference BA: %d/%d observations "
+                               "have no patch/reference; excluded.",
+                               int((~obs_valid).sum()), O)
+            rows = np.where(obs_valid, rows, 0)
+            targets = np.where(obs_valid[:, None], desc[packed.obs_pt], 0.0)
+            obs_data = (rows, targets.astype(np.float32))
+            if mi is not None:
+                obs_data += (mi,)
+        with span("ba.layout"):
+            key, ctx = "feature_reference", _PatchRows(pf, self.device)
+            if self._parallel_mesh() is not None:
+                # the multi-device payload layout: each observation carries
+                # its own window, so the feature payload splits with the
+                # shards
+                key, ctx = key + "_window", ()
+                obs_data = window_obs_data(pf, rows, obs_data)
         out = self._run_ba_cached(
             reconstruction, packed, (key, model, interp), obs_data, ctx,
             make_loss(self.conf.optimizer.get("loss")), self._ba_options(),
             obs_valid=obs_valid,
             eval_bytes_per_obs=4 * (D + int(interp.check_bounds))
             * (10 + packed.cams.shape[1]) * 3)
-        out["references_time"] = t_ref
+        out["references_time"] = refs.seconds
         return out
 
 

@@ -37,6 +37,7 @@ from ..base.projection import pixel_to_world, project_np
 from ..ops.interpolate_cuda import interpolate_nodes
 from ..parallel.sharded import shard_bounds
 from ..util.misc import bucket
+from ..util.profiling import count_on, host, to_device
 
 __all__ = ["Reference", "extract_references", "node_offsets3D",
            "robust_mean_irls"]
@@ -95,17 +96,16 @@ def _track_stage(rows_view, H: int, W: int, obs_row, pc, flat, n_points: int,
     D], d2 [n, T], best [n])``."""
     C = rows_view.shape[-1]
     desc, _, _ = interpolate_nodes(
-        rows_view, H, W, C,
-        torch.as_tensor(obs_row * H, dtype=torch.int32, device=dev),
-        torch.as_tensor(pc[:, 1], device=dev),
-        torch.as_tensor(pc[:, 0], device=dev), interp)
+        rows_view, H, W, C, to_device(obs_row * H, dev, torch.int32),
+        to_device(pc[:, 1], dev), to_device(pc[:, 0], dev), interp)
     desc = desc.reshape(desc.shape[0], -1)
     D = desc.shape[1]
-    flat = torch.as_tensor(flat, device=dev)
+    flat = to_device(flat, dev)
     track_desc = desc.new_zeros((n_points * T, D))
     track_desc[flat] = desc
     track_desc = track_desc.reshape(n_points, T, D)
     track_valid = torch.zeros(n_points * T, dtype=torch.bool, device=dev)
+    count_on(dev, "sync.scatter")    # the indexed write copies its value
     track_valid[flat] = True
     track_valid = track_valid.reshape(n_points, T)
     means = robust_mean_irls(track_desc, track_valid, loss, iters,
@@ -115,7 +115,8 @@ def _track_stage(rows_view, H: int, W: int, obs_row, pc, flat, n_points: int,
     d2 = torch.sum((track_desc - means[:, None, :]) ** 2, dim=2)
     d2 = torch.where(track_valid, d2, torch.full_like(d2, float("inf")))
     best = torch.argmin(d2, dim=1)
-    return track_desc.cpu().numpy(), d2.cpu().numpy(), best.cpu().numpy()
+    return tuple(host(a, "sync.references").numpy()
+                 for a in (track_desc, d2, best))
 
 
 def extract_references(reconstruction, feature_set, view, conf,

@@ -28,6 +28,7 @@ import numpy as np
 from . import logger
 from .features.extractor import FeatureExtractor
 from .features.featuremaps import FeatureManager
+from .util.profiling import span
 
 __all__ = ["features_from_graph", "features_from_image_list",
            "features_from_reconstruction", "load_features_from_cache"]
@@ -94,9 +95,10 @@ def features_from_image_list(extractor: FeatureExtractor, image_list,
     def flush():
         if not group:
             return
-        outs = extractor.extract_batch(
-            [g[1] for g in group], [g[2] for g in group],
-            keypoint_ids_list=[g[3] for g in group], as_dict=use_cache)
+        with span("extract.view"):
+            outs = extractor.extract_batch(
+                [g[1] for g in group], [g[2] for g in group],
+                keypoint_ids_list=[g[3] for g in group], as_dict=use_cache)
         for (name, *_), fmaps in zip(group, outs):
             emit(name, fmaps)
         group.clear()
@@ -107,9 +109,10 @@ def features_from_image_list(extractor: FeatureExtractor, image_list,
         kps = keypoints_per_image.get(image_name)
         kp_ids = (keypoint_ids_per_image or {}).get(image_name)
         if batch_size <= 1:
-            emit(image_name, extractor(img, keypoints=kps,
-                                       keypoint_ids=kp_ids,
-                                       as_dict=use_cache))
+            with span("extract.view"):
+                fmaps = extractor(img, keypoints=kps, keypoint_ids=kp_ids,
+                                  as_dict=use_cache)
+            emit(image_name, fmaps)
             continue
         # group consecutive same-sized images into one batched forward
         if group and (tuple(extractor._size(group[0][1]))
@@ -125,12 +128,13 @@ def features_from_graph(extractor: FeatureExtractor, image_dir, graph,
                         keypoints_dict: Dict[str, np.ndarray],
                         cache_path=None) -> FeatureManager:
     from .keypoint_adjustment.main import extract_patchdata_from_graph
-    patch_data = extract_patchdata_from_graph(graph)
-    kp_per_image = {name: np.asarray(keypoints_dict[name])[ids]
-                    for name, ids in patch_data.items()}
-    return features_from_image_list(
-        extractor, sorted(patch_data.keys()), image_dir, kp_per_image,
-        keypoint_ids_per_image=patch_data, cache_path=cache_path)
+    with span("extract"):
+        patch_data = extract_patchdata_from_graph(graph)
+        kp_per_image = {name: np.asarray(keypoints_dict[name])[ids]
+                        for name, ids in patch_data.items()}
+        return features_from_image_list(
+            extractor, sorted(patch_data.keys()), image_dir, kp_per_image,
+            keypoint_ids_per_image=patch_data, cache_path=cache_path)
 
 
 def features_from_reconstruction(extractor: FeatureExtractor,
@@ -142,21 +146,26 @@ def features_from_reconstruction(extractor: FeatureExtractor,
 
     kp_per_image: Dict[str, np.ndarray] = {}
     ids_per_image: Dict[str, list] = {}
-    for im in reconstruction.images.values():
-        if not im.registered:
-            continue
-        cam = reconstruction.cameras[im.camera_id]
-        tri = [(p2D_idx, pid) for p2D_idx, pid in enumerate(im.point3D_ids)
-               if pid >= 0 and pid in reconstruction.points3D]
-        if not tri:
-            continue
-        X = np.stack([reconstruction.points3D[pid].xyz for _, pid in tri])
-        xy, depth = project_np(cam, im.qvec, im.tvec, X)
-        keep = depth > 0
-        if keep.any():
-            kp_per_image[im.name] = xy[keep]
-            ids_per_image[im.name] = [tri[i][0]
-                                      for i in np.nonzero(keep)[0]]
-    return features_from_image_list(
-        extractor, sorted(kp_per_image.keys()), image_dir, kp_per_image,
-        keypoint_ids_per_image=ids_per_image, cache_path=cache_path)
+    with span("extract"):
+        with span("extract.project"):
+            for im in reconstruction.images.values():
+                if not im.registered:
+                    continue
+                cam = reconstruction.cameras[im.camera_id]
+                tri = [(p2D_idx, pid) for p2D_idx, pid
+                       in enumerate(im.point3D_ids)
+                       if pid >= 0 and pid in reconstruction.points3D]
+                if not tri:
+                    continue
+                X = np.stack([reconstruction.points3D[pid].xyz
+                              for _, pid in tri])
+                xy, depth = project_np(cam, im.qvec, im.tvec, X)
+                keep = depth > 0
+                if keep.any():
+                    kp_per_image[im.name] = xy[keep]
+                    ids_per_image[im.name] = [tri[i][0]
+                                              for i in np.nonzero(keep)[0]]
+        return features_from_image_list(
+            extractor, sorted(kp_per_image.keys()), image_dir,
+            kp_per_image, keypoint_ids_per_image=ids_per_image,
+            cache_path=cache_path)

@@ -35,6 +35,7 @@ from ..config import merge
 from ..features.featuremaps import FeatureView
 from ..ops.lm import LMOptions
 from ..parallel.sharded import parallel_mesh
+from ..util.profiling import span
 from .solver import (build_ka_problems, evaluate_descriptors,
                      solve_ka_problems, solve_target_problems)
 
@@ -214,24 +215,27 @@ class KeypointAdjuster:
     def refine_multilevel(self, keypoints_dict, feature_manager, graph: Graph,
                           track_labels=None, root_labels=None,
                           problem_setup=None) -> dict:
-        if track_labels is None:
-            track_labels = compute_track_labels(graph)
-        if root_labels is None:
-            score_labels = compute_score_labels(graph, track_labels)
-            root_labels = compute_root_labels(graph, track_labels, score_labels)
+        with span("ka"):
+            if track_labels is None:
+                track_labels = compute_track_labels(graph)
+            if root_labels is None:
+                score_labels = compute_score_labels(graph, track_labels)
+                root_labels = compute_root_labels(graph, track_labels,
+                                                  score_labels)
 
-        level_indices = self.conf.get("level_indices")
-        levels = (level_indices if level_indices not in (None, "all")
-                  else list(reversed(range(feature_manager.num_levels))))
+            level_indices = self.conf.get("level_indices")
+            levels = (level_indices if level_indices not in (None, "all")
+                      else list(reversed(range(feature_manager.num_levels))))
 
-        outputs: Dict[str, list] = {}
-        for level_index in levels:
-            out = self.refine(keypoints_dict,
-                              feature_manager.fset(level_index), graph,
-                              track_labels, root_labels,
-                              problem_setup=problem_setup)
-            for k, v in out.items():
-                outputs.setdefault(k, []).append(v)
+            outputs: Dict[str, list] = {}
+            for level_index in levels:
+                with span("ka.level"):
+                    out = self.refine(keypoints_dict,
+                                      feature_manager.fset(level_index),
+                                      graph, track_labels, root_labels,
+                                      problem_setup=problem_setup)
+                for k, v in out.items():
+                    outputs.setdefault(k, []).append(v)
         return outputs
 
     # -- shared machinery ---------------------------------------------------
@@ -248,44 +252,48 @@ class KeypointAdjuster:
                         "skipping.")
             return dict(initial_cost=0.0, final_cost=0.0, num_problems=0,
                         time=time.time() - t0)
-        view = FeatureView.from_graph(feature_set, graph,
-                                      np.nonzero(labels >= 0)[0],
-                                      keypoints=keypoints_dict)
-        packed = view.packed
+        with span("ka.pack"):
+            view = FeatureView.from_graph(feature_set, graph,
+                                          np.nonzero(labels >= 0)[0],
+                                          keypoints=keypoints_dict)
+            packed = view.packed
 
-        const = None
-        if problem_setup is not None:
-            const = problem_setup.constant_node_mask(graph)
+            const = None
+            if problem_setup is not None:
+                const = problem_setup.constant_node_mask(graph)
 
-        opt = self.conf.optimizer
-        problems = build_ka_problems(
-            keypoints_dict, graph, labels, np.asarray(root_labels), packed,
-            bound=float(opt.get("bound", 4.0)), edges=edges,
-            constant_nodes=const, weight_by_sim=weight_by_sim,
-            root_edges_only=root_edges_only)
+            opt = self.conf.optimizer
+            problems = build_ka_problems(
+                keypoints_dict, graph, labels, np.asarray(root_labels),
+                packed, bound=float(opt.get("bound", 4.0)), edges=edges,
+                constant_nodes=const, weight_by_sim=weight_by_sim,
+                root_edges_only=root_edges_only)
 
         interp = InterpolationConfig.from_conf(self.conf.get("interpolation"))
         loss = make_loss(opt.get("loss"))
         lm_opts = LMOptions.from_solver_conf(opt.get("solver"))
-        kp_refined, summary = solve_ka_problems(
-            problems, packed.patches, interp, loss, lm_opts,
-            chunk=int(self.conf.get("problem_chunk_size", 128)),
-            compaction_segment=int(self.conf.get("compaction_segment", 0)),
-            device=self.device, mesh=self._parallel_mesh())
+        with span("ka.lm"):
+            kp_refined, summary = solve_ka_problems(
+                problems, packed.patches, interp, loss, lm_opts,
+                chunk=int(self.conf.get("problem_chunk_size", 128)),
+                compaction_segment=int(self.conf.get("compaction_segment",
+                                                     0)),
+                device=self.device, mesh=self._parallel_mesh())
 
         # write back refined keypoints (vectorized per image)
-        image_ids, feature_idxs = graph.nodes_array()
-        ids = np.asarray(problems.node_ids)
-        if len(ids):
-            p_arr = problems.node_problem[ids]
-            k_arr = problems.node_slot[ids]
-            img_arr = np.asarray(image_ids)[ids]
-            fid_arr = np.asarray(feature_idxs)[ids]
-            for iid in np.unique(img_arr):
-                m = img_arr == iid
-                name = graph.image_id_to_name[int(iid)]
-                keypoints_dict[name][fid_arr[m]] = kp_refined[p_arr[m],
-                                                              k_arr[m]]
+        with span("ka.unpack"):
+            image_ids, feature_idxs = graph.nodes_array()
+            ids = np.asarray(problems.node_ids)
+            if len(ids):
+                p_arr = problems.node_problem[ids]
+                k_arr = problems.node_slot[ids]
+                img_arr = np.asarray(image_ids)[ids]
+                fid_arr = np.asarray(feature_idxs)[ids]
+                for iid in np.unique(img_arr):
+                    m = img_arr == iid
+                    name = graph.image_id_to_name[int(iid)]
+                    keypoints_dict[name][fid_arr[m]] = kp_refined[p_arr[m],
+                                                                  k_arr[m]]
 
         dt = time.time() - t0
         summary["time"] = dt

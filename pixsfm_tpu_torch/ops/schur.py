@@ -69,6 +69,7 @@ import torch
 
 from ..base.geometry import exp_quat, quat_mul, quat_normalize
 from ..parallel.sharded import replicate, shard_bounds, sum_onto
+from ..util.profiling import count_on, host, span, to_device
 from . import schur_cuda
 
 __all__ = ["BAOptions", "BAState", "BAObservations", "ba_solve",
@@ -258,7 +259,7 @@ def _cg(A, b, M, maxiter: int, tol: float):
     p = z
     gamma = vdot(r, z)
     k = 0
-    while k < maxiter and bool(vdot(r, r) > atol2):
+    while k < maxiter and host(vdot(r, r) > atol2, "sync.cg_stop"):
         Ap = A(p)
         alpha = gamma / vdot(p, Ap)
         x = tuple(xi + alpha * pi for xi, pi in zip(x, p))
@@ -363,9 +364,9 @@ def _pair_shards(obs: BAObservations, shards: List[_Shard]):
     the shard's device (one group, in the pair list's order, without a
     mesh)."""
     L = shards[0].img_idx.shape[0]
-    o1 = obs.pair_o1.long().cpu()
-    o2 = obs.pair_o2.long().cpu()
-    valid = torch.cat([sh.valid.cpu() for sh in shards])
+    o1 = host(obs.pair_o1.long(), "sync.pairs")
+    o2 = host(obs.pair_o2.long(), "sync.pairs")
+    valid = torch.cat([host(sh.valid, "sync.pairs") for sh in shards])
     ok = valid[o1] & valid[o2]
     out = []
     for sh in shards:
@@ -375,8 +376,9 @@ def _pair_shards(obs: BAObservations, shards: List[_Shard]):
             sel = mine & ((o2 // L) == t)
             if not bool(sel.any()):
                 continue
-            groups.append((t, (o1[sel] - sh.index * L).to(sh.dev),
-                           (o2[sel] - t * L).to(sh.dev), ok[sel].to(sh.dev)))
+            groups.append((t, to_device(o1[sel] - sh.index * L, sh.dev),
+                           to_device(o2[sel] - t * L, sh.dev),
+                           to_device(ok[sel], sh.dev)))
         out.append(groups)
     return out
 
@@ -464,8 +466,10 @@ def ba_solve(residual_fn: Callable,
     # which need not belong together
     cam_of_img = torch.zeros(I, dtype=torch.long, device=dev)
     for sh in shards:
-        cam_of_img[sh.img_idx[sh.valid].to(dev)] = \
-            sh.cam_idx[sh.valid].to(dev)
+        count_on(sh.dev, "sync.mask")
+        img = sh.img_idx[sh.valid]
+        count_on(sh.dev, "sync.mask")
+        cam_of_img[img.to(dev)] = sh.cam_idx[sh.valid].to(dev)
 
     def reduce(parts):
         """The shards' partial results summed onto ``dev``."""
@@ -725,7 +729,9 @@ def ba_solve(residual_fn: Callable,
             up, uc = term(*v)
             return avp - up, avc - uc
 
+        count_on(dev, "sync.inv")      # inv checks its info on the host
         Minv_p = torch.linalg.inv(Hpp_d)
+        count_on(dev, "sync.inv")
         Minv_c = torch.linalg.inv(Hcc_d)
 
         def precond(v):
@@ -854,7 +860,7 @@ def ba_solve(residual_fn: Callable,
                                sysd["gx"]) * xm
             cand = BAState(state.qvec, state.tvec, state.cams,
                            state.xyz + dx)
-            cand_cost = np.float32(cost_at(cand).item())
+            cand_cost = np.float32(host(cost_at(cand), "sync.cost"))
             if cand_cost < cur_cost:
                 state, cur_cost = cand, cand_cost
         return state, cur_cost
@@ -867,12 +873,13 @@ def ba_solve(residual_fn: Callable,
     f32 = np.float32
     carry_sys = not opts.use_inner_iterations
     state = BAState(*(a.to(dev, torch.float32) for a in state0))
-    if carry_sys:
-        sysd = mask_system(eval_chunked(state, with_jac=True))
-        cost0 = f32(sysd["cost"].item())
-    else:
-        sysd = None
-        cost0 = f32(cost_at(state).item())
+    with span("ba.lm.eval"):
+        if carry_sys:
+            sysd = mask_system(eval_chunked(state, with_jac=True))
+            cost0 = f32(host(sysd["cost"], "sync.cost"))
+        else:
+            sysd = None
+            cost0 = f32(host(cost_at(state), "sync.cost"))
     iter_cap = opts.max_iterations if max_iters is None else int(max_iters)
     lam = f32(opts.initial_lambda if lam0 is None else lam0)
     nu = f32(2.0)
@@ -883,66 +890,75 @@ def ba_solve(residual_fn: Callable,
     cg_steps = 0
     done = False
     while it < iter_cap and not done:
-        if not carry_sys:
-            sysd = mask_system(eval_chunked(state, with_jac=True))
-        d_pose, d_cam, d_xyz, pred_t, n_cg = (dense_step if dense else
-                                              schur_step)(sysd, float(lam))
-        cg_steps += n_cg
-        cand = _apply_tangent(state, d_pose, d_cam, d_xyz)
-        if carry_sys:
-            sys_new = mask_system(eval_chunked(cand, with_jac=True))
-            new_cost = f32(sys_new["cost"].item())
-        else:
-            new_cost = f32(cost_at(cand).item())
-        pred = f32(pred_t.item())
-        actual = f32(cost - new_cost)
-        rho = f32(actual / max(pred, f32(1e-30)))
-        if opts.use_nonmonotonic_steps:
-            accept = bool(new_cost < max(window)) and bool(pred > 0)
-        else:
-            accept = bool(actual > 0) and bool(pred > 0)
-        lam_acc = f32(lam * max(f32(1.0 / 3.0),
-                                f32(1.0 - (f32(2.0) * rho - f32(1.0)) ** 3)))
-        lam = f32(np.clip(lam_acc if accept else f32(lam * nu),
-                          opts.min_lambda, opts.max_lambda))
-        nu = f32(2.0) if accept else f32(nu * 2.0)
-        state_before = state
-        if accept:
-            state = cand
-        if opts.use_inner_iterations:
-            if accept:
-                state, cost_after = inner_point_iterations(state, float(lam),
-                                                           new_cost)
+        with span("ba.lm.iter"):
+            if not carry_sys:
+                with span("ba.lm.eval"):
+                    sysd = mask_system(eval_chunked(state, with_jac=True))
+            with span("ba.lm.step"):
+                d_pose, d_cam, d_xyz, pred_t, n_cg = (
+                    dense_step if dense else schur_step)(sysd, float(lam))
+                cg_steps += n_cg
+                cand = _apply_tangent(state, d_pose, d_cam, d_xyz)
+            with span("ba.lm.eval"):
+                if carry_sys:
+                    sys_new = mask_system(eval_chunked(cand, with_jac=True))
+                    new_cost = f32(host(sys_new["cost"], "sync.cost"))
+                else:
+                    new_cost = f32(host(cost_at(cand), "sync.cost"))
+            with span("ba.lm.decide"):
+                pred = f32(host(pred_t, "sync.pred"))
+                actual = f32(cost - new_cost)
+                rho = f32(actual / max(pred, f32(1e-30)))
+                if opts.use_nonmonotonic_steps:
+                    accept = bool(new_cost < max(window)) and bool(pred > 0)
+                else:
+                    accept = bool(actual > 0) and bool(pred > 0)
+                lam_acc = f32(lam * max(f32(1.0 / 3.0), f32(
+                    1.0 - (f32(2.0) * rho - f32(1.0)) ** 3)))
+                lam = f32(np.clip(lam_acc if accept else f32(lam * nu),
+                                  opts.min_lambda, opts.max_lambda))
+                nu = f32(2.0) if accept else f32(nu * 2.0)
+                state_before = state
+                if accept:
+                    state = cand
+            if opts.use_inner_iterations:
+                if accept:
+                    with span("ba.lm.inner"):
+                        state, cost_after = inner_point_iterations(
+                            state, float(lam), new_cost)
+                else:
+                    cost_after = cost
             else:
-                cost_after = cost
-        else:
-            cost_after = new_cost if accept else cost
-            if accept:
-                sysd = sys_new
-        conv = False
-        if accept and opts.parameter_tolerance > 0:
-            ptol = opts.parameter_tolerance
-            step = torch.cat([d_pose.reshape(-1), d_cam.reshape(-1),
-                              d_xyz.reshape(-1)])
-            xn = torch.sqrt(sum(torch.sum(a ** 2) for a in (
-                state_before.tvec, state_before.cams, state_before.xyz))
-                + 1.0)
-            conv = bool(torch.linalg.vector_norm(step) <= ptol * (xn + ptol))
-        if accept and opts.function_tolerance > 0:
-            conv = conv or bool(abs(actual) <= opts.function_tolerance
-                                * max(cost, f32(1e-30)))
-        done = conv or bool(lam >= opts.max_lambda)
-        if accept:
-            window = window[1:] + [cost_after]
-            if cost_after < best_cost:
-                best_state, best_cost = state, cost_after
-        if opts.progress:
-            print(f"  LM iter {it:4d}: cost {float(cost_after):.6g} "
-                  f"(candidate {float(new_cost):.6g}, lambda "
-                  f"{float(lam):.2e}, {'accepted' if accept else 'rejected'}"
-                  f", {n_cg} CG steps)", flush=True)
-        cost = cost_after
-        it += 1
+                cost_after = new_cost if accept else cost
+                if accept:
+                    sysd = sys_new
+            with span("ba.lm.decide"):
+                conv = False
+                if accept and opts.parameter_tolerance > 0:
+                    ptol = opts.parameter_tolerance
+                    step = torch.cat([d_pose.reshape(-1), d_cam.reshape(-1),
+                                      d_xyz.reshape(-1)])
+                    xn = torch.sqrt(sum(torch.sum(a ** 2) for a in (
+                        state_before.tvec, state_before.cams,
+                        state_before.xyz)) + 1.0)
+                    conv = host(torch.linalg.vector_norm(step)
+                                <= ptol * (xn + ptol), "sync.conv")
+                if accept and opts.function_tolerance > 0:
+                    conv = conv or bool(abs(actual) <= opts.function_tolerance
+                                        * max(cost, f32(1e-30)))
+                done = conv or bool(lam >= opts.max_lambda)
+                if accept:
+                    window = window[1:] + [cost_after]
+                    if cost_after < best_cost:
+                        best_state, best_cost = state, cost_after
+                if opts.progress:
+                    print(f"  LM iter {it:4d}: cost {float(cost_after):.6g} "
+                          f"(candidate {float(new_cost):.6g}, lambda "
+                          f"{float(lam):.2e}, "
+                          f"{'accepted' if accept else 'rejected'}"
+                          f", {n_cg} CG steps)", flush=True)
+            cost = cost_after
+            it += 1
     out_state = best_state if best_cost < cost else state
     summary = dict(initial_cost=float(cost0),
                    final_cost=float(min(cost, best_cost)), iterations=it,

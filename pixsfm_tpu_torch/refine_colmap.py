@@ -40,6 +40,7 @@ from .keypoint_adjustment import KeypointAdjuster, build_matching_graph
 from .sfm.model import Reconstruction
 from .util.colmap import (read_keypoints_from_db, read_matches_from_db,
                           write_keypoints_to_db)
+from .util.profiling import span
 
 __all__ = ["PixSfM"]
 
@@ -112,13 +113,14 @@ class PixSfM:
         refined in place and returned with the per-level KA summaries."""
         if not self.keypoint_adjuster.conf.get("apply", True):
             return keypoints, {}
-        if graph is None:
-            graph = build_matching_graph(matches, scores)
-        feature_manager = features_from_graph(
-            self.extractor, image_dir, graph, keypoints,
-            cache_path=cache_path)
-        outputs = self.keypoint_adjuster.refine_multilevel(
-            keypoints, feature_manager, graph)
+        with span("run_ka"):
+            if graph is None:
+                graph = build_matching_graph(matches, scores)
+            feature_manager = features_from_graph(
+                self.extractor, image_dir, graph, keypoints,
+                cache_path=cache_path)
+            outputs = self.keypoint_adjuster.refine_multilevel(
+                keypoints, feature_manager, graph)
         return keypoints, outputs
 
     # -- BA -----------------------------------------------------------------
@@ -128,11 +130,12 @@ class PixSfM:
         summaries. ``image_dir`` as for :meth:`run_ka`."""
         if not self.bundle_adjuster.conf.get("apply", True):
             return {}
-        feature_manager = features_from_reconstruction(
-            self.extractor, reconstruction, image_dir,
-            cache_path=cache_path)
-        return self.bundle_adjuster.refine_multilevel(reconstruction,
-                                                      feature_manager)
+        with span("run_ba"):
+            feature_manager = features_from_reconstruction(
+                self.extractor, reconstruction, image_dir,
+                cache_path=cache_path)
+            return self.bundle_adjuster.refine_multilevel(reconstruction,
+                                                          feature_manager)
 
     # -- DB / model round-trips ---------------------------------------------
     def refine_keypoints_from_db(self, output_path, database_path, image_dir,
