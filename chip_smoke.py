@@ -59,13 +59,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    of 4-8 views (~240 000 observations), poses and points perturbed from
    the truth. The scene's size makes ``_run_ba_cached`` pick the grid
    regime by itself; the LM runs at most ``BA_ITERATIONS`` iterations. The
-   counters are zeroed just before and read just after: K1 and K3a/b/c
-   must have launched, the cost must fall, poses and points stay finite.
+   counters are zeroed just before and read just after: K1, K3a/b/c and
+   K4 (the fused evaluation, ``ops/ba_eval_cuda.py``, one launch an LM
+   evaluation) must have launched, the cost must fall, poses and points
+   stay finite. Then K4 on the inputs of its first launch there: each mode
+   timed on the whole observation axis, and against its plain version on
+   the first ``K4_SLICE`` slots within ``K4_RTOL`` / ``K4_SCALE``.
 10. Where the BA time goes: the same BA again, extraction and references +
    solve (``BA_PROFILE_ITERATIONS`` LM iterations) under ``torch.profiler``:
    device-busy time, idle share, the top kernels and the in-situ time per
-   launch of K1 and K3a/b/c (a kernel that launched and has no in-situ
-   figure fails the run). K3b must show its fused variant only.
+   launch of K1, K3a/b/c and K4 (a kernel that launched and has no in-situ
+   figure fails the run; K1's figure is the references' reads alone, K4
+   making the LM's). K3b must show its fused variant only.
 11. The triangulation main path at full width: the body of
    ``PixSfM.triangulation`` (KA -> triangulation with known poses -> BA,
    default config, BA capped at ``BA_ITERATIONS``) on 24 rendered
@@ -73,7 +78,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    true projections plus N(0, 1 px), matches over every view pair within
    each track (score 1), the true poses and intrinsics as the reference
    model (written and read back). Counters zeroed just before and read
-   just after: K1 and K2 must have launched, the BA must take the flat CG
+   just after: K1, K2 and K4 must have launched, the BA must take the flat CG
    layout and lower its cost, the points stay finite and at least
    ``TRI_MIN_SURVIVING`` of the tracks survive. Then the same path under
    the profiler (BA capped at ``BA_PROFILE_ITERATIONS``), and K1 timed at
@@ -385,7 +390,12 @@ with phase 2's figures at the KA shape; ``"public_api"``: the launches of
 ``bicubic_window_eval`` and each call's in ``by_call``); K2's and
 K3a/b/c's entries sum their launches over the paths and list them in ``launches_by_path`` (K3's ``in_situ_low_memory_ms``
 from 19(c); K2's ``features_rest``: its figures on 25(b)'s first launch);
-and last ``{"ok": true, "device": {...}}``.
+K4's entry has its launches by path, its in-situ times of phases 10, 11
+and 16, and phase 9's figures: ``ms`` and ``plain_ms`` per mode (the plain
+version's timed on its slice and scaled to the axis), ``excess`` per mode
+and result (beyond ``K4_RTOL``, in units of the plain result's largest
+entry) and the byte bound of the axis; and last ``{"ok": true, "device":
+{...}}``.
 
 The weights are each model's deterministic random init (no checkpoint
 ships with the repository); the scenes are made from seeds with numpy.
@@ -413,6 +423,12 @@ BA_ITERATIONS = 8
 # NVIDIA H100 80GB HBM3 at 700 W): cut from 2 to 1 to make room for phase 25
 BA_PROFILE_ITERATIONS = 1
 BA_PROFILE_ITERATIONS_BEFORE = 2
+# K4 (phase 9) against its plain version on the first K4_SLICE slots of the
+# main path's observation axis: each result within K4_RTOL of itself and
+# K4_SCALE of the plain result's largest entry, the card tests' limits
+# (tests/test_torch_ba_fused.py; 1.4e-5 needed here on an H100)
+K4_SLICE = 65536
+K4_RTOL, K4_SCALE = 1e-3, 5e-5
 # least share of the triangulation scene's tracks that must survive the
 # acceptance rules (8000 of 8000 on an H100 with 1 px keypoint noise and the
 # default 4 px limit; fixed here with a margin)
@@ -1297,6 +1313,72 @@ def _took_variant(kern, key, want, other):
     if not any(want in n for n in names) or any(other in n for n in names):
         raise SystemExit(f"{key}: the main path did not take {want} alone")
     print(f"{key}: the main path launched {want} only")
+
+
+def capture_k4(ba_eval_cuda):
+    """Keep the arguments of the next K4 launch (``ba_eval_cuda.ba_eval``,
+    which the adjuster calls through the module): (the kept dict, a
+    function that restores the module)."""
+    orig = ba_eval_cuda.ba_eval
+    seen = {}
+
+    def kept(*args):
+        seen.setdefault("args", args)
+        return orig(*args)
+
+    ba_eval_cuda.ba_eval = kept
+
+    def restore():
+        ba_eval_cuda.ba_eval = orig
+    return seen, restore
+
+
+def check_k4(torch, ba_eval_cuda, args):
+    """K4 on a main path's own inputs (``args``: those of one of its
+    launches): each mode timed on the whole observation axis, then against
+    the plain version on the first ``K4_SLICE`` slots (the plain version
+    holds [n, 16, C] reads), each result within ``K4_RTOL`` of itself and
+    ``K4_SCALE`` of the plain result's largest entry; the plain version's
+    time there scaled to the axis; the byte bound of the axis (16 taps of C
+    channels and a float32 target row a valid slot, the validity byte and
+    four int64 indices a slot)."""
+    _, model, interp, loss, state, *axis, patches = args
+    img, cam, pt, valid, row, target = axis
+    n, C = img.shape[0], patches.rows.shape[-1]
+    n_valid = int(valid.sum())
+    bound_ms, bound_by = _bound(
+        n_valid * (16 * C * patches.rows.element_size() + 4 * C)
+        + n * (1 + 4 * 8), 0)
+    part = [a[:K4_SLICE] for a in axis]
+    out = {"slots": n, "valid_slots": n_valid, "channels": C,
+           "storage": str(patches.rows.dtype).replace("torch.", ""),
+           "model": model, "check_bounds": bool(interp.check_bounds),
+           "l2": bool(interp.l2_normalize), "loss": loss.name,
+           "compared_slots": part[0].shape[0], "ms": {}, "plain_ms": {},
+           "excess": {}, "bound_ms": bound_ms, "bound_by": bound_by}
+    for mode in ba_eval_cuda.MODES:
+        out["ms"][mode] = _time_ms(lambda: ba_eval_cuda.ba_eval(
+            mode, model, interp, loss, state, *axis, patches))
+        got = ba_eval_cuda.ba_eval(mode, model, interp, loss, state, *part,
+                                   patches)
+        ref = ba_eval_cuda.ba_eval_plain(mode, model, interp, loss, state,
+                                         *part, patches)
+        # the least multiple of the largest plain entry that admits each
+        # entry beyond K4_RTOL of itself
+        excess = {}
+        for key, want in ref.items():
+            d = (got[key] - want).abs() - K4_RTOL * want.abs()
+            excess[key] = float(d.max()) / max(float(want.abs().max()), 1.0)
+        out["excess"][mode] = excess
+        out["plain_ms"][mode] = _time_ms(lambda: ba_eval_cuda.ba_eval_plain(
+            mode, model, interp, loss, state, *part, patches),
+            reps=3, warmup=1) * n / part[0].shape[0]
+        if not all(e <= K4_SCALE for e in excess.values()):
+            raise SystemExit(f"K4 ({mode}) disagrees with its plain version "
+                             f"on the main path's inputs: {excess} (limit "
+                             f"{K4_SCALE} of the largest entry beyond "
+                             f"rtol {K4_RTOL})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2816,6 +2898,8 @@ def detector_agreement(np, a, b, stride=1, offset=0.0):
 def kernel_counts(torch, interpolate_cuda, cg_cuda, schur_cuda):
     """(zero, read): set every kernel's launch count to 0 / read them all,
     each after the queued work has finished."""
+    from pixsfm_tpu_torch.ops import ba_eval_cuda
+
     def zero():
         torch.cuda.synchronize()
         interpolate_cuda.launches = 0
@@ -2823,13 +2907,15 @@ def kernel_counts(torch, interpolate_cuda, cg_cuda, schur_cuda):
         cg_cuda.launches = 0
         for name in schur_cuda.launches:
             schur_cuda.launches[name] = 0
+        ba_eval_cuda.launches = 0
 
     def read():
         torch.cuda.synchronize()
         return {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches,
                 "K3a": schur_cuda.launches["matvec"],
                 "K3b": schur_cuda.launches["rhs"],
-                "K3c": schur_cuda.launches["backsub"]}
+                "K3c": schur_cuda.launches["backsub"],
+                "K4": ba_eval_cuda.launches}
 
     return zero, read
 
@@ -4590,7 +4676,8 @@ def main() -> int:
     import numpy as np
 
     from pixsfm_tpu_torch import kernels
-    from pixsfm_tpu_torch.ops import cg_cuda, interpolate_cuda, schur_cuda
+    from pixsfm_tpu_torch.ops import (ba_eval_cuda, cg_cuda, interpolate_cuda,
+                                      schur_cuda)
     from pixsfm_tpu_torch.refine_hloc import PixSfM
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4767,6 +4854,8 @@ def main() -> int:
     cg_cuda.launches = 0
     for name in schur_cuda.launches:
         schur_cuda.launches[name] = 0
+    ba_eval_cuda.launches = 0
+    k4_seen, k4_restore = capture_k4(ba_eval_cuda)
     mem_base_ba = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4774,10 +4863,12 @@ def main() -> int:
     torch.cuda.synchronize()
     wall_ba = time.perf_counter() - t0
     mem_peak_ba = torch.cuda.max_memory_allocated() - mem_base_ba
+    k4_restore()
     launches_ba = {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches,
                    "K3a": schur_cuda.launches["matvec"],
                    "K3b": schur_cuda.launches["rhs"],
-                   "K3c": schur_cuda.launches["backsub"]}
+                   "K3c": schur_cuda.launches["backsub"],
+                   "K4": ba_eval_cuda.launches}
     ob = {k: v[0] for k, v in out_ba.items()}
     t_solve, t_refs = ob["time"], ob["references_time"]
     err1 = point_error(np, rec, truth)
@@ -4801,9 +4892,20 @@ def main() -> int:
         raise SystemExit(f"the grid regime was not chosen: {ob}")
     if not ob["final_cost"] < ob["initial_cost"]:
         raise SystemExit("BA cost did not fall")
-    if min(launches_ba[k] for k in ("K1", "K3a", "K3b", "K3c")) <= 0:
+    if min(launches_ba[k] for k in ("K1", "K3a", "K3b", "K3c", "K4")) <= 0:
         raise SystemExit(f"a kernel did not launch on the BA main path: "
                          f"{launches_ba}")
+    # K4 on the inputs of its first launch there (the initial cost), each
+    # mode; the kept patch rows (~16 GB) go before phase 10
+    k4 = check_k4(torch, ba_eval_cuda, k4_seen.pop("args"))
+    print(f"phase 9: K4 on the main path's inputs ({k4['slots']} slots, "
+          f"{k4['valid_slots']} valid, {k4['storage']} rows of "
+          f"{k4['channels']} channels, {k4['model']}, loss {k4['loss']}, "
+          f"L2 {k4['l2']}, check_bounds {k4['check_bounds']}): ms a launch "
+          f"{k4['ms']}, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}); "
+          f"plain version on {k4['compared_slots']} slots, scaled to the "
+          f"axis, {k4['plain_ms']} ms; excess over rtol {K4_RTOL} in units "
+          f"of the largest plain entry {k4['excess']} (limit {K4_SCALE})")
 
     # -- phase 10: where the BA time goes (a second run, not counted) ---------
     from pixsfm_tpu_torch.extract import features_from_reconstruction
@@ -4834,8 +4936,10 @@ def main() -> int:
     in_situ = _in_situ(kern_bap, {"K3a": "matvec_kernel",
                                   "K3b": "rhs_kernel",
                                   "K3c": "backsub_kernel",
-                                  "K1": "interp_kernel"}, launches_ba)
-    print(f"phase 10: in-situ device ms per launch {in_situ}")
+                                  "K1": "interp_kernel",
+                                  "K4": "ba_eval_fused"}, launches_ba)
+    print(f"phase 10: in-situ device ms per launch {in_situ} (K1's: the "
+          f"references' reads alone, as K4 makes every LM evaluation's)")
     _took_variant(kern_bap, "K3b", "rhs_kernel_fused", "rhs_kernel_onepass")
     if args.profile_out:
         with open(Path(args.profile_out) / "chip_smoke_profile.txt",
@@ -4881,6 +4985,7 @@ def main() -> int:
     cg_cuda.launches = 0
     for name in schur_cuda.launches:
         schur_cuda.launches[name] = 0
+    ba_eval_cuda.launches = 0
     t0 = time.perf_counter()
     rec_t, out_t = sfm_tri._triangulation(
         tmp / "triangulated", reference, views_t,
@@ -4890,7 +4995,8 @@ def main() -> int:
     launches_tri = {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches,
                     "K3a": schur_cuda.launches["matvec"],
                     "K3b": schur_cuda.launches["rhs"],
-                    "K3c": schur_cuda.launches["backsub"]}
+                    "K3c": schur_cuda.launches["backsub"],
+                    "K4": ba_eval_cuda.launches}
     oka = {k: v[0] for k, v in out_t["KA"].items()}
     oba = {k: v[0] for k, v in out_t["BA"].items()}
     t_tri = out_t["triangulation"]["time"]
@@ -4928,8 +5034,8 @@ def main() -> int:
     if not survived >= TRI_MIN_SURVIVING:
         raise SystemExit(f"only {survived:.4f} of the tracks survived "
                          f"triangulation (limit {TRI_MIN_SURVIVING})")
-    if min(launches_tri["K1"], launches_tri["K2"]) <= 0:
-        raise SystemExit(f"K1 or K2 did not launch on the triangulation "
+    if min(launches_tri["K1"], launches_tri["K2"], launches_tri["K4"]) <= 0:
+        raise SystemExit(f"K1, K2 or K4 did not launch on the triangulation "
                          f"path: {launches_tri}")
     # where the time goes: the path again under the profiler, BA capped at
     # BA_PROFILE_ITERATIONS (a second run, not counted)
@@ -4950,7 +5056,8 @@ def main() -> int:
         print(f"  triangulation path: {dev_ms:9.3f} ms in {calls:6d} "
               f"launches  {name[:90]}")
     in_situ_tri = _in_situ(kern_trp, {"K1": "interp_kernel",
-                                      "K2": "pcg_kernel"}, launches_tri)
+                                      "K2": "pcg_kernel",
+                                      "K4": "ba_eval_fused"}, launches_tri)
     print(f"phase 11: in-situ device ms per launch {in_situ_tri}")
     if args.profile_out:
         with open(Path(args.profile_out) / "chip_smoke_profile.txt",
@@ -5166,6 +5273,7 @@ def main() -> int:
     cg_cuda.launches = 0
     for name in schur_cuda.launches:
         schur_cuda.launches[name] = 0
+    ba_eval_cuda.launches = 0
     t0 = time.perf_counter()
     rec_r, out_r = sfm_rc._reconstruction(
         tmp / "reconstruction", views_r,
@@ -5175,7 +5283,8 @@ def main() -> int:
     launches_rc = {"K1": interpolate_cuda.launches, "K2": cg_cuda.launches,
                    "K3a": schur_cuda.launches["matvec"],
                    "K3b": schur_cuda.launches["rhs"],
-                   "K3c": schur_cuda.launches["backsub"]}
+                   "K3c": schur_cuda.launches["backsub"],
+                   "K4": ba_eval_cuda.launches}
     oka_r = {k: v[0] for k, v in out_r["KA"].items()}
     oba_r = {k: v[0] for k, v in out_r["BA"].items()}
     osfm = out_r["SfM"]
@@ -5278,7 +5387,8 @@ def main() -> int:
         print(f"  reconstruction path: {dev_ms:9.3f} ms in {calls:7d} "
               f"launches  {name[:90]}")
     in_situ_rc = _in_situ(kern_rcp, {"K1": "interp_kernel",
-                                     "K2": "pcg_kernel"}, launches_rc)
+                                     "K2": "pcg_kernel",
+                                     "K4": "ba_eval_fused"}, launches_rc)
     print(f"phase 16: in-situ device ms per launch {in_situ_rc}")
     if args.profile_out:
         with open(Path(args.profile_out) / "chip_smoke_profile.txt",
@@ -5404,7 +5514,7 @@ def main() -> int:
              "features_rest": launches_fr, "default_preset": launches_dp,
              "public_api": {"K1": sum(launches_api.values())}}
     both = {k: sum(n.get(k, 0) for n in paths.values())
-            for k in ("K1", "K2", "K3a", "K3b", "K3c")}
+            for k in ("K1", "K2", "K3a", "K3b", "K3c", "K4")}
     print(f"launches on the main paths: {paths}")
     kernels_line = {"kernels": [
         dict(name="bicubic_window_interp_l2", path="KA", route="cuda",
@@ -5554,6 +5664,15 @@ def main() -> int:
                                for n, c in paths.items()},
              library_ms=None, in_situ_ms=in_situ["K3c"],
              in_situ_low_memory_ms=in_situ_lm.get("K3c"), **k3["K3c"]),
+        dict(name="ba_eval_fused", route="cuda",
+             source="pixsfm_tpu_torch/kernels/csrc/ba_eval.cu",
+             replaces=None, launches=both["K4"],
+             launches_by_path={n: c.get("K4", 0)
+                               for n, c in paths.items()},
+             library_ms=None, in_situ_ms=in_situ["K4"],
+             in_situ_triangulation_ms=in_situ_tri.get("K4"),
+             in_situ_reconstruction_ms=in_situ_rc.get("K4"),
+             timed_at="phase 9's observation axis", **k4),
     ]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

@@ -60,7 +60,7 @@ from ..base.losses import make_loss
 from ..base.projection import project_with_jac
 from ..config import merge
 from ..features.featuremaps import FeatureView
-from ..ops import schur
+from ..ops import ba_eval_cuda, schur
 from ..ops.interpolate_cuda import interpolate, interpolate_fwd
 from ..util.misc import bucket
 from ..util.profiling import host, span, to_device
@@ -355,6 +355,20 @@ def _build_feature_reference_jac(model, interp: InterpolationConfig):
     return residual_jac_fn
 
 
+def _build_feature_reference_fused(model, interp: InterpolationConfig, ctx,
+                                   loss):
+    """The whole-axis evaluator of ``feature_reference`` that
+    :func:`ops.schur.ba_solve` takes in place of its chunk loop: one launch
+    of kernel K4 (``ops/ba_eval_cuda.ba_eval``) per evaluation, for inputs
+    that ``ba_eval_cuda.takes`` accepts."""
+    def fused_eval(state, sh, mode):
+        row, target = sh.obs_data
+        return ba_eval_cuda.ba_eval(mode, model, interp, loss, state,
+                                    sh.img_idx, sh.cam_idx, sh.pt_idx,
+                                    sh.valid, row, target, ctx)
+    return fused_eval
+
+
 def _build_costmap(model, interp: InterpolationConfig):
     def residual_fn(qvec, tvec, cam, X, obs_slice, ctx):
         m, (row,), mi = _split_models(model, obs_slice, 1)
@@ -619,12 +633,22 @@ class BundleAdjuster:
         free = (put(packed.pose_free), put(packed.tvec_free),
                 put(packed.cam_free), put(point_free))
         build, build_jac = _RESIDUAL_BUILDERS[residual_key[0]]
+        # K4 evaluates feature_reference on one device where it takes the
+        # inputs (ba_eval_cuda.takes: one camera model of its four, BICUBIC
+        # at the single node without NCC, a loss it knows, bf16 / f32 patch
+        # rows of 64 / 128 channels on the card); every other residual, a
+        # mesh and every other input keep ba_solve's chunk loop
+        fused_eval = (_build_feature_reference_fused(*residual_key[1:], ctx,
+                                                     loss)
+                      if residual_key[0] == "feature_reference"
+                      and mesh is None and ba_eval_cuda.takes(
+                          *residual_key[1:], loss, ctx.rows) else None)
 
         def solve(state, opts, **kw):
             return ba_solve(
                 build(*residual_key[1:]), state, obs, loss, *free, opts=opts,
                 ctx=ctx, residual_jac_fn=build_jac(*residual_key[1:]),
-                mesh=mesh, **kw)
+                mesh=mesh, fused_eval=fused_eval, **kw)
 
         return solve, state0, opts, Np
 

@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "load", "build_all", "nvcc_path"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("interpolate", "pcg", "schur")
+SOURCES = ("interpolate", "pcg", "schur", "ba_eval")
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 

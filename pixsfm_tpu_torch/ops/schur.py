@@ -69,7 +69,7 @@ import torch
 
 from ..base.geometry import exp_quat, quat_mul, quat_normalize
 from ..parallel.sharded import replicate, shard_bounds, sum_onto
-from ..util.profiling import count_on, host, span, to_device
+from ..util.profiling import count, count_on, host, span, to_device
 from . import schur_cuda
 
 __all__ = ["BAOptions", "BAState", "BAObservations", "ba_solve",
@@ -383,6 +383,91 @@ def _pair_shards(obs: BAObservations, shards: List[_Shard]):
     return out
 
 
+def _eval_chunks(residual_fn: Callable, residual_jac_fn: Callable, loss,
+                 state: BAState, sh: _Shard, I: int, with_jac: bool,
+                 points_only: bool) -> Dict:
+    """The chunk loop of :func:`ba_solve`'s evaluation: shard ``sh``'s
+    observations (``state`` on its device) in chunks of its ``bounds``,
+    each through ``residual_fn`` (cost only) or ``residual_jac_fn`` and the
+    Gram matrix ``G = w [J | r]^T [J | r]`` of each observation -> its cost
+    and, with the Jacobian, each observation's point rows ``ptv [n, 12]``
+    (point block and gradient); unless ``points_only`` also the camera-
+    point blocks ``B [n, NR, 3]``, the image rows ``img [I, ...]`` and
+    camera rows ``cam [Nc, k*k+k]`` summed over the observations (and, with
+    a source pose, the camera-side blocks ``Aob``)."""
+    has_src = sh.src_idx is not None
+    Nc, k = state.cams.shape
+    PB = 12 if has_src else 6
+    NR = PB + k
+
+    def gather(state, sh, s, e):
+        """The arguments of the residual functions for chunk [s, e) of
+        shard ``sh`` (``state`` on the shard's device)."""
+        src = ((state.qvec[sh.src_idx[s:e]], state.tvec[sh.src_idx[s:e]])
+               if has_src else ())
+        return (state.qvec[sh.img_idx[s:e]], state.tvec[sh.img_idx[s:e]],
+                *src, state.cams[sh.cam_idx[s:e]],
+                state.xyz[sh.pt_idx[s:e]],
+                tuple(a[s:e] for a in sh.obs_data), sh.ctx)
+
+    d, n_sh = sh.dev, sh.img_idx.shape[0]
+    cost = torch.zeros((), dtype=torch.float32, device=d)
+    out: Dict = {}
+    if with_jac:
+        img_acc = torch.zeros((I, 42 if has_src else 42 + 6 * k),
+                              device=d)
+        cam_acc = torch.zeros((Nc, k * k + k), device=d)
+        ptv = torch.zeros((n_sh, 12), device=d)
+        B = torch.empty((n_sh, NR, 3), device=d)
+        if has_src and not points_only:
+            Aob = torch.empty((n_sh, NR, NR), device=d)
+    for s, e in sh.bounds:
+        args = gather(state, sh, s, e)
+        vm = sh.valid[s:e]
+        if with_jac:
+            r, J = residual_jac_fn(*args)
+        else:
+            r = residual_fn(*args)
+        sq = torch.sum(r * r, dim=-1)
+        cost = cost + 0.5 * torch.sum(torch.where(
+            vm, loss(sq), torch.zeros_like(sq)))
+        if not with_jac:
+            continue
+        w = torch.where(vm, loss.weight(sq), torch.zeros_like(sq))
+        Ja = torch.where(vm[:, None, None],                   # [n, C, nj]
+                         torch.cat([J, r[..., None]], dim=-1), 0.0)
+        G = torch.einsum("nci,ncj->nij", Ja * w[:, None, None], Ja)
+        n = e - s
+        px, xe = NR, NR + 3                                    # xe: r col
+        ptv[s:e] = torch.cat([G[:, px:xe, px:xe].reshape(n, 9),
+                              G[:, px:xe, xe]], dim=1)
+        if points_only:
+            continue
+        if has_src:
+            img_acc.index_add_(0, sh.img_idx[s:e], torch.cat([
+                G[:, :6, :6].reshape(n, 36), G[:, :6, xe]], dim=1))
+            img_acc.index_add_(0, sh.src_idx[s:e], torch.cat([
+                G[:, 6:12, 6:12].reshape(n, 36), G[:, 6:12, xe]], dim=1))
+            Aob[s:e] = G[:, :px, :px]
+        else:
+            img_acc.index_add_(0, sh.img_idx[s:e], torch.cat([
+                G[:, :6, :6].reshape(n, 36), G[:, :6, xe],
+                G[:, :6, 6:px].reshape(n, 6 * k)], dim=1))
+        cam_acc.index_add_(0, sh.cam_idx[s:e], torch.cat([
+            G[:, PB:px, PB:px].reshape(n, k * k), G[:, PB:px, xe]],
+            dim=1))
+        B[s:e] = G[:, :px, px:xe]
+    out["cost"] = cost
+    if not with_jac:
+        return out
+    out["ptv"] = ptv
+    if not points_only:
+        out.update(img=img_acc, cam=cam_acc, B=B)
+        if has_src:
+            out["Aob"] = Aob
+    return out
+
+
 def ba_solve(residual_fn: Callable,
              state0: BAState,
              obs: BAObservations,
@@ -396,7 +481,8 @@ def ba_solve(residual_fn: Callable,
              residual_jac_fn: Optional[Callable] = None,
              lam0=None,
              max_iters=None,
-             mesh=None) -> Tuple[BAState, Dict]:
+             mesh=None,
+             fused_eval: Optional[Callable] = None) -> Tuple[BAState, Dict]:
     """Run the Schur LM on the device of ``state0``.
 
     ``residual_fn(q [n, 4], t [n, 3], cam [n, k], X [n, 3], obs_slice,
@@ -420,6 +506,15 @@ def ba_solve(residual_fn: Callable,
     product over the observations, are summed onto the first device, where
     the parameters and the camera-side solve live. The flat regime only,
     as in the JAX package: no grid layout, so K3 is not reached.
+
+    ``fused_eval(state, shard, mode)``: a whole-shard evaluator in place of
+    the chunk loop (``_eval_chunks``), for a single shard without
+    ``src_idx`` (anything else raises): ``mode`` is ``"cost"``, ``"points"`` or ``"full"`` and it
+    returns what ``_eval_chunks`` returns for that mode (the fused feature-
+    reference evaluation, ``ops/ba_eval_cuda.ba_eval``, kernel K4, which
+    ``bundle_adjustment/main.py`` hands over where it takes the inputs).
+    Each evaluation counts one under ``ba.eval.fused`` or
+    ``ba.eval.chunked`` (``util/profiling.count``).
 
     Returns the best state and a summary ``{initial_cost, final_cost,
     iterations, cg_iterations, lam, done}``."""
@@ -452,6 +547,9 @@ def ba_solve(residual_fn: Callable,
     if grid_T > 0 and len(shards) > 1:
         raise ValueError("the grid layout takes no mesh: a sharded "
                          "observation axis runs the flat regime")
+    if fused_eval is not None and (len(shards) > 1 or has_src):
+        raise ValueError("fused_eval evaluates one shard without a source "
+                         "pose: a mesh or src_idx runs the chunk loop")
     pose_free = pose_free.to(dev).bool()
     pose_mask6 = torch.cat([pose_free[:, None].expand(I, 3),
                             tvec_free.to(dev).bool() & pose_free[:, None]],
@@ -475,78 +573,28 @@ def ba_solve(residual_fn: Callable,
         """The shards' partial results summed onto ``dev``."""
         return sum_onto(parts, dev)
 
-    def gather(state, sh, s, e):
-        """The arguments of the residual functions for chunk [s, e) of
-        shard ``sh`` (``state`` on the shard's device)."""
-        src = ((state.qvec[sh.src_idx[s:e]], state.tvec[sh.src_idx[s:e]])
-               if has_src else ())
-        return (state.qvec[sh.img_idx[s:e]], state.tvec[sh.img_idx[s:e]],
-                *src, state.cams[sh.cam_idx[s:e]],
-                state.xyz[sh.pt_idx[s:e]],
-                tuple(a[s:e] for a in sh.obs_data), sh.ctx)
-
     def eval_shard(state, sh, with_jac: bool, points_only: bool):
-        """Chunked per-observation eval of one shard on its device -> its
-        cost (+ its partial normal equations and observation blocks)."""
-        d, n_sh = sh.dev, sh.img_idx.shape[0]
-        cost = torch.zeros((), dtype=torch.float32, device=d)
-        out: Dict = {}
-        if with_jac:
-            img_acc = torch.zeros((I, 42 if has_src else 42 + 6 * k),
-                                  device=d)
-            cam_acc = torch.zeros((Nc, k * k + k), device=d)
-            ptv = torch.zeros((n_sh, 12), device=d)
-            B = torch.empty((n_sh, NR, 3), device=d)
-            if has_src and not points_only:
-                Aob = torch.empty((n_sh, NR, NR), device=d)
-        for s, e in sh.bounds:
-            args = gather(state, sh, s, e)
-            vm = sh.valid[s:e]
-            if with_jac:
-                r, J = residual_jac_fn(*args)
-            else:
-                r = residual_fn(*args)
-            sq = torch.sum(r * r, dim=-1)
-            cost = cost + 0.5 * torch.sum(torch.where(
-                vm, loss(sq), torch.zeros_like(sq)))
-            if not with_jac:
-                continue
-            w = torch.where(vm, loss.weight(sq), torch.zeros_like(sq))
-            Ja = torch.where(vm[:, None, None],                   # [n, C, nj]
-                             torch.cat([J, r[..., None]], dim=-1), 0.0)
-            G = torch.einsum("nci,ncj->nij", Ja * w[:, None, None], Ja)
-            n = e - s
-            px, xe = NR, NR + 3                                    # xe: r col
-            ptv[s:e] = torch.cat([G[:, px:xe, px:xe].reshape(n, 9),
-                                  G[:, px:xe, xe]], dim=1)
-            if points_only:
-                continue
-            if has_src:
-                img_acc.index_add_(0, sh.img_idx[s:e], torch.cat([
-                    G[:, :6, :6].reshape(n, 36), G[:, :6, xe]], dim=1))
-                img_acc.index_add_(0, sh.src_idx[s:e], torch.cat([
-                    G[:, 6:12, 6:12].reshape(n, 36), G[:, 6:12, xe]], dim=1))
-                Aob[s:e] = G[:, :px, :px]
-            else:
-                img_acc.index_add_(0, sh.img_idx[s:e], torch.cat([
-                    G[:, :6, :6].reshape(n, 36), G[:, :6, xe],
-                    G[:, :6, 6:px].reshape(n, 6 * k)], dim=1))
-            cam_acc.index_add_(0, sh.cam_idx[s:e], torch.cat([
-                G[:, PB:px, PB:px].reshape(n, k * k), G[:, PB:px, xe]],
-                dim=1))
-            B[s:e] = G[:, :px, px:xe]
-        out["cost"] = cost
+        """Per-observation eval of one shard on its device -> its cost (+
+        its partial normal equations and observation blocks): one call of
+        ``fused_eval`` where it is given, else the chunk loop."""
+        if fused_eval is not None:
+            raw = fused_eval(state, sh, "full" if with_jac and not points_only
+                             else "points" if with_jac else "cost")
+        else:
+            raw = _eval_chunks(residual_fn, residual_jac_fn, loss, state, sh,
+                               I, with_jac, points_only)
+        out: Dict = {"cost": raw["cost"]}
         if not with_jac:
             return out
         if grid_T > 0:       # point-major slots: a reshape-sum per point
-            out["pt"] = ptv.reshape(Np, grid_T, 12).sum(1)
+            out["pt"] = raw["ptv"].reshape(Np, grid_T, 12).sum(1)
         else:
-            out["pt"] = torch.zeros((Np, 12), device=d).index_add_(
-                0, sh.pt_idx, ptv)
+            out["pt"] = torch.zeros((Np, 12), device=sh.dev).index_add_(
+                0, sh.pt_idx, raw["ptv"])
         if not points_only:
-            out.update(img=img_acc, cam=cam_acc, B=B)
+            out.update(img=raw["img"], cam=raw["cam"], B=raw["B"])
             if has_src:
-                out["Aob"] = Aob
+                out["Aob"] = raw["Aob"]
         return out
 
     def eval_chunked(state: BAState, with_jac: bool,
@@ -555,6 +603,7 @@ def ba_solve(residual_fn: Callable,
         equations, summed over the shards onto ``dev``; the per-
         observation blocks ``B`` / ``Aob`` stay on their shards, one entry
         per shard)."""
+        count("ba.eval.chunked" if fused_eval is None else "ba.eval.fused")
         parts = [eval_shard(replicate(state, sh.dev), sh, with_jac,
                             points_only) for sh in shards]
         out: Dict = {"cost": reduce([p["cost"] for p in parts])}

@@ -28,6 +28,7 @@ in ``tests/test_torch_ba_cli.py``, ``test_torch_costmap_truth.py`` and
 """
 
 import dataclasses
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -477,6 +478,72 @@ def test_feature_reference_refine_matches(monkeypatch, multilevel):
     for iid, im in jrec.images.items():
         np.testing.assert_allclose(trec.images[iid].qvec, im.qvec, atol=1e-3)
         np.testing.assert_allclose(trec.images[iid].tvec, im.tvec, atol=1e-3)
+
+
+def _jax_k4_record(monkeypatch):
+    """The JAX package's run behind ``tests/ba_fused_jax_record.json``:
+    ``featuremetric_scene`` at 128 channels (a width K4 reads) perturbed as
+    above, refined by JAX's adjuster on the grid layout with CG steps ->
+    ``(record, jrec, jfset)``, ``jrec`` the perturbed input."""
+    from tests.test_torch_ba_fused import (grid_cg_options, jax_record_conf,
+                                           refined)
+    jrec, jfset = featuremetric_scene(seed=6, n_images=4, n_points=40,
+                                      C=128)
+    perturb(jrec, np.random.default_rng(6), pose_rot=0.002, pose_t=0.01,
+            point_sigma=0.02)
+    record = {"input": {k: v for k, v in refined(jrec, {
+        "initial_cost": 0.0, "final_cost": 0.0}).items()
+        if k in ("qvec", "tvec", "xyz")}}
+    record["input"]["xys"] = {str(i): im.xys.tolist()
+                              for i, im in jrec.images.items()}
+    monkeypatch.setattr(jschur, "_ONEHOT_BUDGET", 1)
+    rec = jrec.copy()
+    adj = JFR(jax_record_conf())
+    grid_cg_options(adj)
+    record["output"] = refined(rec, adj.refine(rec, jfset))
+    return record, jrec, jfset
+
+
+def test_jax_record_of_k4_scene(monkeypatch):
+    """``tests/ba_fused_jax_record.json``, by which the card holds K4's whole
+    solve to the JAX package (``tests/test_torch_ba_fused.py::
+    test_k4_refine_matches_jax_record``), is what JAX gives now (1e-5 of the
+    costs, 1e-5 on the parameters); its scene, built there without JAX, is
+    JAX's; and the port's chunk loop on the CPU reaches it at this file's
+    parity tolerances (costs rtol 1e-4, poses and points atol 1e-3)."""
+    from tests.test_torch_ba_fused import (JAX_RECORD, assert_refined_close,
+                                           grid_cg_options, jax_record_conf,
+                                           jax_record_scene, refined)
+    with open(JAX_RECORD) as fh:
+        want = json.load(fh)
+    got, jrec, jfset = _jax_k4_record(monkeypatch)
+    for key in ("qvec", "tvec", "xyz", "xys"):
+        assert got["input"][key] == want["input"][key], key
+    assert_refined_close(got["output"], want["output"], rtol=1e-5,
+                         atol=1e-5)
+    trec, tfset = jax_record_scene(want)
+    want_rec, want_fset = _to_port(jrec), _port_fset(jfset, 128, 16)
+    for iid, im in want_rec.images.items():
+        np.testing.assert_array_equal(trec.images[iid].xys, im.xys)
+        np.testing.assert_array_equal(trec.images[iid].point3D_ids,
+                                      im.point3D_ids)
+        np.testing.assert_array_equal(trec.images[iid].qvec, im.qvec)
+        np.testing.assert_array_equal(trec.images[iid].tvec, im.tvec)
+        np.testing.assert_array_equal(
+            tfset.maps[im.name].patches.numpy(),
+            want_fset.maps[im.name].patches.numpy())
+        np.testing.assert_array_equal(tfset.maps[im.name].corners,
+                                      want_fset.maps[im.name].corners)
+    for pid, p in want_rec.points3D.items():
+        np.testing.assert_array_equal(trec.points3D[pid].xyz, p.xyz)
+        assert trec.points3D[pid].track == p.track
+    monkeypatch.setattr(tschur, "_ONEHOT_BUDGET", 1)
+    rec = trec.copy()
+    adj = FeatureReferenceBundleAdjuster(jax_record_conf(), device="cpu")
+    grid_cg_options(adj)
+    out = adj.refine(rec, tfset)
+    assert out["obs_grid_T"] > 0
+    assert_refined_close(refined(rec, out), want["output"])
 
 
 # ---------------------------------------------------------------------------
